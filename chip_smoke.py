@@ -5,21 +5,35 @@ no result line):
 
 1. toolchain: the card's name and power limit, CUDA, nvcc, triton;
 2. build the hand-written kernels from genomic_pca_tpu_torch/csrc/;
-3. each of the four kernels against its plain PyTorch version on the
-   card, at the main path's shapes (262,144 SNPs x 2,048 samples, L = 128;
-   L = k = 10 for the loadings product) and at a ragged shape (70,001 x
-   2,504), with CUDA-event median times of kernel and plain version;
-4. the main path, `streamed_pca(ShardedMatrix.from_packed_rows(...), k=10,
-   n_power_iter=4, compute_loadings=True)` on cuda over structured
-   genotypes of that size; launch counts 3 / 1 / 1 / 1 for q8 / gram /
-   tsq / right; PCs and eigenvalues against a float64 PCA on the card;
-5. the CLI, `python -m genomic_pca_tpu_torch -d <dir> -o <prefix> -k 10`,
-   on two generated multi-file VCF directories of 2,504 samples (32,768
-   variants of 5 populations, 65,536 of 11), checked against a float64
-   oracle over the eigengap-separated PCs.
+3. the four 1-D kernels against their plain PyTorch versions on the
+   card, at the 1-D main path's shapes (262,144 SNPs x 2,048 samples,
+   L = 128; L = k = 10 for the loadings product) and at a ragged shape
+   (70,001 x 2,504), with CUDA-event median times of kernel and plain
+   version;
+4. the four 2-D (wide-sample) kernels the same way at 65,536 x 16,384,
+   L = 128, and at 70,001 x 16,389; the 1-D gram and q8 passes against
+   the 2-D ones at the wide shape; `q8_power_pass_2d` against a float64
+   replay of its quantization model;
+5. the 1-D main path, `streamed_pca(ShardedMatrix.from_packed_rows(...),
+   k=10, n_power_iter=4, compute_loadings=True)` over structured
+   genotypes of 262,144 x 2,048: launch counts 3 / 1 / 1 / 1 for q8 /
+   gram / tsq / right and none of the 2-D kernels; PCs and eigenvalues
+   against a float64 PCA on the card;
+6. the 2-D main path, the same call at 131,072 x 16,384 (512 MiB packed):
+   3 q8 passes through kernels 7 and 8, the exact polish, tsq and
+   loadings through 5 and 6, none of 1-4; the same float64 gate;
+7. the VCF CLI, `python -m genomic_pca_tpu_torch -d <dir> -o <prefix>
+   -k 10`, on two generated multi-file VCF directories of 2,504 samples
+   (32,768 variants of 5 populations, 65,536 of 11);
+8. the EigenSNP CLI, `python -m genomic_pca_tpu_torch --eigensnp
+   --bed-file ... --ld-block-file ... -o ...` at its default settings on
+   a PLINK fileset of 65,536 SNPs x 16,384 samples in 64 LD blocks, made
+   on the card; its stage split and launch counts (5 and 6 ran), and its
+   TSVs against a float64 PCA of the PCA-SNP set it kept.
 
-The line before the last is the `nvidia-smi` name and power limit; the
-last line is {"ok": true, "device": {...}}.  Needs one CUDA device.
+The CLI phases hold the separated PCs to a float64 oracle.  The line
+before the last is the `nvidia-smi` name and power limit; the last line
+is {"ok": true, "device": {...}}.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -40,25 +54,38 @@ SEED = 20260
 # q8: the same integers and the same z, only the f32 sums over tiles and
 # splits run in another order.  bf16: the same rounded operands; W is
 # rounded to bf16 after a sum taken in another order, so a few entries
-# move by one bf16 ulp of W.  On an H100 all four stay at or below 1.3e-6
-# at both shapes; the bound is about ten times that, so a dropped row tile
-# or tail (17 rows of 70,001 move the Gram by about 2.4e-4) fails.
+# move by one bf16 ulp of W.  On an H100 the 1-D four stay at or below
+# 1.3e-6 at both shapes; the bound is about ten times that, so a dropped
+# row tile or tail (17 rows of 70,001 move the Gram by about 2.4e-4)
+# fails.  right_apply_2d_q8 sums integers below 2^24 and converts once:
+# it must equal its plain version bit for bit.
 TOL = {
     "fused_gram_q8_packed": 1e-5,
     "fused_gram_apply_packed": 1e-5,
     "fused_tsq_packed": 1e-5,
     "fused_right_apply_packed": 1e-5,
+    "fused_right_apply_2d_packed": 1e-5,
+    "fused_left_apply_2d_packed": 1e-5,
+    "right_apply_2d_q8": 0.0,
+    "left_apply_2d_q8": 1e-5,
 }
+KERNELS_1D = ("fused_gram_q8_packed", "fused_gram_apply_packed",
+              "fused_tsq_packed", "fused_right_apply_packed")
+KERNELS_2D = ("fused_right_apply_2d_packed", "fused_left_apply_2d_packed",
+              "right_apply_2d_q8", "left_apply_2d_q8")
+CSRC = "genomic_pca_tpu_torch/csrc/"
+PK = "genomic_pca_tpu/ops/pallas_kernels.py:"
 SOURCES = {
-    "fused_gram_q8_packed": ("genomic_pca_tpu_torch/csrc/q8_kernels.cu",
-                             "genomic_pca_tpu/ops/pallas_kernels.py:977"),
-    "fused_gram_apply_packed": ("genomic_pca_tpu_torch/csrc/exact_kernels.cu",
-                                "genomic_pca_tpu/ops/pallas_kernels.py:492"),
-    "fused_tsq_packed": ("genomic_pca_tpu_torch/csrc/exact_kernels.cu",
-                         "genomic_pca_tpu/ops/pallas_kernels.py:564"),
-    "fused_right_apply_packed": ("genomic_pca_tpu_torch/csrc/exact_kernels.cu",
-                                 "genomic_pca_tpu/ops/pallas_kernels.py:529"),
+    "fused_gram_q8_packed": (CSRC + "q8_kernels.cu", PK + "977"),
+    "fused_gram_apply_packed": (CSRC + "exact_kernels.cu", PK + "492"),
+    "fused_tsq_packed": (CSRC + "exact_kernels.cu", PK + "564"),
+    "fused_right_apply_packed": (CSRC + "exact_kernels.cu", PK + "529"),
+    "fused_right_apply_2d_packed": (CSRC + "exact_kernels.cu", PK + "675"),
+    "fused_left_apply_2d_packed": (CSRC + "wide_kernels.cu", PK + "723"),
+    "right_apply_2d_q8": (CSRC + "wide_kernels.cu", PK + "1096"),
+    "left_apply_2d_q8": (CSRC + "wide_kernels.cu", PK + "1139"),
 }
+ZERO_LAUNCHES = dict.fromkeys(KERNELS_1D + KERNELS_2D, 0)
 
 
 def log(msg: str) -> None:
@@ -195,8 +222,12 @@ def median_ms(torch, fn, reps):
     return times[len(times) // 2]
 
 
-def kernel_cases(torch, d, n, seed, device):
-    """Inputs for each kernel at one shape: {name: (args, kwargs)}."""
+def kernel_cases(torch, d, n, seed, device, names):
+    """Inputs for each kernel of `names` at one shape: {name: (args,
+    kwargs)}."""
+    from genomic_pca_tpu_torch.ops.kernels import (
+        fused_right_apply_2d_packed_plain, quantize_rows,
+    )
     from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
     from genomic_pca_tpu_torch.parallel.sharded import inv_std_of, packed_cols
 
@@ -218,21 +249,34 @@ def kernel_cases(torch, d, n, seed, device):
 
     b128 = basis(128)
     bq, sb, csum = quantize_basis(b128)
-    return {
-        "fused_gram_q8_packed": ((packed, inv, mean * inv, bq, sb, csum),
-                                 {"tile_d": 1024}),
-        "fused_gram_apply_packed": ((packed, mean, inv, b128), {"precision": "bf16"}),
-        "fused_tsq_packed": ((packed, mean, inv, b128), {"precision": "bf16"}),
-        "fused_right_apply_packed": ((packed, mean, inv, basis(10)),
-                                     {"precision": "bf16"}),
+    # z8 / sz of a 2-D q8 pass, quantized per row tile of 1,024.
+    z8, sz = quantize_rows(torch.randn((d, 128), generator=gen, device=device), 1024)
+    cases = {
+        "fused_gram_q8_packed": lambda: ((packed, inv, mean * inv, bq, sb, csum),
+                                         {"tile_d": 1024}),
+        "fused_gram_apply_packed": lambda: ((packed, mean, inv, b128),
+                                            {"precision": "bf16"}),
+        "fused_tsq_packed": lambda: ((packed, mean, inv, b128), {"precision": "bf16"}),
+        "fused_right_apply_packed": lambda: ((packed, mean, inv, basis(10)),
+                                             {"precision": "bf16"}),
+        "fused_right_apply_2d_packed": lambda: ((packed, mean, inv, b128),
+                                                {"precision": "bf16"}),
+        # W as the 2-D gram pass gives it: A B in f32.
+        "fused_left_apply_2d_packed": lambda: (
+            (packed, mean, inv,
+             fused_right_apply_2d_packed_plain(packed, mean, inv, b128)),
+            {"precision": "bf16"}),
+        "right_apply_2d_q8": lambda: ((packed, bq), {}),
+        "left_apply_2d_q8": lambda: ((packed, z8, sz), {"tile_d": 1024}),
     }
+    return {name: cases[name]() for name in names}
 
 
-def check_kernels(torch, d, n, seed, device, reps):
+def check_kernels(torch, d, n, seed, device, reps, names):
     from genomic_pca_tpu_torch.ops import kernels as tk
 
     results = {}
-    for name, (args, kw) in kernel_cases(torch, d, n, seed, device).items():
+    for name, (args, kw) in kernel_cases(torch, d, n, seed, device, names).items():
         kern = getattr(tk, name)
         plain = tk.PLAIN[name]
 
@@ -258,14 +302,68 @@ def check_kernels(torch, d, n, seed, device, reps):
         p2 = median_ms(torch, run_p, reps)
         ms, plain_ms = min(k1, k2), min(p1, p2)
         ok = err <= TOL[name] * scale
-        log(f"[kernel] {name} D={d} N={n} L={args[3].shape[1]}: max abs err "
+        log(f"[kernel] {name} D={d} N={n} L={got.shape[-1]}: max abs err "
             f"{err:.4e} (max|plain| {scale:.4e}, rel {err / scale:.3e}, tol "
             f"{TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"{'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del got, ref
     return results
+
+
+def compare_modes(torch, np, d, n, seed, device, reps):
+    """At a wide shape: the 1-D gram and q8 passes against the 2-D ones
+    (kernel 5 then 6; q8_power_pass_2d), and q8_power_pass_2d against a
+    float64 replay of its quantization model at its own tile."""
+    from genomic_pca_tpu_torch.ops import kernels as tk
+
+    (packed, mean, inv, b), _ = kernel_cases(
+        torch, d, n, seed, device, ["fused_gram_apply_packed"]
+    )["fused_gram_apply_packed"]
+    from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
+
+    bq, sb, csum = quantize_basis(b)
+    u = mean * inv
+    tile = 1024
+    passes = {
+        "gram 1-D (kernel 2)": lambda: tk.fused_gram_apply_packed(packed, mean, inv, b),
+        "gram 2-D (kernels 5, 6)": lambda: tk.fused_left_apply_2d_packed(
+            packed, mean, inv, tk.fused_right_apply_2d_packed(packed, mean, inv, b)),
+        "q8 1-D (kernel 1)": lambda: tk.fused_gram_q8_packed(
+            packed, inv, u, bq, sb, csum, tile_d=tile),
+        "q8 2-D (kernels 7, 8 + glue)": lambda: tk.q8_power_pass_2d(
+            packed, inv, u, bq, sb, csum, tile_d=tile),
+    }
+    times = {}
+    for label, fn in passes.items():
+        fn()
+        times[label] = min(median_ms(torch, fn, reps), median_ms(torch, fn, reps))
+    log(f"[modes] D={d} N={n} L=128 CUDA-event medians (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+    out, ru = tk.q8_power_pass_2d(packed, inv, u, bq, sb, csum, tile_d=tile)
+    t = (out - ru).double()
+    g0 = tk.unpack_dosages(packed)
+    bqs = bq.double() * float(sb)
+    ref = torch.zeros_like(t)
+    ry = torch.zeros((1, t.shape[1]), dtype=torch.float64, device=device)
+    for lo in range(0, d, tile):
+        g = g0[lo:lo + tile].double()
+        iv, uu = inv[lo:lo + tile].double(), u[lo:lo + tile].double()
+        y = (iv * g - uu) @ bqs
+        z = iv * y
+        sz = z.abs().max() / 127.0 + 1e-30
+        ref += g.T @ torch.clamp(torch.round(z / sz), -127, 127) * sz
+        ry += (uu * y).sum(0, keepdim=True)
+    ref -= ry
+    rel = float((t - ref).abs().max() / ref.abs().max())
+    log(f"[modes] q8_power_pass_2d vs float64 replay at tile {tile}: max|d| / "
+        f"max|ref| {rel:.3e} (bound 1e-3: an f32-level difference in z can "
+        "flip single 8-bit roundings)")
+    if not rel <= 1e-3:
+        raise AssertionError("q8_power_pass_2d disagrees with its quantization model")
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -358,6 +456,133 @@ def check_cli(torch, np, device, n_v, n_files, n_pops, seed, k):
     shutil.rmtree(WORK)
 
 
+def check_main(torch, np, device, label, d, n, k, seed):
+    """The main path on structured genotypes made on the card, twice;
+    returns the launch counts of the first run."""
+    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.ops import kernels as tk
+    from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix, inv_std_of
+
+    packed, mean, std = structured_packed(torch, d, n, 11, 0.1, 0.01, seed, device)
+    packed_np, mean_np, std_np = (x.cpu().numpy() for x in (packed, mean, std))
+    runs = []
+    for run in range(2):
+        tk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sm = ShardedMatrix.from_packed_rows(packed_np, mean_np, std_np, n,
+                                            device=device)
+        res = streamed_pca(sm, k=k, n_power_iter=4, seed=7,
+                           compute_loadings=True)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        if run == 0:
+            launches = dict(tk.LAUNCHES)
+    log(f"[{label}] streamed_pca {d} x {n} ({sm.mode} mode), k={k}, 4 power "
+        f"iterations: wall {runs[0]:.3f} s (first run), {runs[1]:.3f} s (second "
+        f"run), upload included; launches {launches}")
+    if (res.scores.shape != (n, k) or res.loadings.shape != (d, k)
+            or not np.isfinite(res.scores).all()
+            or not np.isfinite(res.loadings).all()):
+        raise AssertionError(f"{label}: output has the wrong shape or non-finite values")
+    del sm
+    inv_t = torch.from_numpy(inv_std_of(std_np).astype(np.float32)).to(device)
+    t0 = time.perf_counter()
+    v_true, ev_true = exact_pca_f64(torch, packed, mean, inv_t, k)
+    log(f"[{label}] float64 oracle in {time.perf_counter() - t0:.1f} s")
+    check_pcs(np, res.scores, v_true.cpu().numpy(), ev_true.cpu().numpy(),
+              res.singular_values.astype(np.float64) ** 2, k, label)
+    return launches
+
+
+def write_plink_fileset(np, prefix: Path, packed, n_blocks):
+    """PLINK BED/BIM/FAM of count_A1 packed rows (SNP-major, made on the
+    card), SNP i at chr 1 position 10 (i + 1); and a block file of
+    `n_blocks` equal intervals."""
+    d, n4 = packed.shape
+    with open(f"{prefix}.bed", "wb") as fh:
+        fh.write(b"\x6c\x1b\x01")
+        fh.write(packed.cpu().numpy().tobytes())
+    with open(f"{prefix}.bim", "w") as fh:
+        fh.write("".join(f"1\tsnp{i}\t0\t{10 * (i + 1)}\tA\tC\n" for i in range(d)))
+    with open(f"{prefix}.fam", "w") as fh:
+        fh.write("".join(f"sample{i}\tsample{i}\t0\t0\t0\t-9\n" for i in range(4 * n4)))
+    per = 10 * d // n_blocks
+    with open(f"{prefix}.blocks.tsv", "w") as fh:
+        fh.write("".join(f"1 {b * per + 1} {(b + 1) * per}\n" for b in range(n_blocks)))
+
+
+def check_eigensnp_cli(torch, np, device, d, n, n_blocks, k, seed):
+    """`python -m genomic_pca_tpu_torch --eigensnp` at its defaults on a
+    generated PLINK fileset: 5 populations of unequal size at Fst 0.03 (so
+    that most SNPs pass the default HWE filter at 16,384 samples), 0.5%
+    missing.  Gate: its TSVs against a float64 PCA of the PCA SNPs its
+    loadings list, with the QC moments (mean, sample std over valid
+    genotypes)."""
+    from genomic_pca_tpu_torch.parallel.sharded import inv_std_of
+
+    label = "eigensnp cli"
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    WORK.mkdir(parents=True)
+    t0 = time.perf_counter()
+    packed, mean, std = structured_packed(torch, d, n, 5, 0.03, 0.005, seed, device)
+    prefix = WORK / "cohort"
+    write_plink_fileset(np, prefix, packed, n_blocks)
+    log(f"[{label}] wrote {d} SNPs x {n} samples ({d * n // 4 / 2**20:.0f} MiB BED) "
+        f"in {n_blocks} LD blocks in {time.perf_counter() - t0:.1f} s")
+    out = WORK / "out"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "genomic_pca_tpu_torch", "--eigensnp",
+         "--bed-file", str(prefix), "--ld-block-file", f"{prefix}.blocks.tsv",
+         "-o", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900,
+    )
+    wall = time.perf_counter() - t0
+    launches = None
+    for line in proc.stderr.splitlines():
+        msg = line.split("] ", 1)[-1]
+        if msg.startswith(("SNP QC:", "LD mapping:", "EigenSNP matrix loaded",
+                           "EigenSNP stage split:", "Total run time")):
+            log(f"[{label}] {msg}")
+        if msg.startswith("Kernel launches: "):
+            launches = json.loads(msg[len("Kernel launches: "):])
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    log(f"[{label}] python -m genomic_pca_tpu_torch --eigensnp exit 0 in "
+        f"{wall:.2f} s; launches {launches}")
+    want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=3,
+                fused_left_apply_2d_packed=1)
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    pcs = np.loadtxt(f"{out}.eigensnp.pca.tsv", skiprows=1,
+                     usecols=range(1, k + 1), delimiter="\t")
+    evs = np.loadtxt(f"{out}.eigenvalues.tsv", skiprows=1, usecols=1, delimiter="\t")
+    with open(f"{out}.eigensnp.loadings.tsv") as fh:
+        head = fh.readline().rstrip("\n").split("\t")
+        ids = [line.split("\t", 1)[0] for line in fh]
+    with open(f"{out}.eigensnp.pca.tsv") as fh:
+        pc_head = fh.readline().rstrip("\n").split("\t")
+        first = fh.readline().split("\t", 1)[0]
+    if (pc_head != ["SampleID"] + [f"PC{i}" for i in range(1, k + 1)]
+            or head[:3] != ["VariantID", "Chrom", "Pos"] or first != "sample0"):
+        raise AssertionError(f"unexpected TSV layout: {pc_head[:3]} {head[:4]} {first}")
+    if pcs.shape != (n, k) or evs.shape != (k,) or not np.isfinite(pcs).all():
+        raise AssertionError(f"TSV shapes {pcs.shape}, {evs.shape} or non-finite")
+    sel = torch.as_tensor([int(v[3:]) for v in ids], device=device)
+    log(f"[{label}] {len(ids)} of {d} SNPs are PCA SNPs (QC + LD mapping)")
+    inv = torch.from_numpy(inv_std_of(std[sel].cpu().numpy()).astype(np.float32))
+    t0 = time.perf_counter()
+    v_true, ev_true = exact_pca_f64(torch, packed[sel], mean[sel], inv.to(device), k)
+    log(f"[{label}] float64 oracle in {time.perf_counter() - t0:.1f} s")
+    check_pcs(np, pcs, v_true.cpu().numpy(), ev_true.cpu().numpy(),
+              evs * (n - 1), k, label)
+    shutil.rmtree(WORK)
+
+
 def main() -> int:
     import torch
 
@@ -367,9 +592,7 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from genomic_pca_tpu_torch.models.pca import streamed_pca
-    from genomic_pca_tpu_torch.ops import build, kernels as tk
-    from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix, inv_std_of
+    from genomic_pca_tpu_torch.ops import build
 
     device = torch.device("cuda")
     smi = smi_line()
@@ -398,58 +621,49 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
-    # 3. Kernels against plain versions.
-    main_shape = check_kernels(torch, 262_144, 2048, SEED, device, reps=5)
-    check_kernels(torch, 70_001, 2504, SEED + 1, device, reps=3)
+    # 3. The 1-D kernels against plain versions.
+    results = check_kernels(torch, 262_144, 2048, SEED, device, 5, KERNELS_1D)
+    check_kernels(torch, 70_001, 2504, SEED + 1, device, 3, KERNELS_1D)
 
-    # 4. The main path at the bench shape.
-    d, n, k = 262_144, 2048, 10
-    packed, mean, std = structured_packed(torch, d, n, 11, 0.1, 0.01, SEED + 2,
-                                          device)
-    packed_np, mean_np, std_np = (x.cpu().numpy() for x in (packed, mean, std))
-    runs = []
-    for run in range(2):
-        tk.reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sm = ShardedMatrix.from_packed_rows(packed_np, mean_np, std_np, n,
-                                            device=device)
-        res = streamed_pca(sm, k=k, n_power_iter=4, seed=7,
-                           compute_loadings=True)
-        torch.cuda.synchronize()
-        runs.append(time.perf_counter() - t0)
-        if run == 0:
-            launches = dict(tk.LAUNCHES)
-    log(f"[main] streamed_pca {d} x {n}, k={k}, 4 power iterations: wall "
-        f"{runs[0]:.3f} s (first run), {runs[1]:.3f} s (second run), "
-        f"upload included; launches {launches}")
-    want = {"fused_gram_q8_packed": 3, "fused_gram_apply_packed": 1,
-            "fused_tsq_packed": 1, "fused_right_apply_packed": 1}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    if (res.scores.shape != (n, k) or res.loadings.shape != (d, k)
-            or not np.isfinite(res.scores).all()
-            or not np.isfinite(res.loadings).all()):
-        raise AssertionError("main path output has the wrong shape or non-finite values")
-    inv_t = torch.from_numpy(inv_std_of(std_np).astype(np.float32)).to(device)
-    v_true, ev_true = exact_pca_f64(torch, packed, mean, inv_t, k)
-    check_pcs(np, res.scores, v_true.cpu().numpy(), ev_true.cpu().numpy(),
-              res.singular_values.astype(np.float64) ** 2, k, "main")
-    del packed, sm
+    # 4. The 2-D kernels at the wide shape and a ragged one; both modes.
+    results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
+                                 KERNELS_2D))
+    check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_2D)
+    compare_modes(torch, np, 65_536, 16_384, SEED + 6, device, 5)
+    torch.cuda.empty_cache()
 
-    # 5. The CLI on VCF directories of 1000 Genomes phase 3 width: 32,768
-    # variants of 5 populations (4 structured PCs; PCs 5-10 lie in the
-    # noise bulk, where only the Ritz lower bound is checked), and 65,536
-    # variants of 11 populations (10 structured PCs).
-    check_cli(torch, np, device, 32_768, 8, 5, SEED + 3, k)
-    check_cli(torch, np, device, 65_536, 16, 11, SEED + 3, k)
+    # 5-6. The main path in each mode.
+    launches = {}
+    for label, d, n, seed, want in (
+        ("main 1-D", 262_144, 2048, SEED + 2,
+         {"fused_gram_q8_packed": 3, "fused_gram_apply_packed": 1,
+          "fused_tsq_packed": 1, "fused_right_apply_packed": 1}),
+        ("main 2-D", 131_072, 16_384, SEED + 4,
+         {"fused_right_apply_2d_packed": 3, "fused_left_apply_2d_packed": 1,
+          "right_apply_2d_q8": 3, "left_apply_2d_q8": 3}),
+    ):
+        got = check_main(torch, np, device, label, d, n, 10, seed)
+        if got != dict(ZERO_LAUNCHES, **want):
+            raise AssertionError(f"{label}: launch counts {got} != {want}")
+        launches.update({name: got[name] for name in want})
+        torch.cuda.empty_cache()
+
+    # 7. The VCF CLI on VCF directories of 1000 Genomes phase 3 width:
+    # 32,768 variants of 5 populations (4 structured PCs; PCs 5-10 lie in
+    # the noise bulk, where only the Ritz lower bound is checked), and
+    # 65,536 variants of 11 populations (10 structured PCs).
+    check_cli(torch, np, device, 32_768, 8, 5, SEED + 3, 10)
+    check_cli(torch, np, device, 65_536, 16, 11, SEED + 3, 10)
+
+    # 8. The EigenSNP CLI at 16,384 samples.
+    check_eigensnp_cli(torch, np, device, 65_536, 16_384, 64, 10, SEED + 5)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
          "max_abs_err": m["max_abs_err"], "ms": m["ms"],
          "plain_ms": m["plain_ms"]}
-        for name, m in main_shape.items()
+        for name, m in results.items()
     ]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))

@@ -1,13 +1,17 @@
 """Command-line interface of the port: `python -m genomic_pca_tpu_torch`.
 
 The parser takes the same flags as `genomic_pca_tpu/cli.py` (rebuilt
-here: loading that module loads jax through its package).  This slice runs the
-VCF workflow on a CUDA device; `--eigensnp`, `--project` and
-`--profile-dir` exit 1 as not yet ported, and without a CUDA device the
-VCF workflow exits 1 - it does not fall back to the CPU.
+here: loading that module loads jax through its package).  It runs the
+VCF workflow and the EigenSNP workflow on a CUDA device; without one
+either exits 1 naming CUDA - it does not fall back to the CPU.
+`--project`, `--profile-dir` and `--eigensnp-qc-mode device` exit 1 as
+not yet ported; `--eigensnp-compile-only` exits 0 without running (there
+is nothing to compile ahead of time: the kernels build at first use).
 
 Usage:
     python -m genomic_pca_tpu_torch -d vcf_dir/ -o out -k 10
+    python -m genomic_pca_tpu_torch --eigensnp --bed-file data \
+        --ld-block-file blocks.tsv -o out
 """
 
 from __future__ import annotations
@@ -123,10 +127,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "this directory (not yet ported in "
                         "genomic_pca_tpu_torch).")
     p.add_argument("--eigensnp-compile-only", action="store_true",
-                   help="Seed the persistent compilation cache for this "
-                        "fileset's shape (QC + AOT-compile every device "
-                        "program) without running the PCA or writing "
-                        "outputs; the next real run starts fully warm.")
+                   help="Accepted for parity with the JAX package, where it "
+                        "seeds the compilation cache; here there is nothing "
+                        "to compile ahead of time, and the run exits 0 "
+                        "without running the PCA or writing outputs.")
     p.add_argument("--eigensnp-stop-after-checkpoint", default=None,
                    metavar="NAME",
                    help="With --eigensnp-checkpoint-dir: exit cleanly "
@@ -175,17 +179,106 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 
+def _default(val, default):
+    return default if val is None else val
+
+
+def _no_cuda(workflow: str) -> bool:
+    import torch
+
+    if torch.cuda.is_available():
+        return False
+    log.error(
+        "No CUDA device available: genomic_pca_tpu_torch runs the %s "
+        "workflow on a CUDA GPU (torch.cuda.is_available() is False).", workflow,
+    )
+    return True
+
+
+def _run_eigensnp(args) -> int:
+    missing = [
+        name
+        for name, val in (("--bed-file", args.bed_file),
+                          ("--ld-block-file", args.ld_block_file))
+        if val is None
+    ]
+    if missing:
+        log.error("%s required when --eigensnp is used.", ", ".join(missing))
+        return 2
+    if args.eigensnp_qc_mode == "device":
+        log.error("--eigensnp-qc-mode device (the device QC scan and its "
+                  "QC->matrix capture fusion) is %s.", NOT_PORTED)
+        return 1
+    if args.eigensnp_compile_only:
+        log.info("--eigensnp-compile-only: nothing to compile ahead of time "
+                 "(the CUDA kernels build at first use); not running.")
+        return 0
+    if _no_cuda("EigenSNP"):
+        return 1
+    from genomic_pca_tpu.config import DataPrepConfig, EigenSnpConfig
+    from genomic_pca_tpu_torch.workflows import run_eigensnp_workflow
+
+    prep_cfg = DataPrepConfig(
+        bed_path=args.bed_file,
+        ld_block_path=args.ld_block_file,
+        sample_keep_path=args.eigensnp_sample_keep_file,
+        min_call_rate=_default(args.eigensnp_min_call_rate, 0.98),
+        min_maf=_default(args.eigensnp_min_maf, 0.01),
+        max_hwe_p=_default(args.eigensnp_max_hwe_p, 1e-6),
+        snp_chunk_size=_default(args.eigensnp_snp_strip_size, 2000),
+        fuse_qc_matrix=not args.eigensnp_no_fuse_qc,
+        qc_mode=args.eigensnp_qc_mode,
+    )
+    algo_cfg = EigenSnpConfig(
+        k_global=_default(args.eigensnp_k_global, 10),
+        components_per_block=_default(args.eigensnp_components_per_block, 7),
+        subset_factor=_default(args.eigensnp_subset_factor, 0.075),
+        min_subset_size=_default(args.eigensnp_min_subset_size, 10_000),
+        max_subset_size=_default(args.eigensnp_max_subset_size, 40_000),
+        global_oversampling=_default(args.eigensnp_global_oversampling, 10),
+        global_power_iter=_default(args.eigensnp_global_power_iter, 2),
+        local_oversampling=_default(args.eigensnp_local_oversampling, 10),
+        local_power_iter=_default(args.eigensnp_local_power_iter, 2),
+        seed=_default(args.eigensnp_seed, 2025),
+        snp_strip_size=_default(args.eigensnp_snp_strip_size, 2000),
+        refine_passes=_default(args.eigensnp_refine_passes, 1),
+        refine_width=args.eigensnp_refine_width,
+        collect_diagnostics=args.eigensnp_collect_diagnostics,
+        diagnostic_block_tag=args.eigensnp_diagnostic_block_tag,
+    )
+    run_eigensnp_workflow(
+        prep_cfg, algo_cfg, args.output_prefix,
+        checkpoint_dir=args.eigensnp_checkpoint_dir,
+        write_moments=args.write_moments,
+        stop_after_checkpoint=args.eigensnp_stop_after_checkpoint,
+        device="cuda",
+    )
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     setup_logging(args.log_level)
     t0 = time.perf_counter()
 
-    for flag, val in (("--eigensnp", args.eigensnp),
-                      ("--project", args.project),
+    for flag, val in (("--project", args.project),
                       ("--profile-dir", args.profile_dir)):
         if val:
             log.error("%s is %s.", flag, NOT_PORTED)
             return 1
+
+    from genomic_pca_tpu.io.native import set_default_threads
+
+    set_default_threads(args.threads)
+    if args.eigensnp:
+        try:
+            rc = _run_eigensnp(args)
+        except Exception:
+            log.exception("Workflow failed.")
+            return 1
+        if rc == 0:
+            log.info("Total run time: %.3fs", time.perf_counter() - t0)
+        return rc
 
     missing = [
         name
@@ -206,20 +299,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "no stage checkpoints).", flag,
             )
             return 2
-
-    import torch
-
-    if not torch.cuda.is_available():
-        log.error(
-            "No CUDA device available: genomic_pca_tpu_torch runs the VCF "
-            "workflow on a CUDA GPU (torch.cuda.is_available() is False)."
-        )
+    if _no_cuda("VCF"):
         return 1
 
     threads = args.threads if args.threads is not None else (os.cpu_count() or 1)
-    from genomic_pca_tpu.io.native import set_default_threads
-
-    set_default_threads(args.threads)
     from genomic_pca_tpu_torch.workflows import run_vcf_workflow
 
     try:

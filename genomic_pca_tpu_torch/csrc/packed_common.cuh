@@ -1,5 +1,6 @@
 // Shared device code of the packed-genotype kernels: the PLINK 2-bit
-// decode, the per-SNP standardisation and the register-tiled FMA step.
+// decode, the per-SNP standardisation, the register-tiled FMA step and the
+// __dp4a tile of the raw integer product G0 bq.
 //
 // Layout (original sample order, no permutation): genotypes are a
 // row-major (D, N4) uint8 matrix; byte j of row d holds samples 4j..4j+3,
@@ -87,6 +88,54 @@ __device__ __forceinline__ void fma_tile(float (*As)[kBM], float (*Bs)[kBN],
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+constexpr int kQW = 8;  // packed bytes (32 samples) per chunk of q8_right_tile
+
+// acc[i][j] = sum over all samples of G0[d0 + ty + 16 i] . bq[:, l0 + tx + 16 j]:
+// the raw integer product G0 bq of one 64 x 64 output tile, on __dp4a
+// (the four samples of one packed byte against four rows of bq).  Exact
+// in int32 while 2 * 127 * 4 * n4 < 2^31.  Rows >= D and columns >= L
+// read as 0.
+__device__ __forceinline__ void q8_right_tile(const uint8_t* __restrict__ packed,
+                                              const int8_t* __restrict__ bq,
+                                              int D, int n4, int L, int d0,
+                                              int l0, int acc[4][4]) {
+  __shared__ int Aw[kQW][kBM];
+  __shared__ int Bw[kQW][kBN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  for (int j0 = 0; j0 < n4; j0 += kQW) {
+    for (int e = tid; e < kQW * kBM; e += kThreads) {
+      const int k = e % kQW, m = e / kQW;
+      const int d = d0 + m, j = j0 + k;
+      Aw[k][m] = (d < D && j < n4) ? decode_word(packed[(size_t)d * n4 + j]) : 0;
+    }
+    for (int e = tid; e < kQW * kBN; e += kThreads) {
+      const int k = e / kBN, n = e % kBN;
+      const int j = j0 + k, l = l0 + n;
+      int wv = 0;
+      if (j < n4 && l < L) {
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          wv |= (int)(uint8_t)bq[(size_t)(4 * j + p) * L + l] << (8 * p);
+      }
+      Bw[k][n] = wv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kQW; ++k) {
+      int a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = Aw[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bw[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
   }
 }
 

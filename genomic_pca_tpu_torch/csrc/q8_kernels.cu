@@ -21,7 +21,6 @@
 
 namespace gp {
 
-constexpr int kQW = 8;  // packed bytes (32 samples) per chunk of q8_w
 constexpr int kQR = 16; // SNP rows per chunk of q8_left (4 words)
 
 // z (D, L) f32, ru (L) += sum_d u y, tile_max[d / tile_d] = max |z|.
@@ -33,46 +32,13 @@ q8_w_kernel(const uint8_t* __restrict__ packed,
             const float* __restrict__ csum, float* __restrict__ z,
             unsigned int* __restrict__ tile_max, float* __restrict__ ru,
             int D, int n4, int L, int tile_d) {
-  __shared__ int Aw[kQW][kBM];
-  __shared__ int Bw[kQW][kBN];
   __shared__ float red[16][kBN];
   __shared__ float wmax[kThreads / 32];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int d0 = blockIdx.x * kBM, l0 = blockIdx.y * kBN;
 
   int acc[4][4] = {};
-  for (int j0 = 0; j0 < n4; j0 += kQW) {
-    for (int e = tid; e < kQW * kBM; e += kThreads) {
-      const int k = e % kQW, m = e / kQW;
-      const int d = d0 + m, j = j0 + k;
-      Aw[k][m] = (d < D && j < n4) ? decode_word(packed[(size_t)d * n4 + j]) : 0;
-    }
-    for (int e = tid; e < kQW * kBN; e += kThreads) {
-      const int k = e / kBN, n = e % kBN;
-      const int j = j0 + k, l = l0 + n;
-      int wv = 0;
-      if (j < n4 && l < L) {
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-          wv |= (int)(uint8_t)bq[(size_t)(4 * j + p) * L + l] << (8 * p);
-      }
-      Bw[k][n] = wv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kQW; ++k) {
-      int a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Aw[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bw[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  q8_right_tile(packed, bq, D, n4, L, d0, l0, acc);
 
   const float sb = *sb_ptr;
   float lmax = 0.f;

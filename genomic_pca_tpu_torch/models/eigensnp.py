@@ -1,0 +1,489 @@
+"""EigenSNP two-stage PCA on one device: per-LD-block local bases ->
+condensed global eigensolve -> refinement through the container's
+`pca_core`.
+
+Counterpart of `genomic_pca_tpu/models/eigensnp.py` on the resident
+packed container (parallel/sharded.py):
+
+  Stage 1 - for each LD block, a randomized SVD of the standardized block
+  restricted to a sample subset (`cfg.subset_size`), with
+  `components_per_block` components.  Blocks are sliced from the resident
+  matrix (`fetch_blocks_device`), zero-padded to row buckets and run as
+  one batched rSVD per (bucket, c_b) chunk, the batch dimension standing
+  where the reference uses `vmap`; each block's sketch comes from
+  `generator_for_stage(seed, "eigensnp_local_sketch", unit=block + 1)`.
+
+  Stage 2 - every sample projected through every block basis, stacked in
+  block order into the condensed (C, N) matrix; its randomized SVD gives
+  a k-wide score basis, widened with random columns to the refinement
+  width.
+
+  Refinement - `refine_passes` exact passes of subspace iteration over
+  the full matrix, the Rayleigh-Ritz eigensolve and the loadings, all in
+  one `pca_core`; runs with checkpoints or diagnostics take the per-pass
+  path, so that each pass is saved and its convergence observable.
+
+Random draws come from the port's seeded generators (utils/rng.py), so
+the sample subset and the sketches differ from the reference's jax
+threefry draws: results agree with the reference to the accuracy of the
+algorithm, not bit for bit.
+
+Not ported yet: the host-accessor stages (block files whose blocks are
+not contiguous PcaSnpId runs; they come with the host-streamed
+container), and the ahead-of-time compile threads of the reference
+(`compile_only`), which have no counterpart in eager PyTorch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from genomic_pca_tpu.config import EigenSnpConfig
+from genomic_pca_tpu.errors import ComputeError
+from genomic_pca_tpu_torch.models.pca import lane_fill_width
+from genomic_pca_tpu_torch.models.prepare import NOT_PORTED, PreparedData
+from genomic_pca_tpu_torch.ops.rsvd import rsvd, sketch_width
+from genomic_pca_tpu_torch.utils.checkpoint import StageCheckpointer, fingerprint
+from genomic_pca_tpu_torch.utils.rng import generator_for_stage, normal
+
+log = logging.getLogger(__name__)
+
+# Elements of one stage-1+2 chunk's full-width f32 block batch (1 GiB).
+_STAGE12_BUDGET_ELEMS = 256 * 1024 * 1024
+
+
+@dataclasses.dataclass
+class EigenSnpResult:
+    scores: np.ndarray  # (N, K) f32 final sample PC scores
+    eigenvalues: np.ndarray  # (K,) f64
+    loadings: np.ndarray  # (D, K) f32 per-SNP loadings
+    diagnostics: Optional[Dict] = None
+    # Stage wall-clocks: matrix_load / stages_1_2 / global_pca /
+    # refinement_finalize.
+    stage_seconds: Optional[Dict[str, float]] = None
+
+
+def _bucket_rows(d: int, bucket: int = 512) -> int:
+    """Next bucket multiple >= d (bounds the number of batch shapes)."""
+    return max(bucket, ((d + bucket - 1) // bucket) * bucket)
+
+
+def _pow2_at_most(x: int) -> int:
+    p = 1
+    while p * 2 <= x:
+        p *= 2
+    return p
+
+
+def _c_of(cfg: EigenSnpConfig, n_snps: int, n_subset: int) -> int:
+    return min(cfg.components_per_block, n_snps, n_subset)
+
+
+def _device_group_plan(a, prep: PreparedData, cfg: EigenSnpConfig,
+                       subset: np.ndarray):
+    """Ordered [((bucket, c_b), block indices, chunk_b)]: blocks grouped by
+    row bucket and component count, each group run in chunks of chunk_b
+    blocks (a power of two whose full-width batch fits the budget)."""
+    groups: Dict[tuple, List[int]] = {}
+    for b_idx, block in enumerate(prep.blocks):
+        d_b = len(block.pca_snp_ids)
+        bucket = min(_bucket_rows(d_b), a.d_pad)
+        groups.setdefault((bucket, _c_of(cfg, d_b, len(subset))), []).append(b_idx)
+    plan = []
+    for (bucket, c_b), idxs in sorted(groups.items()):
+        b_cap = max(1, _STAGE12_BUDGET_ELEMS // (bucket * a.n_pad))
+        plan.append(((bucket, c_b), idxs, _pow2_at_most(min(b_cap, len(idxs)))))
+    return plan
+
+
+def _choose_sample_subset(cfg: EigenSnpConfig, n_samples: int) -> np.ndarray:
+    """Sample subset for local basis learning (sorted), drawn from the
+    port's generator for "eigensnp_sample_subset" (not the reference's
+    subset: the generators differ)."""
+    n_subset = cfg.subset_size(n_samples)
+    if n_subset >= n_samples:
+        return np.arange(n_samples, dtype=np.int64)
+    gen = generator_for_stage(cfg.seed, "eigensnp_sample_subset")
+    perm = torch.randperm(n_samples, generator=gen).numpy()
+    return np.sort(perm[:n_subset]).astype(np.int64)
+
+
+def _blocks_as_runs(blocks) -> Optional[np.ndarray]:
+    """(B, 2) [start, len] when every block is a contiguous PcaSnpId run,
+    else None (nested or overlapping block files can break that)."""
+    runs = np.empty((len(blocks), 2), dtype=np.int64)
+    for i, b in enumerate(blocks):
+        ids = b.pca_snp_ids
+        if len(ids) == 0 or int(ids[-1]) - int(ids[0]) + 1 != len(ids):
+            return None
+        runs[i] = (int(ids[0]), len(ids))
+    return runs
+
+
+def _local_sketches(seed: int, chunk: List[int], chunk_b: int, n_cols: int,
+                    ell: int, device) -> torch.Tensor:
+    """(chunk_b, n_cols, ell) per-block stage-1 sketches: block b draws
+    from unit b + 1; batch padding from unit 0."""
+    units = [b + 1 for b in chunk] + [0] * (chunk_b - len(chunk))
+    return torch.stack([
+        normal((n_cols, ell), seed, "eigensnp_local_sketch", "cpu", unit=u)
+        for u in units
+    ]).to(device)
+
+
+def _stages12_device(a, prep: PreparedData, cfg: EigenSnpConfig,
+                     subset: np.ndarray, runs: np.ndarray,
+                     saved_bases: Optional[List[np.ndarray]]):
+    """Stages 1+2 sliced from the resident matrix, one batched program of
+    torch ops per chunk: slice the blocks, restrict to the subset, batched
+    local rSVD (CholQR2 stabilizer), project all samples.  With
+    `saved_bases` (a stage-1 checkpoint) only the projection runs.
+
+    Returns (local_bases [np arrays], svals dict or None, y (C, N) on the
+    device)."""
+    n = prep.n_samples
+    full_cols = len(subset) >= n
+    subset_dev = torch.as_tensor(subset, device=a.device)
+    parts = []  # (chunk, c_b, u batch, s batch or None, out batch)
+    for (bucket, c_b), idxs, chunk_b in _device_group_plan(a, prep, cfg, subset):
+        for pos in range(0, len(idxs), chunk_b):
+            chunk = idxs[pos:pos + chunk_b]
+            starts = np.zeros(chunk_b, dtype=np.int64)
+            lens = np.zeros(chunk_b, dtype=np.int64)
+            starts[:len(chunk)] = runs[chunk, 0]
+            lens[:len(chunk)] = runs[chunk, 1]
+            xs_full = a.fetch_blocks_device(starts, lens, bucket)
+            if saved_bases is not None:
+                us = [saved_bases[i] for i in chunk]
+                us += [np.zeros_like(us[0])] * (chunk_b - len(chunk))
+                u_b = torch.as_tensor(np.stack(us), device=a.device)
+                s_b = None
+            else:
+                xs_sub = (xs_full[:, :, :n] if full_cols
+                          else xs_full[:, :, subset_dev])
+                ell = sketch_width(c_b, cfg.local_oversampling, bucket,
+                                   len(subset))
+                omega = _local_sketches(cfg.seed, chunk, chunk_b, len(subset),
+                                        ell, a.device)
+                u_b, s_b, _ = rsvd(xs_sub, omega, k=c_b,
+                                   n_oversamples=cfg.local_oversampling,
+                                   n_power_iter=cfg.local_power_iter,
+                                   orth="cholqr2")
+                del xs_sub
+            out = u_b.mT @ xs_full  # (chunk_b, c_b, n_pad)
+            del xs_full
+            parts.append((list(chunk), c_b, u_b, s_b, out))
+    return _assemble_condensed(parts, n, len(prep.blocks))
+
+
+def _assemble_condensed(parts, n: int, n_blocks: int):
+    """Bases and singular values to the host, one transfer per chunk, and
+    the condensed matrix y (C, n) in block order on the device (c_b rows
+    per block, batch-padding rows dropped).  `parts` is
+    [(chunk, c_b, u, s or None, out)] in any order."""
+    bases: Dict[int, np.ndarray] = {}
+    svals: Dict[int, np.ndarray] = {}
+    rows: Dict[int, torch.Tensor] = {}
+    for chunk, _c_b, u_b, s_b, out in parts:
+        u_np = u_b.cpu().numpy()
+        s_np = s_b.cpu().numpy() if s_b is not None else None
+        for j, i in enumerate(chunk):
+            bases[i] = u_np[j]
+            if s_np is not None:
+                svals[i] = s_np[j]
+            rows[i] = out[j, :, :n]
+    y = torch.cat([rows[i] for i in range(n_blocks)])
+    return [bases[i] for i in range(n_blocks)], (svals or None), y
+
+
+def _stage2_basis(y: torch.Tensor, seed: int, k: int, n_os: int,
+                  n_pi: int) -> torch.Tensor:
+    """Stage 2: rSVD of the condensed matrix (C, N) and the orthonormal
+    (N, k) score basis."""
+    c, n = y.shape
+    omega = normal((n, sketch_width(k, n_os, c, n)), seed,
+                   "eigensnp_global_sketch", y.device)
+    _, _, vt_g = rsvd(y, omega, k=k, n_oversamples=n_os, n_power_iter=n_pi)
+    return torch.linalg.qr(vt_g.T)[0]  # (N, k)
+
+
+def _widen(s_basis: torch.Tensor, seed: int, ell_ref: int) -> torch.Tensor:
+    """The score basis widened with random columns to the refinement
+    width, re-orthonormalised."""
+    n, k = s_basis.shape
+    if ell_ref <= k:
+        return s_basis
+    extra = normal((n, ell_ref - k), seed, "eigensnp_refine_fill", s_basis.device)
+    return torch.linalg.qr(torch.cat([s_basis, extra], dim=1))[0]
+
+
+def _ckpt_stop(name: str, stop_after: Optional[str]) -> bool:
+    if stop_after != name:
+        return False
+    log.info("EigenSNP stopping after checkpoint %r (stop_after_checkpoint); "
+             "re-run with the same checkpoint dir to resume.", name)
+    return True
+
+
+def compute_eigensnp_pca(
+    prep: PreparedData,
+    cfg: EigenSnpConfig,
+    device="cuda",
+    checkpoint_dir: Optional[str] = None,
+    stop_after_checkpoint: Optional[str] = None,
+) -> Optional[EigenSnpResult]:
+    """The two-stage pipeline on prepared data, on `device`.
+
+    `checkpoint_dir` saves stage checkpoints and resumes from them;
+    `stop_after_checkpoint` (needs `checkpoint_dir`) returns None right
+    after the named checkpoint (stage1_bases, stage2_basis,
+    refine_pass_<p>) is saved, and a later run resumes there."""
+    n = prep.n_samples
+    d = prep.n_pca_snps
+    if d == 0 or not prep.blocks:
+        raise ComputeError("No PCA SNPs / LD blocks available for EigenSNP.")
+    k = min(cfg.k_global, max(n - 1, 1), d)
+
+    ckpt = StageCheckpointer(
+        checkpoint_dir, fingerprint(cfg, n, d, [b.tag for b in prep.blocks])
+    )
+    if stop_after_checkpoint is not None:
+        if not ckpt.enabled:
+            raise ComputeError("stop_after_checkpoint requires a checkpoint_dir "
+                               "(--eigensnp-checkpoint-dir).")
+        order = ["stage1_bases", "stage2_basis"] + [
+            f"refine_pass_{p}" for p in range(cfg.refine_passes)
+        ]
+        if stop_after_checkpoint not in order:
+            raise ComputeError(
+                f"stop_after_checkpoint {stop_after_checkpoint!r} is not a "
+                f"checkpoint of this run (have {sorted(order)})."
+            )
+        # A retried leg whose checkpoint (or any later one) exists is
+        # complete: it must not run on through the rest of the pipeline.
+        done = next((s for s in order[order.index(stop_after_checkpoint):]
+                     if ckpt.has(s)), None)
+        if done is not None:
+            log.info("EigenSNP checkpoint %r already present in %s (stop point "
+                     "%r); this stop-after leg is complete.", done,
+                     checkpoint_dir, stop_after_checkpoint)
+            return None
+
+    diag: Optional[Dict] = (
+        {"blocks": []}
+        if (cfg.collect_diagnostics or cfg.diagnostic_block_tag is not None)
+        else None
+    )
+    tags = [b.tag for b in prep.blocks]
+    if cfg.diagnostic_block_tag is not None and cfg.diagnostic_block_tag not in tags:
+        raise ComputeError(
+            f"--eigensnp-diagnostic-block-tag {cfg.diagnostic_block_tag!r} "
+            f"matches no LD block (have {len(tags)} blocks, e.g. {tags[:3]})."
+        )
+
+    stage_seconds: Dict[str, float] = {}
+    t_stage = time.perf_counter()
+
+    # ---- Matrix container; stages 1-2 slice their blocks from it ------
+    runs = _blocks_as_runs(prep.blocks)
+    if runs is None:
+        raise ComputeError(
+            "The LD blocks are not contiguous runs of PCA SNPs (nested or "
+            "overlapping block file): stages 1-2 then need the host-accessor "
+            f"path, which comes with the host-streamed container and is {NOT_PORTED}."
+        )
+    a = prep.load_matrix(device)
+    _sync(a.device)
+    stage_seconds["matrix_load"] = time.perf_counter() - t_stage
+    log.info("EigenSNP matrix loaded (device-resident path, %s mode) in %.1fs.",
+             a.mode, stage_seconds["matrix_load"])
+    t_stage = time.perf_counter()
+
+    # Refinement width: fill the 128 columns the kernels' sketch width is
+    # tuned for (models/pca.lane_fill_width); `refine_width` overrides.
+    ell_ref = (lane_fill_width(k, n, d) if cfg.refine_width is None
+               else max(k, min(cfg.refine_width, n, d)))
+    use_pca_core = not ckpt.enabled and diag is None and cfg.refine_passes >= 1
+
+    # ---- Stages 1+2 ---------------------------------------------------
+    subset = _choose_sample_subset(cfg, n)
+    c_total = sum(_c_of(cfg, len(b.pca_snp_ids), len(subset)) for b in prep.blocks)
+    local_bases = svals = y = saved_bases = None
+    if ckpt.has("stage2_basis") and diag is None:
+        # Only the condensed matrix (already reduced to the checkpointed
+        # stage-2 basis) and diagnostics consume stages 1-2: skip them.
+        log.info("EigenSNP stages 1+2 skipped (stage2_basis checkpoint "
+                 "present; condensed rank %d).", c_total)
+    else:
+        saved = ckpt.load("stage1_bases")
+        if saved is not None and len(saved) == len(prep.blocks):
+            saved_bases = [saved[f"block_{i}"] for i in range(len(prep.blocks))]
+        else:
+            log.info("EigenSNP stage 1: %d blocks, sample subset %d / %d.",
+                     len(prep.blocks), len(subset), n)
+        local_bases, svals, y = _stages12_device(a, prep, cfg, subset, runs,
+                                                 saved_bases)
+        if saved_bases is None:
+            if diag is not None:
+                for b_idx, block in enumerate(prep.blocks):
+                    ids = block.pca_snp_ids
+                    diag["blocks"].append({
+                        "tag": block.tag,
+                        "num_snps": int(len(ids)),
+                        "num_local_components": int(
+                            _c_of(cfg, len(ids), len(subset))),
+                        "pca_snp_id_start": int(ids[0]),
+                        "pca_snp_id_end": int(ids[-1]),
+                        "local_singular_values": svals[b_idx].tolist(),
+                    })
+            ckpt.save("stage1_bases",
+                      {f"block_{i}": u for i, u in enumerate(local_bases)})
+            if _ckpt_stop("stage1_bases", stop_after_checkpoint):
+                return None
+    if diag is not None and cfg.diagnostic_block_tag is not None:
+        b_idx = tags.index(cfg.diagnostic_block_tag)
+        block = prep.blocks[b_idx]
+        off = sum(_c_of(cfg, len(prep.blocks[i].pca_snp_ids), len(subset))
+                  for i in range(b_idx))
+        c_b = _c_of(cfg, len(block.pca_snp_ids), len(subset))
+        diag["block_trace"] = {
+            "tag": block.tag,
+            "block_index": int(b_idx),
+            "num_snps": int(len(block.pca_snp_ids)),
+            "num_local_components": int(c_b),
+            "subset_sample_indices": [int(x) for x in subset],
+            "pca_snp_ids": [int(x) for x in block.pca_snp_ids],
+            # Bases are bucket-padded (zero rows past d_b); trace the
+            # real (d_b, c_b) basis.
+            "local_basis": np.asarray(local_bases[b_idx])[
+                : len(block.pca_snp_ids)].tolist(),
+            "local_singular_values": (
+                np.asarray(svals[b_idx]).tolist() if svals is not None else None),
+            "condensed_projection": y[off:off + c_b].cpu().numpy().tolist(),
+        }
+    _sync(a.device)
+    stage_seconds["stages_1_2"] = time.perf_counter() - t_stage
+    if y is not None:
+        log.info("EigenSNP stages 1+2: condensed matrix %s in %.1fs.",
+                 tuple(y.shape), stage_seconds["stages_1_2"])
+    t_stage = time.perf_counter()
+
+    condensed_spectrum = None
+    if diag is not None:
+        gram = y @ y.T if y.shape[0] <= n else y.T @ y
+        sp = torch.sqrt(torch.clamp(torch.linalg.eigvalsh(gram), min=0.0))
+        condensed_spectrum = sp.flip(0).cpu().numpy()
+
+    if c_total < k:
+        log.warning(
+            "Condensed feature rank %d < requested k_global %d; returning %d "
+            "components (raise components_per_block or add LD blocks for "
+            "more).", c_total, k, c_total)
+        k = c_total
+
+    saved = ckpt.load("stage2_basis")
+    if saved is not None:
+        s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
+    else:
+        s_basis = _stage2_basis(y, cfg.seed, k, cfg.global_oversampling,
+                                cfg.global_power_iter)
+        # Checkpoint runs save the k-wide basis, a resumable artifact.
+        ckpt.save("stage2_basis", {"s_basis": s_basis.cpu().numpy()})
+        if _ckpt_stop("stage2_basis", stop_after_checkpoint):
+            return None
+    s_basis = _widen(s_basis, cfg.seed, ell_ref)
+    del y
+    _sync(a.device)
+    stage_seconds["global_pca"] = time.perf_counter() - t_stage
+    log.info("EigenSNP global PCA done in %.1fs.", stage_seconds["global_pca"])
+    t_stage = time.perf_counter()
+
+    # ---- Refinement + final eigensolve + loadings ---------------------
+    refine_residuals: List[float] = []
+    if use_pca_core:
+        v_k, sigma_k, evals_k, loadings = a.pca_core(s_basis, cfg.refine_passes, k)
+        sigma = sigma_k.cpu().numpy()
+        scores = (v_k.cpu().numpy() * sigma[None, :]).astype(np.float32)
+        loadings = loadings.astype(np.float32)
+        eigenvalues = evals_k.cpu().numpy().astype(np.float64) / max(n - 1, 1)
+    else:
+        start_pass = 0
+        for p in reversed(range(cfg.refine_passes)):
+            saved = ckpt.load(f"refine_pass_{p}")
+            if saved is not None:
+                s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
+                start_pass = p + 1
+                break
+        for p in range(start_pass, cfg.refine_passes):
+            s_new = torch.linalg.qr(a.gram_apply(s_basis))[0]
+            if diag is not None:
+                # sin of the largest principal angle between consecutive
+                # bases: the refinement's convergence series.
+                cosines = torch.linalg.svdvals(s_new.T @ s_basis)
+                smin = float(torch.clamp(cosines.min(), 0.0, 1.0))
+                refine_residuals.append(float(np.sqrt(max(0.0, 1.0 - smin**2))))
+            s_basis = s_new
+            ckpt.save(f"refine_pass_{p}", {"s_basis": s_basis.cpu().numpy()})
+            log.info("EigenSNP refinement pass %d/%d done.", p + 1,
+                     cfg.refine_passes)
+            if _ckpt_stop(f"refine_pass_{p}", stop_after_checkpoint):
+                return None
+        evals, w = torch.linalg.eigh(a.tsq_accumulate(s_basis))
+        order = torch.argsort(evals, descending=True)
+        evals = torch.clamp(evals[order][:k], min=0.0)
+        w = w[:, order][:, :k]
+        sigma_t = torch.sqrt(evals)
+        v = s_basis @ w
+        inv_sigma = torch.where(sigma_t > 0, 1.0 / torch.where(
+            sigma_t > 0, sigma_t, torch.ones_like(sigma_t)), torch.zeros_like(sigma_t))
+        scores = (v * sigma_t[None, :]).cpu().numpy().astype(np.float32)
+        loadings = (a.right_apply(v) * inv_sigma.cpu().numpy()[None, :]).astype(
+            np.float32)
+        sigma = sigma_t.cpu().numpy()
+        eigenvalues = evals.cpu().numpy().astype(np.float64) / max(n - 1, 1)
+
+    stage_seconds["refinement_finalize"] = time.perf_counter() - t_stage
+    log.info("EigenSNP refinement + finalization done in %.1fs.",
+             stage_seconds["refinement_finalize"])
+
+    if diag is not None:
+        diag["global"] = {
+            "condensed_features": int(c_total),
+            "k_global": int(k),
+            "refine_passes": int(cfg.refine_passes),
+            "refine_width": int(ell_ref),
+            "sample_subset_size": int(len(subset)),
+            "singular_values": np.asarray(sigma).tolist(),
+            "final_eigenvalues": np.asarray(eigenvalues).tolist(),
+            "condensed_spectrum": (condensed_spectrum.tolist()
+                                   if condensed_spectrum is not None else []),
+        }
+        diag["refinement"] = {
+            "passes_run": int(cfg.refine_passes),
+            "subspace_residual_per_pass": refine_residuals,
+        }
+        diag["stage_seconds"] = {s: round(t, 3) for s, t in stage_seconds.items()}
+        diag["num_pca_snps"] = int(d)
+        diag["num_qc_samples"] = int(n)
+        diag["num_ld_blocks"] = int(len(prep.blocks))
+        diag["matrix_path"] = "device-resident"
+
+    return EigenSnpResult(
+        scores=scores,
+        eigenvalues=eigenvalues,
+        loadings=loadings,
+        diagnostics=diag,
+        stage_seconds={s: round(t, 3) for s, t in stage_seconds.items()},
+    )
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device, so that a stage's wall clock holds its work."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

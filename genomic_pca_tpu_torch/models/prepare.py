@@ -1,0 +1,289 @@
+"""Data preparation of the EigenSNP workflow: sample QC, SNP QC, LD mapping
+and the resident packed matrix, on one device.
+
+Counterpart of `genomic_pca_tpu/models/prepare.py` in its single-process
+default: the SNP-QC scan runs on the host (`qc_mode` "auto" or "host"),
+counting 2-bit codes straight off the mmap'd BED (native popcounts, numpy
+fallback) or, under a sample keep-list, the decoded kept columns; the
+post-QC matrix then uploads once, as raw BED bytes for the full sample set
+or repacked to 2-bit on the host for a keep-list.  QC decisions and
+moments are bit-identical to the reference's (exact integer counts).
+
+Not ported yet, each refused with an error that says so: the device QC
+scan and its QC->matrix capture fusion (`qc_mode="device"`, multi-GPU
+work), the host-streamed container (chosen by the reference when the
+packed matrix exceeds 60% of device memory), and the dense int8 pipeline
+(`packed_pipeline=False`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from genomic_pca_tpu.config import DataPrepConfig
+from genomic_pca_tpu.errors import ComputeError, DataPrepError
+from genomic_pca_tpu.io.bed import BedReader
+from genomic_pca_tpu.io.ldblocks import (
+    LdBlockSpec, map_snps_to_blocks, parse_ld_block_file,
+)
+from genomic_pca_tpu_torch.ops.qc import (
+    genotype_counts_int8_host, genotype_counts_packed_host, snp_qc_from_counts,
+)
+from genomic_pca_tpu_torch.parallel.sharded import (
+    ShardedMatrix, pack_int8_rows, packed_cols, sanitize_partial_byte,
+)
+
+log = logging.getLogger(__name__)
+
+MISSING = -127
+NOT_PORTED = "not yet ported in genomic_pca_tpu_torch"
+
+
+def device_memory_budget(device) -> int:
+    """Memory of `device` in bytes: the card's total memory, or 16 GiB
+    for the CPU (the reference's fallback for a device without a limit)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return int(torch.cuda.get_device_properties(device).total_memory)
+    return 16 * (1 << 30)
+
+
+def _decode_bounded_rows(n_cohort_samples: int, target_bytes: int = 256 << 20) -> int:
+    """Rows per decode chunk so that the full-cohort-width int8 array that
+    BedReader.read makes before column subsetting stays near
+    `target_bytes`."""
+    return max(1024, min(262_144, target_bytes // max(n_cohort_samples, 1)))
+
+
+@dataclasses.dataclass
+class PreparedData:
+    """QC'd, LD-mapped dataset ready for the EigenSNP core algorithm.
+
+    Index spaces, as in the reference:
+      * QcSampleId i  <->  FAM row `qc_sample_indices[i]`
+      * PcaSnpId   i  <->  BIM row `pca_snp_orig_indices[i]`
+    """
+
+    bed: BedReader
+    config: DataPrepConfig
+    qc_sample_indices: np.ndarray  # (N,) original FAM indices
+    sample_ids: List[str]  # (N,) FAM iids, QcSampleId order
+    pca_snp_orig_indices: np.ndarray  # (D,) original BIM indices, sorted
+    mean: np.ndarray  # (D,) f32 aligned to PcaSnpId
+    std: np.ndarray  # (D,) f32 aligned to PcaSnpId
+    blocks: List[LdBlockSpec]
+    n_snps_pre_qc: int
+    n_snps_post_qc: int
+
+    @property
+    def n_samples(self) -> int:
+        return len(self.qc_sample_indices)
+
+    @property
+    def n_pca_snps(self) -> int:
+        return len(self.pca_snp_orig_indices)
+
+    @property
+    def missing_fraction_bound(self) -> float:
+        """Upper bound on the post-QC missing fraction: the call-rate
+        gate admits at most 1 - min_call_rate missing genotypes per
+        surviving SNP.  Drives the adaptive q8 polish count."""
+        return max(0.0, 1.0 - float(self.config.min_call_rate))
+
+    def snp_metadata(self):
+        """(sids, chroms, positions) aligned to PcaSnpId order."""
+        idx = self.pca_snp_orig_indices
+        return self.bed.bim.sid[idx], self.bed.bim.chrom[idx], self.bed.bim.bp[idx]
+
+    def _check_missing_policy(self, raw: np.ndarray) -> None:
+        if self.config.missing_policy == "error" and (raw == MISSING).any():
+            raise DataPrepError(
+                "Missing genotype encountered post-QC with "
+                "missing_policy='error' (reference accessor semantics, "
+                "prepare.rs:1906-1911)."
+            )
+
+    def estimate_resident_bytes(self) -> int:
+        """Device bytes of the resident 2-bit packed matrix."""
+        return self.n_pca_snps * packed_cols(self.n_samples)
+
+    def load_matrix(self, device) -> ShardedMatrix:
+        """The resident packed container on `device`.
+
+        Full sample set: the PCA rows' raw BED bytes, strip by strip;
+        keep-list: the kept columns decoded per strip and repacked to
+        2-bit on the host.  Both upload into one preallocated device
+        block (`from_packed_strips`), so the device never holds a second
+        copy.  Refuses what the reference would stream from the host."""
+        if not self.config.packed_pipeline:
+            raise ComputeError(
+                "packed_pipeline=False (the dense int8 container) is "
+                f"{NOT_PORTED}."
+            )
+        if self.n_pca_snps == 0:
+            raise ComputeError("No PCA SNPs to load.")
+        resident = self.estimate_resident_bytes()
+        budget = device_memory_budget(device)
+        if resident > 0.6 * budget:
+            raise ComputeError(
+                f"The packed genotype matrix ({resident / 1e9:.1f} GB) exceeds "
+                f"60% of device memory ({budget / 1e9:.1f} GB): the JAX "
+                "package switches to its host-streamed container here, "
+                f"which is {NOT_PORTED}."
+            )
+        idx = self.pca_snp_orig_indices
+
+        if len(self.qc_sample_indices) == self.bed.n_samples:
+            def read_strip(lo: int, hi: int) -> np.ndarray:
+                return sanitize_partial_byte(
+                    self.bed.read_packed(idx[lo:hi]), self.n_samples
+                )
+        else:
+            sel = self.qc_sample_indices
+            decode_step = _decode_bounded_rows(self.bed.n_samples)
+
+            def read_strip(lo: int, hi: int) -> np.ndarray:
+                parts = []
+                for s in range(lo, hi, decode_step):
+                    raw = self.bed.read(idx[s:min(s + decode_step, hi)], sel)
+                    self._check_missing_policy(raw)
+                    parts.append(pack_int8_rows(raw))
+                return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+        sm = ShardedMatrix.from_packed_strips(
+            read_strip, n_rows=self.n_pca_snps, mean=self.mean, std=self.std,
+            n_samples=self.n_samples, device=device,
+            missing_fraction=self.missing_fraction_bound,
+        )
+        if self.config.missing_policy == "error" and sm.count_missing():
+            raise DataPrepError(
+                "Missing genotypes present post-QC with "
+                "missing_policy='error' (reference accessor "
+                "semantics, prepare.rs:1906-1911)."
+            )
+        return sm
+
+
+def perform_sample_qc(bed: BedReader, keep_path: Optional[str]) -> np.ndarray:
+    """Keep-list intersection preserving FAM order."""
+    n = bed.n_samples
+    if keep_path is None:
+        log.info("No sample keep-list provided; using all %d samples.", n)
+        return np.arange(n, dtype=np.int64)
+    with open(keep_path, "r") as fh:
+        keep = {line.rstrip("\n").rstrip("\r") for line in fh}
+    idx = np.array(
+        [i for i, iid in enumerate(bed.fam.iid) if iid in keep], dtype=np.int64
+    )
+    log.info("Sample QC: %d / %d samples selected.", len(idx), n)
+    return idx
+
+
+def _qc_snp_range_hostscan(
+    bed: BedReader,
+    config: DataPrepConfig,
+    n_qc: int,
+    lo: int,
+    hi: int,
+    sample_sel: Optional[np.ndarray] = None,
+):
+    """Host SNP-QC scan over BIM rows [lo, hi): (keep bool, mean, std).
+
+    Full sample set: 2-bit code counts straight off the mmap'd BED bytes
+    (native popcounts, numpy fallback).  Keep-list: the int8 dosages of
+    the kept columns, decoded per chunk.  Filtering runs per chunk, so
+    temporaries stay chunk-sized; a chunk that fails to read is logged
+    and its SNPs excluded, as in the reference tool's QC path."""
+    from genomic_pca_tpu.io.native import packed_qc_counts_native
+
+    chunk_rows = 262_144
+    if sample_sel is not None:
+        chunk_rows = _decode_bounded_rows(bed.n_samples)
+    n_chunks = max(1, -(-(hi - lo) // chunk_rows))
+    keeps: List[np.ndarray] = []
+    means: List[np.ndarray] = []
+    stds: List[np.ndarray] = []
+    for ci, start in enumerate(range(lo, hi, chunk_rows)):
+        end = min(start + chunk_rows, hi)
+        try:
+            if sample_sel is not None:
+                counts = genotype_counts_int8_host(
+                    bed.read(slice(start, end), sample_sel)
+                )
+            else:
+                offs = 3 + np.arange(start, end, dtype=np.int64) * bed._bytes_per_snp
+                counts = packed_qc_counts_native(bed._mmap, offs, bed.n_samples)
+                if counts is None:
+                    counts = genotype_counts_packed_host(
+                        bed.read_packed(slice(start, end)), bed.n_samples
+                    )
+        except (OSError, ValueError) as e:
+            log.warning("SNP QC chunk %d-%d failed (%s); excluding its SNPs.",
+                        start, end, e)
+            counts = np.zeros((end - start, 4), dtype=np.int32)
+        qc = snp_qc_from_counts(counts[:, 0], counts[:, 1], counts[:, 2],
+                                counts[:, 3], n_qc, config)
+        keeps.append(qc.keep)
+        means.append(qc.mean)
+        stds.append(qc.std)
+        if (ci + 1) % max(1, n_chunks // 20) == 0 or ci + 1 == n_chunks:
+            log.info("SNP QC host scan: chunk %d/%d (%.0f%%).",
+                     ci + 1, n_chunks, 100.0 * (ci + 1) / n_chunks)
+    if not keeps:
+        return (np.zeros(0, dtype=bool), np.zeros(0, dtype=np.float32),
+                np.zeros(0, dtype=np.float32))
+    return np.concatenate(keeps), np.concatenate(means), np.concatenate(stds)
+
+
+def prepare_data(config: DataPrepConfig) -> PreparedData:
+    """Sample QC -> host SNP-QC scan -> LD mapping, single process."""
+    if config.qc_mode not in ("auto", "host", "device"):
+        raise DataPrepError(
+            f"qc_mode must be 'auto', 'host', or 'device', got {config.qc_mode!r}"
+        )
+    if config.qc_mode == "device":
+        raise DataPrepError(
+            "qc_mode='device' (the device QC scan and its QC->matrix "
+            f"capture fusion) is {NOT_PORTED}; use 'auto' or 'host'."
+        )
+    if not config.packed_pipeline:
+        raise DataPrepError(
+            f"packed_pipeline=False (the dense int8 pipeline) is {NOT_PORTED}."
+        )
+    bed = BedReader(config.bed_path)
+    qc_samples = perform_sample_qc(bed, config.sample_keep_path)
+    n_qc = len(qc_samples)
+    if n_qc == 0:
+        raise DataPrepError("Sample QC left 0 samples.")
+    sample_sel = None if n_qc == bed.n_samples else qc_samples
+    parsed_blocks = parse_ld_block_file(config.ld_block_path)
+    log.info("SNP QC: host-side %s scan (qc_mode=%s).",
+             "packed" if sample_sel is None else "decoded-subset", config.qc_mode)
+    keep, mean_all, std_all = _qc_snp_range_hostscan(
+        bed, config, n_qc, 0, bed.n_snps, sample_sel=sample_sel
+    )
+    qc_orig = np.nonzero(keep)[0]
+    log.info("SNP QC: %d / %d SNPs passed.", len(qc_orig), bed.n_snps)
+
+    blocks, pca_orig = map_snps_to_blocks(
+        bed.bim.chrom[qc_orig], bed.bim.bp[qc_orig], qc_orig, parsed_blocks,
+    )
+    log.info("LD mapping: %d QC'd SNPs -> %d PCA SNPs across %d blocks.",
+             len(qc_orig), len(pca_orig), len(blocks))
+    return PreparedData(
+        bed=bed,
+        config=config,
+        qc_sample_indices=qc_samples,
+        sample_ids=[str(s) for s in bed.fam.iid[qc_samples]],
+        pca_snp_orig_indices=pca_orig,
+        mean=mean_all[pca_orig].astype(np.float32),
+        std=std_all[pca_orig].astype(np.float32),
+        blocks=blocks,
+        n_snps_pre_qc=bed.n_snps,
+        n_snps_post_qc=len(qc_orig),
+    )

@@ -2,9 +2,10 @@
 
 The sources compile with nvcc into one shared library with a plain C
 interface, loaded with ctypes (no PyTorch headers, so a build takes
-seconds).  The library lands in `build/kernels/<source hash>/` under the
-checkout and is built at first use; a later process with the same
-sources loads it without rebuilding.
+seconds).  Each `.cu` compiles in its own nvcc process, all started
+together, and one more nvcc links the objects.  The library lands in
+`build/kernels/<source hash>/` under the checkout and is built at first
+use; a later process with the same sources loads it without rebuilding.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -39,6 +40,9 @@ SIGNATURES = {
     "gp_wtw": [_P, _P, _I, _I, _I, _I, _P],
     "gp_q8_w": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_left": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gp_left2d_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gp_q8_right2d": [_P, _P, _P, _I, _I, _I, _P],
+    "gp_q8_left2d": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -82,15 +86,29 @@ def build(force: bool = False) -> tuple:
     if lib_path.exists() and not force:
         return lib_path, 0.0, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libgp_kernels.{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    tag = os.getpid()
+    tmp = out_dir / f"libgp_kernels.{tag}.so"
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs = [p.communicate()[0] for p in procs]
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+        capture_output=True, text=True,
+    ) if all(p.returncode == 0 for p in procs) else None
     secs = time.perf_counter() - t0
-    text = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{text}")
+    text = "".join(logs) + (link.stdout + link.stderr if link else "")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{text}")
     (out_dir / "nvcc.log").write_text(text)
     os.replace(tmp, lib_path)  # atomic: concurrent builders never see half a file
     log.info("Built CUDA kernels in %.1fs -> %s", secs, lib_path)

@@ -1,10 +1,13 @@
-"""The four packed-genotype kernels of the randomized-PCA main path.
+"""The packed-genotype kernels of the randomized-PCA core.
 
-Each public function takes the PLINK 2-bit matrix as a (D, N4) uint8
-tensor in ORIGINAL sample order (byte j, bits 2p <-> sample 4j + p; no
-plane-major permutation), per-SNP (D, 1) f32 columns, and a sample-indexed
-(4 * N4, L) operand, and returns what the TPU kernel of the same name in
-`genomic_pca_tpu/ops/pallas_kernels.py` returns, un-permuted.
+Four serve the 1-D mode of the container (every sample tile of a row
+band in one pass), four the wide-sample 2-D mode, where the JAX package
+tiles both axes.  Each public function takes the PLINK 2-bit matrix as a
+(D, N4) uint8 tensor in ORIGINAL sample order (byte j, bits 2p <->
+sample 4j + p; no plane-major permutation), per-SNP (D, 1) f32 columns,
+and sample- or variant-indexed (., L) operands, and returns what the TPU
+kernel of the same name in `genomic_pca_tpu/ops/pallas_kernels.py`
+returns, un-permuted.
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version beside each
 kernel; a CUDA tensor launches the hand-written CUDA kernel (csrc/, built
@@ -28,6 +31,10 @@ LAUNCHES: Dict[str, int] = {
     "fused_gram_apply_packed": 0,
     "fused_tsq_packed": 0,
     "fused_right_apply_packed": 0,
+    "fused_right_apply_2d_packed": 0,
+    "fused_left_apply_2d_packed": 0,
+    "right_apply_2d_q8": 0,
+    "left_apply_2d_q8": 0,
 }
 
 
@@ -115,30 +122,64 @@ def _exact_int_dtype(bound: int) -> torch.dtype:
     return torch.float32 if bound < 2**24 else torch.float64
 
 
-def fused_gram_q8_packed_plain(packed, inv_std, u, bq, sb, csum, tile_d=1024):
-    """Plain q8 pass: same quantization model as the kernel, integer
-    products computed exactly in f32 / f64 (int8 matmul wraps on the CPU
-    and has no CUDA path)."""
-    d, n4 = packed.shape
-    ell = bq.shape[1]
-    g0 = unpack_dosages(packed)
-    dt = _exact_int_dtype(2 * 127 * 4 * n4)
-    w = (g0.to(dt) @ bq.to(dt)).to(torch.float32)
-    y = inv_std * (w * sb) - u * csum
-    z = inv_std * y
-    n_tiles = -(-d // tile_d)
-    pad = n_tiles * tile_d - d
-    z_t = torch.nn.functional.pad(z, (0, 0, 0, pad)).reshape(n_tiles, tile_d, ell)
-    g_t = torch.nn.functional.pad(g0, (0, 0, 0, pad)).reshape(
-        n_tiles, tile_d, 4 * n4
+def fused_left_apply_2d_packed_plain(packed, mean, inv_std, w, precision="bf16"):
+    bf16 = _bf16(precision)
+    return standardize_packed(packed, mean, inv_std, precision).T @ _operand(w, bf16)
+
+
+# Integer products are computed exactly in f32 / f64: int8 matmul wraps
+# on the CPU and has no CUDA path.
+
+
+def right_apply_2d_q8_plain(packed, bq):
+    """Raw integer products G0 bq, computed exactly, rounded once to f32."""
+    dt = _exact_int_dtype(2 * 127 * 4 * packed.shape[1])
+    return (unpack_dosages(packed).to(dt) @ bq.to(dt)).to(torch.float32)
+
+
+def _row_tiles(x: torch.Tensor, tile_d: int) -> torch.Tensor:
+    """(D, C) -> (T, tile_d, C), the ragged last tile padded with zeros."""
+    n_tiles = -(-x.shape[0] // tile_d)
+    pad = n_tiles * tile_d - x.shape[0]
+    return torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(
+        n_tiles, tile_d, x.shape[1]
     )
+
+
+def left_apply_2d_q8_plain(packed, z8, sz, tile_d):
+    """sum_t sz[t] (G0_t^T z8_t), each tile's integer product exact."""
+    g_t = _row_tiles(unpack_dosages(packed), tile_d)
+    dt = _exact_int_dtype(2 * 127 * tile_d)
+    t_int = g_t.to(dt).transpose(1, 2) @ _row_tiles(z8, tile_d).to(dt)
+    return (t_int.to(torch.float32) * sz[:, None, None]).sum(dim=0)
+
+
+def quantize_rows(z: torch.Tensor, tile_d: int):
+    """Per-row-tile int8 quantization of z (D, L): (z8 (D, L) int8, sz (T,)
+    f32) with sz = max|z| / 127 over each (tile_d, L) tile, as the
+    reference's q8 passes quantize it."""
+    z_t = _row_tiles(z, tile_d)
     sz = z_t.abs().amax(dim=(1, 2)) * (1.0 / 127.0) + 1e-30
     z8 = torch.clamp(torch.round(z_t * (1.0 / sz)[:, None, None]), -127.0, 127.0)
-    dt = _exact_int_dtype(2 * 127 * tile_d)
-    t_int = g_t.to(dt).transpose(1, 2) @ z8.to(dt)  # (T, N, L), exact
-    out = (t_int.to(torch.float32) * sz[:, None, None]).sum(dim=0)
-    ru = (u * y).sum(dim=0, keepdim=True)
-    return out, ru
+    return z8.reshape(-1, z.shape[1])[: z.shape[0]].to(torch.int8), sz
+
+
+def _q8_pass(right, left, packed, inv_std, u, bq, sb, csum, tile_d):
+    """One quantized power pass from its two integer products: W = G0 bq,
+    the corrections y = s (W sb) - u csum and z = s y, z quantized per row
+    tile, then G0^T z8 scaled per tile.  Returns (out, ru = sum u y)."""
+    w = right(packed, bq)
+    y = inv_std * (w * sb) - u * csum
+    z = inv_std * y
+    z8, sz = quantize_rows(z, tile_d)
+    return left(packed, z8, sz, tile_d), (u * y).sum(dim=0, keepdim=True)
+
+
+def fused_gram_q8_packed_plain(packed, inv_std, u, bq, sb, csum, tile_d=1024):
+    """Plain q8 pass: the kernel's quantization model, integer products
+    exact."""
+    return _q8_pass(right_apply_2d_q8_plain, left_apply_2d_q8_plain, packed,
+                    inv_std, u, bq, sb, csum, tile_d)
 
 
 # ---------------------------------------------------------------------------
@@ -293,10 +334,7 @@ def fused_tsq_packed(packed, mean, inv_std, b, precision="bf16"):
 # `tile_d`, the quantization tile, is independent of the block shape.
 
 
-def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
-    """Quantized power pass: (out (4 * N4, L), ru (1, L)); the caller
-    forms T = out - ru.  `bq` (4 * N4, L) int8, `sb` (1, 1), `csum` (1, L)
-    as returned by ops.rsvd.quantize_basis."""
+def _check_q8(packed, inv_std, u, bq, sb, csum, tile_d):
     if packed.dim() != 2:
         raise ValueError(f"packed must be (D, N4), got {tuple(packed.shape)}")
     if tile_d <= 0 or tile_d % 64:
@@ -306,15 +344,28 @@ def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
     if bq.dim() != 2 or bq.shape[0] != 4 * n4:
         raise ValueError(f"bq must be ({4 * n4}, L), got {tuple(bq.shape)}")
     ell = bq.shape[1]
-    packed = _require(packed, "packed", torch.uint8, (d, n4), dev)
-    inv_std = _require(inv_std, "inv_std", torch.float32, (d, 1), dev)
-    u = _require(u, "u", torch.float32, (d, 1), dev)
-    bq = _require(bq, "bq", torch.int8, (4 * n4, ell), dev)
-    sb = _require(sb, "sb", torch.float32, (1, 1), dev)
-    csum = _require(csum, "csum", torch.float32, (1, ell), dev)
+    return (
+        _require(packed, "packed", torch.uint8, (d, n4), dev),
+        _require(inv_std, "inv_std", torch.float32, (d, 1), dev),
+        _require(u, "u", torch.float32, (d, 1), dev),
+        _require(bq, "bq", torch.int8, (4 * n4, ell), dev),
+        _require(sb, "sb", torch.float32, (1, 1), dev),
+        _require(csum, "csum", torch.float32, (1, ell), dev),
+    )
+
+
+def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
+    """Quantized power pass: (out (4 * N4, L), ru (1, L)); the caller
+    forms T = out - ru.  `bq` (4 * N4, L) int8, `sb` (1, 1), `csum` (1, L)
+    as returned by ops.rsvd.quantize_basis."""
+    packed, inv_std, u, bq, sb, csum = _check_q8(packed, inv_std, u, bq, sb,
+                                                 csum, tile_d)
     if _route(packed) == "plain":
         return fused_gram_q8_packed_plain(packed, inv_std, u, bq, sb, csum, tile_d)
     LAUNCHES["fused_gram_q8_packed"] += 1
+    d, n4 = packed.shape
+    ell = bq.shape[1]
+    dev = packed.device
     n_tiles = -(-d // tile_d)
     z = torch.empty((d, ell), dtype=torch.float32, device=dev)
     tile_max = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
@@ -328,9 +379,146 @@ def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
     return out, ru.reshape(1, ell)
 
 
+# ---------------------------------------------------------------------------
+# The four kernels of the wide-sample (2-D) mode.
+#
+# fused_right_apply_2d_packed replaces pallas_kernels.py
+# fused_right_apply_2d_packed (:675, pallas_call :692): A B with both
+# axes tiled, W in f32 (not rounded).  The TPU needed a second kernel
+# only because a full-width row tile no longer fit VMEM; the port's
+# right kernel already tiles both axes (one block per 64 x 64 output
+# tile, looping over all samples), so this wrapper launches
+# gp_right_packed (csrc/exact_kernels.cu) with round_out = 0 - the same
+# computation - and keeps its own launch count and plain version.
+
+
+def fused_right_apply_2d_packed(packed, mean, inv_std, b, precision="bf16"):
+    """A B: (D, L) f32, W not rounded."""
+    packed, mean, inv_std, b = _check_common(packed, mean, inv_std, b, precision)
+    if _route(packed) == "plain":
+        return fused_right_apply_2d_packed_plain(packed, mean, inv_std, b,
+                                                 precision)
+    LAUNCHES["fused_right_apply_2d_packed"] += 1
+    return _launch_right(packed, mean, inv_std, b, _bf16(precision), False)
+
+
+# The 1-D mode's right product is the same function.
+fused_right_apply_2d_packed_plain = fused_right_apply_packed_plain
+
+
+# fused_left_apply_2d_packed replaces pallas_kernels.py
+# fused_left_apply_2d_packed (:723, pallas_call :741): A^T W with W
+# (D, L) f32, rounded to bf16 on load in bf16 mode.  FMA bound (2*D*N*L
+# operations against D*N4 bytes).  Design (csrc/wide_kernels.cu): one
+# block per (64 samples x 64 columns) output tile looping over ALL rows -
+# at wide N the sample tiles alone fill the card - so no split-K, no
+# atomics, a deterministic sum order, and no zeroing of the output.
+
+
+def fused_left_apply_2d_packed(packed, mean, inv_std, w, precision="bf16"):
+    """A^T W: (4 * N4, L) f32, original sample order."""
+    _bf16(precision)
+    if packed.dim() != 2:
+        raise ValueError(f"packed must be (D, N4), got {tuple(packed.shape)}")
+    d, n4 = packed.shape
+    dev = packed.device
+    packed = _require(packed, "packed", torch.uint8, (d, n4), dev)
+    mean = _require(mean, "mean", torch.float32, (d, 1), dev)
+    inv_std = _require(inv_std, "inv_std", torch.float32, (d, 1), dev)
+    if w.dim() != 2 or w.shape[0] != d:
+        raise ValueError(f"w must be ({d}, L), got {tuple(w.shape)}")
+    w = _require(w, "w", torch.float32, w.shape, dev)
+    if _route(packed) == "plain":
+        return fused_left_apply_2d_packed_plain(packed, mean, inv_std, w, precision)
+    LAUNCHES["fused_left_apply_2d_packed"] += 1
+    ell = w.shape[1]
+    out = torch.empty((4 * n4, ell), dtype=torch.float32, device=dev)
+    _launch(dev, "gp_left2d_packed", packed, mean, inv_std, w, out, d, n4, ell,
+            int(_bf16(precision)))
+    return out
+
+
+# right_apply_2d_q8 replaces pallas_kernels.py right_apply_2d_q8 (:1096,
+# pallas_call :1112) for packed input: the raw integer products sum_j
+# G0 bq on __dp4a, summed in int32 over the whole row and converted to
+# f32 once (exact below 2^24, ~66k samples; the reference adds per-tile
+# int32 sums in f32).  Bound by the dp4a instruction rate.  One block
+# per 64 x 64 output tile; the main loop is the one of the 1-D q8 pass (q8_right_tile in
+# csrc/packed_common.cuh) without its fused corrections, which
+# q8_power_pass_2d does in torch.
+
+
+def right_apply_2d_q8(packed, bq):
+    """G0 bq: (D, L) f32 of raw integer products."""
+    if packed.dim() != 2:
+        raise ValueError(f"packed must be (D, N4), got {tuple(packed.shape)}")
+    d, n4 = packed.shape
+    dev = packed.device
+    packed = _require(packed, "packed", torch.uint8, (d, n4), dev)
+    if bq.dim() != 2 or bq.shape[0] != 4 * n4:
+        raise ValueError(f"bq must be ({4 * n4}, L), got {tuple(bq.shape)}")
+    bq = _require(bq, "bq", torch.int8, bq.shape, dev)
+    if _route(packed) == "plain":
+        return right_apply_2d_q8_plain(packed, bq)
+    LAUNCHES["right_apply_2d_q8"] += 1
+    ell = bq.shape[1]
+    out = torch.empty((d, ell), dtype=torch.float32, device=dev)
+    _launch(dev, "gp_q8_right2d", packed, bq, out, d, n4, ell)
+    return out
+
+
+# left_apply_2d_q8 replaces pallas_kernels.py left_apply_2d_q8 (:1139,
+# pallas_call :1158) for packed input: sum_t sz[t] (G0_t^T z8_t) with z8
+# quantized per row tile of `tile_d`.  Bound by the dp4a instruction
+# rate.  One block per (64 samples x 64 columns) output tile loops over
+# all row tiles: the
+# int32 sum of a tile is exact, and is scaled by that tile's sz and added
+# to the f32 accumulator at every tile boundary (sums under different
+# scales cannot be added as integers).  No atomics, fixed sum order.
+
+
+def left_apply_2d_q8(packed, z8, sz, tile_d):
+    """sum_t sz[t] G0_t^T z8_t: (4 * N4, L) f32, original sample order."""
+    if packed.dim() != 2:
+        raise ValueError(f"packed must be (D, N4), got {tuple(packed.shape)}")
+    if tile_d <= 0:
+        raise ValueError(f"tile_d must be positive, got {tile_d}")
+    d, n4 = packed.shape
+    dev = packed.device
+    packed = _require(packed, "packed", torch.uint8, (d, n4), dev)
+    if z8.dim() != 2 or z8.shape[0] != d:
+        raise ValueError(f"z8 must be ({d}, L), got {tuple(z8.shape)}")
+    z8 = _require(z8, "z8", torch.int8, z8.shape, dev)
+    sz = _require(sz, "sz", torch.float32, (-(-d // tile_d),), dev)
+    if _route(packed) == "plain":
+        return left_apply_2d_q8_plain(packed, z8, sz, tile_d)
+    LAUNCHES["left_apply_2d_q8"] += 1
+    ell = z8.shape[1]
+    out = torch.empty((4 * n4, ell), dtype=torch.float32, device=dev)
+    _launch(dev, "gp_q8_left2d", packed, z8, sz, out, d, n4, ell, tile_d)
+    return out
+
+
+def q8_power_pass_2d(packed, inv_std, u, bq, sb, csum, tile_d=1024):
+    """The quantized power pass of the 2-D mode, as the reference's
+    `q8_power_pass_2d` (pallas_kernels.py:1183-1222): kernels 7 and 8 for
+    the integer products, and between them the corrections and the
+    per-row-tile requantization in torch on the small (D, L)
+    intermediate, where the reference leaves them to XLA.  Same argument
+    contract and result as `fused_gram_q8_packed`."""
+    packed, inv_std, u, bq, sb, csum = _check_q8(packed, inv_std, u, bq, sb,
+                                                 csum, tile_d)
+    return _q8_pass(right_apply_2d_q8, left_apply_2d_q8, packed, inv_std, u,
+                    bq, sb, csum, tile_d)
+
+
 PLAIN = {
     "fused_gram_q8_packed": fused_gram_q8_packed_plain,
     "fused_gram_apply_packed": fused_gram_apply_packed_plain,
     "fused_tsq_packed": fused_tsq_packed_plain,
     "fused_right_apply_packed": fused_right_apply_packed_plain,
+    "fused_right_apply_2d_packed": fused_right_apply_2d_packed_plain,
+    "fused_left_apply_2d_packed": fused_left_apply_2d_packed_plain,
+    "right_apply_2d_q8": right_apply_2d_q8_plain,
+    "left_apply_2d_q8": left_apply_2d_q8_plain,
 }

@@ -1,30 +1,91 @@
-"""Orthonormalisation and basis quantisation glue of the power loop.
+"""Randomized SVD and the orthonormalisation / quantisation glue.
 
-Torch counterparts of `genomic_pca_tpu/ops/rsvd.py` `cholqr2_q`,
-`quantize_basis` and `subspace_residual`.  Float32 products here run in
-full f32: the package turns TF32 off at import (`__init__.py`), matching
-the reference's `Precision.HIGHEST`.
+Torch counterparts of `genomic_pca_tpu/ops/rsvd.py`.  Float32 products
+here run in full f32: the package turns TF32 off at import
+(`__init__.py`), matching the reference's `Precision.HIGHEST`.
+
+Every function takes leading batch dimensions where the reference uses
+`jax.vmap` (the EigenSNP stage-1 rSVD runs one per LD block).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 
 def cholqr2_q(t: torch.Tensor) -> torch.Tensor:
-    """Two-pass Cholesky-QR orthonormal factor of a tall (N, L) block.
+    """Two-pass Cholesky-QR orthonormal factor of tall (..., N, L) blocks.
 
     Same discipline as the reference: columns pre-normalised (1e-12
-    guard) and a 1e-6 ridge on the (L, L) Gram, so zero columns (padding
-    or a rank-deficient sketch) stay finite and stay zero."""
-    ell = t.shape[1]
+    guard) and a 1e-6 ridge on the (L, L) Gram, so zero columns (padding,
+    a rank-deficient sketch, inert bucket rows) stay finite and stay
+    zero."""
+    ell = t.shape[-1]
     eye = torch.eye(ell, dtype=t.dtype, device=t.device)
     for _ in range(2):
-        t = t / (torch.linalg.norm(t, dim=0, keepdim=True) + 1e-12)
-        r = torch.linalg.cholesky(t.T @ t + 1e-6 * eye)
+        t = t / (torch.linalg.norm(t, dim=-2, keepdim=True) + 1e-12)
+        r = torch.linalg.cholesky(t.mT @ t + 1e-6 * eye)
         # X r^T = t  ->  X = t r^{-T}
-        t = torch.linalg.solve_triangular(r.T, t, upper=True, left=False)
+        t = torch.linalg.solve_triangular(r.mT, t, upper=True, left=False)
     return t
+
+
+def _qr_q(a: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.qr(a)[0]
+
+
+def sketch_width(k: int, n_oversamples: int, m: int, n: int) -> int:
+    """ell = min(k + n_oversamples, m, n), the reference's sketch width."""
+    return min(k + n_oversamples, min(m, n))
+
+
+def rsvd(
+    x: torch.Tensor,
+    omega: torch.Tensor,
+    k: int,
+    n_oversamples: int = 10,
+    n_power_iter: int = 2,
+    orth: str = "qr",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Randomized truncated SVD of (..., m, n) matrices: (U (..., m, k),
+    s (..., k), Vt (..., k, n)).
+
+    Halko-Martinsson-Tropp with re-orthonormalisation after every
+    product, as the reference `rsvd`.  `orth` is "qr" (Householder) or
+    "cholqr2".  The sketch `omega` (..., n, sketch_width(...)) stands
+    where the reference takes a PRNG key: callers draw it from the port's
+    seeded generators, tests hand both packages the same one."""
+    if orth not in ("qr", "cholqr2"):
+        raise ValueError(f"orth must be 'qr' or 'cholqr2', got {orth!r}")
+    m, n = x.shape[-2:]
+    ell = sketch_width(k, n_oversamples, m, n)
+    if omega.shape[-2:] != (n, ell):
+        raise ValueError(f"omega must be (..., {n}, {ell}), got {tuple(omega.shape)}")
+    orth_q = _qr_q if orth == "qr" else cholqr2_q
+    q = orth_q(x @ omega)
+    for _ in range(n_power_iter):
+        z = orth_q(x.mT @ q)
+        q = orth_q(x @ z)
+    ub, s, vt = torch.linalg.svd(q.mT @ x, full_matrices=False)
+    u = q @ ub
+    return u[..., :k], s[..., :k], vt[..., :k, :]
+
+
+def exact_svd(x: torch.Tensor, k: int):
+    """Exact truncated SVD (small matrices, tests)."""
+    u, s, vt = torch.linalg.svd(x, full_matrices=False)
+    return u[..., :k], s[..., :k], vt[..., :k, :]
+
+
+def sign_canonicalize(u: torch.Tensor, vt: torch.Tensor):
+    """Fix the sign of singular pairs: the entry of largest |value| in
+    each column of U is made positive, applied to Vt alike."""
+    idx = torch.argmax(u.abs(), dim=0)
+    signs = torch.sign(u[idx, torch.arange(u.shape[1], device=u.device)])
+    signs = torch.where(signs == 0, torch.ones_like(signs), signs)
+    return u * signs[None, :], vt * signs[:, None]
 
 
 def quantize_basis(bp: torch.Tensor):

@@ -11,9 +11,16 @@ the data are 0x55 (all missing -> 0) and padded rows carry inv_std = 0.
 The kernels (ops/kernels.py) take any D, so this container adds no row
 padding of its own; `from_reference_arrays` keeps the reference's.
 
+Two modes, as in the JAX container: "1d" runs the four 1-D kernels;
+"2d", the wide-sample mode, runs every exact pass as the right product
+then the left product over both tiled axes, and every q8 steering pass
+through `q8_power_pass_2d`.  The modes differ numerically (the 2-D tsq
+takes W in f32, the 1-D one W rounded to bf16), so the port switches at
+the sample count where the JAX container does.
+
 Not ported here: left_apply, the dense int8 layout, the from_arrays /
-from_local_rows / from_owned_units constructors, row segments,
-fetch_blocks_device and the TPU tile choosers.
+from_local_rows / from_owned_units constructors, row segments (the
+one-device layout is a single segment) and the TPU tile choosers.
 """
 
 from __future__ import annotations
@@ -29,6 +36,22 @@ from genomic_pca_tpu_torch.ops.rsvd import (
 )
 
 PACKED_MISSING_BYTE = 0x55  # four 01 (missing) fields
+
+# Sample counts (padded, n_pad = 4 * N4) from which the container runs in
+# the 2-D mode.  They are the points where the JAX package's
+# `auto_tile_d` (genomic_pca_tpu/parallel/sharded.py:195-227) finds no
+# row tile for its 15.5 MiB VMEM budget and its container switches to
+# mode "pallas2d": a fixed 1280 * n_pad bytes (q8, bf16; 1536 * n_pad
+# for f32) plus a 32-row tile at 6 * n_pad (10 * n_pad) bytes exceeds
+# the budget from n_pad = 11,264 (9,216); n_pad steps by 512 in the
+# packed layout.  Same rule, same algorithm for the same data.
+WIDE_N_PAD = 11_264
+WIDE_N_PAD_F32 = 9_216
+
+
+def default_mode(n_pad: int, kernel_precision: str) -> str:
+    wide = WIDE_N_PAD_F32 if kernel_precision == "f32" else WIDE_N_PAD
+    return "2d" if n_pad >= wide else "1d"
 
 
 def resolve_q8_polish(
@@ -97,7 +120,8 @@ class ShardedMatrix:
     `power_iterate` and `pca_core`.  `kernel_precision` "q8" (default)
     steers with the int8 kernel and runs every exact pass in bf16; "bf16"
     and "f32" run only exact passes at that precision.  `tile_d` is the
-    q8 quantization tile (rows sharing one z scale).
+    q8 quantization tile (rows sharing one z scale).  `mode` is "1d",
+    "2d" or None (chosen from the sample count by `default_mode`).
     """
 
     def __init__(
@@ -112,9 +136,12 @@ class ShardedMatrix:
         kernel_precision: str = "q8",
         q8_polish: Optional[int] = None,
         missing_fraction: Optional[float] = None,
+        mode: Optional[str] = None,
     ):
         if kernel_precision not in ("q8", "bf16", "f32"):
             raise ValueError(f"unknown kernel_precision {kernel_precision!r}")
+        if mode not in (None, "1d", "2d"):
+            raise ValueError(f"mode must be None, '1d' or '2d', got {mode!r}")
         self.device = torch.device(device)
         self.geno = geno
         self.mean = mean
@@ -127,6 +154,7 @@ class ShardedMatrix:
         self.q8_polish = resolve_q8_polish(q8_polish, missing_fraction)
         self.d_pad = geno.shape[0]
         self.n_pad = geno.shape[1] * 4
+        self.mode = mode or default_mode(self.n_pad, kernel_precision)
         self._u = mean * inv_std
         self._pmask = (
             torch.arange(self.n_pad, device=self.device) < n_samples
@@ -221,26 +249,37 @@ class ShardedMatrix:
         out[: b.shape[0]] = b
         return out
 
+    # The passes of each mode: the JAX container's `_local_ops`
+    # (genomic_pca_tpu/parallel/sharded.py:948-1061).  In 2-D mode gram
+    # is W = A B then A^T W, tsq is W^T W on the f32 W (a plain f32
+    # product, TF32 off, as the reference's jnp.dot at HIGHEST outside
+    # any kernel), and the q8 pass is q8_power_pass_2d.
     def _gram(self, bp: torch.Tensor) -> torch.Tensor:
-        return kernels.fused_gram_apply_packed(
-            self.geno, self.mean, self.inv_std, bp, self.exact_precision
-        )
+        args = (self.geno, self.mean, self.inv_std)
+        if self.mode == "2d":
+            w = kernels.fused_right_apply_2d_packed(*args, bp, self.exact_precision)
+            return kernels.fused_left_apply_2d_packed(*args, w, self.exact_precision)
+        return kernels.fused_gram_apply_packed(*args, bp, self.exact_precision)
 
     def _tsq(self, bp: torch.Tensor) -> torch.Tensor:
+        if self.mode == "2d":
+            w = self._right(bp)
+            return w.T @ w
         return kernels.fused_tsq_packed(
             self.geno, self.mean, self.inv_std, bp, self.exact_precision
         )
 
     def _right(self, bp: torch.Tensor) -> torch.Tensor:
-        return kernels.fused_right_apply_packed(
-            self.geno, self.mean, self.inv_std, bp, self.exact_precision
-        )
+        fn = (kernels.fused_right_apply_2d_packed if self.mode == "2d"
+              else kernels.fused_right_apply_packed)
+        return fn(self.geno, self.mean, self.inv_std, bp, self.exact_precision)
 
     def _gram_q8(self, bp: torch.Tensor) -> torch.Tensor:
         bq, sb, csum = quantize_basis(bp)
-        out, ru = kernels.fused_gram_q8_packed(
-            self.geno, self.inv_std, self._u, bq, sb, csum, tile_d=self.tile_d
-        )
+        fn = (kernels.q8_power_pass_2d if self.mode == "2d"
+              else kernels.fused_gram_q8_packed)
+        out, ru = fn(self.geno, self.inv_std, self._u, bq, sb, csum,
+                     tile_d=self.tile_d)
         return out - ru
 
     # ---- public passes ------------------------------------------------
@@ -324,3 +363,56 @@ class ShardedMatrix:
         loadings = (c * inv_sigma[None, :])[: self.n_rows].cpu().numpy()
         res = (v_full[: self.n_samples, :k], s_k, evals[:k], loadings)
         return res if tolerance is None else res + (n_done,)
+
+    # ---- device-resident block access ---------------------------------
+    def runs_device_sliceable(self, runs: np.ndarray) -> bool:
+        """Every (start, len) run can be sliced contiguously: the
+        one-device layout is one row segment."""
+        return True
+
+    def fetch_blocks_device(
+        self,
+        starts: np.ndarray,
+        lens: np.ndarray,
+        bucket: int,
+        col_idx: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """(B, bucket, C) f32 standardized row runs sliced from the
+        resident matrix, in original sample order: row i of block b is
+        matrix row starts[b] + i for i < lens[b], and 0 beyond; missing
+        genotypes are 0; C = n_pad, or len(col_idx).
+
+        The reference's `fetch_blocks_device` / `_slice_blocks_packed_impl`
+        (genomic_pca_tpu/parallel/sharded.py:345-376, 1447-1479), with one
+        difference of layout: where a bucket would pass the last row the
+        reference reads a window moved back to end there, so the run sits
+        lower in its bucket; here every run starts at row 0 of its
+        bucket, so a block's local basis rows are its SNPs in order."""
+        bucket = min(bucket, self.d_pad)
+        lens_t = torch.as_tensor(np.asarray(lens, dtype=np.int64), device=self.device)
+        if int(lens_t.max()) > bucket:
+            raise ValueError(f"block longer than bucket: {int(lens_t.max())} > {bucket}")
+        starts_t = torch.as_tensor(np.asarray(starts, dtype=np.int64),
+                                   device=self.device)
+        offs = torch.arange(bucket, device=self.device)
+        rows = torch.clamp(starts_t[:, None] + offs, max=self.d_pad - 1).reshape(-1)
+        codes = kernels.packed_codes(self.geno[rows])  # (B bucket, n_pad)
+        iv = self.inv_std[rows]
+        m = self.mean[rows]
+        x = ((4 - codes) >> 1).to(torch.float32) * iv + (-m * iv)
+        x = torch.where(codes != 1, x, torch.zeros((), device=self.device))
+        x = x.reshape(len(starts_t), bucket, self.n_pad)
+        if col_idx is not None:
+            x = x[:, :, col_idx]
+        in_run = offs[None, :] < lens_t[:, None]
+        return torch.where(in_run[:, :, None], x, torch.zeros((), device=self.device))
+
+    def count_missing(self) -> int:
+        """Missing genotypes among real rows and samples (for the strict
+        `missing_policy="error"`), counted in int64."""
+        valid = torch.arange(self.n_pad, device=self.device) < self.n_samples
+        miss = 0
+        for lo in range(0, self.n_rows, 16384):
+            codes = kernels.packed_codes(self.geno[lo:min(lo + 16384, self.n_rows)])
+            miss += int(((codes == 1) & valid).sum(dtype=torch.int64))
+        return miss

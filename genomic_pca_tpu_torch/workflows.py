@@ -1,29 +1,35 @@
-"""VCF workflow on the port: parse -> pack -> randomized PCA -> TSVs.
+"""The port's workflows: VCF -> randomized PCA, and BED -> QC -> EigenSNP.
 
-Counterpart of `genomic_pca_tpu/workflows.py` `run_vcf_workflow`, single
-process, on an explicit `device`.  Parsing reuses the JAX package's
-jax-free per-file functions (`genomic_pca_tpu.io.vcf`) with this module's
-own spawn pool; outputs go through the shared `genomic_pca_tpu.io.writers`
-and are the reference's files: `<prefix>.vcf.pca.tsv` and
-`<prefix>.eigenvalues.tsv`.  The EigenSNP and projection workflows are
-not ported yet.
+Counterparts of `genomic_pca_tpu/workflows.py` `run_vcf_workflow` and
+`run_eigensnp_workflow`, single process, on an explicit `device`.  VCF
+parsing reuses the JAX package's jax-free per-file functions
+(`genomic_pca_tpu.io.vcf`) with this module's own spawn pool; outputs go
+through the shared `genomic_pca_tpu.io.writers` and are the reference's
+files.  The projection workflow is not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import multiprocessing as mp
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from genomic_pca_tpu.config import RsvdConfig
+from genomic_pca_tpu.config import DataPrepConfig, EigenSnpConfig, RsvdConfig
 from genomic_pca_tpu.errors import VcfParseError
 from genomic_pca_tpu.io.vcf import (
     discover_vcf_files, process_single_vcf, read_vcf_sample_names,
 )
-from genomic_pca_tpu.io.writers import write_eigenvalues, write_principal_components
+from genomic_pca_tpu.io.writers import (
+    write_eigenvalues, write_loadings, write_principal_components,
+)
+from genomic_pca_tpu.io.writers import write_moments as write_moments_tsv
+from genomic_pca_tpu_torch.models.eigensnp import compute_eigensnp_pca
 from genomic_pca_tpu_torch.models.pca import streamed_pca
+from genomic_pca_tpu_torch.models.prepare import prepare_data
+from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.qc import (
     dosage_mean_from_counts, genotype_counts_int8_host,
 )
@@ -130,3 +136,67 @@ def run_vcf_workflow(
         )
 
     timer.log_summary("VCF workflow stage timings")
+    log.info("Kernel launches: %s", json.dumps(kernels.LAUNCHES))
+
+
+def run_eigensnp_workflow(
+    prep_config: DataPrepConfig,
+    algo_config: EigenSnpConfig,
+    output_prefix: str,
+    checkpoint_dir: Optional[str] = None,
+    write_moments: bool = False,
+    stop_after_checkpoint: Optional[str] = None,
+    device="cuda",
+) -> None:
+    """BED + LD blocks -> QC -> two-stage EigenSNP PCA -> TSVs.
+
+    Writes `{prefix}.eigensnp.pca.tsv`, `{prefix}.eigenvalues.tsv`,
+    `{prefix}.eigensnp.loadings.tsv`, with `write_moments`
+    `{prefix}.eigensnp.moments.tsv`, and with diagnostics
+    `{prefix}.eigensnp_diagnostics.json`.  A run stopped after a
+    checkpoint writes nothing.  Logs the stage split on one line at the
+    end: QC + LD mapping, matrix load, stages 1-2, global PCA,
+    refinement + write."""
+    timer = StageTimer()
+    with timer.stage("Data preparation (QC + LD mapping)"):
+        prep = prepare_data(prep_config)
+
+    with timer.stage("EigenSNP core algorithm"):
+        result = compute_eigensnp_pca(
+            prep, algo_config, device=device, checkpoint_dir=checkpoint_dir,
+            stop_after_checkpoint=stop_after_checkpoint,
+        )
+    if result is None:
+        timer.log_summary("EigenSNP partial-run stage timings (stopped after "
+                          f"checkpoint {stop_after_checkpoint!r})")
+        return
+
+    with timer.stage("Output writing"):
+        write_principal_components(output_prefix, prep.sample_ids, result.scores,
+                                   suffix="eigensnp.pca.tsv")
+        write_eigenvalues(output_prefix, result.eigenvalues)
+        sids, chroms, positions = prep.snp_metadata()
+        write_loadings(output_prefix, [str(s) for s in sids],
+                       [str(c) for c in chroms], [int(p) for p in positions],
+                       result.loadings)
+        if write_moments:
+            idx = prep.pca_snp_orig_indices
+            write_moments_tsv(output_prefix, [str(s) for s in sids], prep.mean,
+                          prep.std, [str(x) for x in prep.bed.bim.a1[idx]],
+                          [str(x) for x in prep.bed.bim.a2[idx]])
+        if result.diagnostics is not None:
+            path = f"{output_prefix}.eigensnp_diagnostics.json"
+            with open(path, "w") as fh:
+                json.dump(result.diagnostics, fh, indent=2)
+            log.info("Wrote diagnostics to %s", path)
+
+    timer.log_summary("EigenSNP workflow stage timings")
+    st, ss = timer.stages, result.stage_seconds
+    log.info(
+        "EigenSNP stage split: qc_ld %.3f s, matrix_load %.3f s, stages_1_2 "
+        "%.3f s, global_pca %.3f s, refine_write %.3f s",
+        st["Data preparation (QC + LD mapping)"], ss["matrix_load"],
+        ss["stages_1_2"], ss["global_pca"],
+        ss["refinement_finalize"] + st["Output writing"],
+    )
+    log.info("Kernel launches: %s", json.dumps(kernels.LAUNCHES))

@@ -94,6 +94,98 @@ def test_pca_core_on_cuda_matches_cpu(cuda_device):
             assert tk.LAUNCHES == {
                 "fused_gram_q8_packed": 3, "fused_gram_apply_packed": 1,
                 "fused_tsq_packed": 1, "fused_right_apply_packed": 1,
+                "fused_right_apply_2d_packed": 0, "fused_left_apply_2d_packed": 0,
+                "right_apply_2d_q8": 0, "left_apply_2d_q8": 0,
+            }
+    (vc, sc, lc), (vg, sg, lg) = outs["cpu"], outs["cuda"]
+    np.testing.assert_allclose(sg, sc, rtol=1e-3)
+    for j in range(5):
+        assert abs_corr(vc[:, j], vg[:, j]) > 0.9999, j
+        assert abs_corr(lc[:, j], lg[:, j]) > 0.9999, j
+
+
+# ---------------------------------------------------------------------------
+# The wide-sample (2-D) kernels.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("name", [
+    "fused_right_apply_2d_packed", "fused_left_apply_2d_packed",
+])
+def test_wide_exact_kernel_matches_plain(cuda_device, name, precision):
+    """Same products, another f32 sum order; the left kernel rounds W to
+    bf16 on load exactly as its plain version does."""
+    packed, mu, inv, b = _on(cuda_device, *exact_case(np.random.default_rng(4)))
+    arg = b if name == "fused_right_apply_2d_packed" else b[: packed.shape[0]] * 3.0
+    tk.reset_launch_counts()
+    got = getattr(tk, name)(packed, mu, inv, arg, precision=precision)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[name] == 1
+    ref = tk.PLAIN[name](packed, mu, inv, arg, precision)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,tile_d", [(300, 250, 64), (2048, 512, 1024)])
+def test_wide_q8_kernels_match_plain_and_quant_model(cuda_device, d, n, tile_d):
+    """Kernel 7 bit for bit (exact integer sums); kernel 8 to 1e-5 (f32
+    sum order over tiles); the whole pass against the plain pass on the
+    card (the same glue, so the same z8: 1e-5) and against the float64
+    replay of the quantization model.  Against the replay a z that sits
+    at an 8-bit rounding boundary in f32 can round the other way in
+    float64 (on the card: 3 of 65,536 entries off by 1.03e-4 relative at
+    2,048 x 512), so that bar is 1e-3 of max|T|, as in chip_smoke."""
+    g, iv, u, bq, sb, csum = q8_case(np.random.default_rng(5), d, n, 128)
+    n4 = -(-n // 4)
+    bq_pad = np.zeros((4 * n4, 128), np.int8)
+    bq_pad[:n] = bq
+    args = _on(cuda_device, pack_int8_rows(g), iv, u, bq_pad, sb, csum)
+    packed, bq_t = args[0], args[3]
+    tk.reset_launch_counts()
+    w = tk.right_apply_2d_q8(packed, bq_t)
+    assert torch.equal(w, tk.right_apply_2d_q8_plain(packed, bq_t))
+    z8 = torch.randint(-127, 128, (d, 128), dtype=torch.int8, device=cuda_device)
+    sz = torch.rand(-(-d // tile_d), device=cuda_device) + 0.01
+    got = tk.left_apply_2d_q8(packed, z8, sz, tile_d)
+    ref = tk.left_apply_2d_q8_plain(packed, z8, sz, tile_d)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    out, ru = tk.q8_power_pass_2d(*args, tile_d=tile_d)
+    assert tk.LAUNCHES["right_apply_2d_q8"] == 2
+    assert tk.LAUNCHES["left_apply_2d_q8"] == 2
+    t = (out - ru).cpu().numpy()[:n]
+    out_p, ru_p = tk.fused_gram_q8_packed_plain(*args, tile_d=tile_d)
+    t_p = (out_p - ru_p).cpu().numpy()[:n]
+    np.testing.assert_allclose(t, t_p, rtol=1e-5, atol=1e-5 * np.abs(t_p).max())
+    t_ref = quant_model(g, iv, u, bq, float(sb[0, 0]), tile_d)
+    assert np.abs(t - t_ref).max() <= 1e-3 * np.abs(t_ref).max()
+
+
+@pytest.mark.cuda
+def test_pca_core_2d_on_cuda_matches_cpu(cuda_device):
+    """The 2-D mode's core on the card against the CPU: kernels 5-8 ran
+    and 1-4 did not."""
+    rng = np.random.default_rng(6)
+    g = balding_nichols(rng, 3000, 300, missing_rate=0.01, n_pops=6, fst=0.15)
+    valid = g != -127
+    mean = (np.where(valid, g, 0).sum(1) / valid.sum(1)).astype(np.float32)
+    std = np.ones_like(mean)
+    b0 = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        sm = ShardedMatrix.from_packed_rows(pack_int8_rows(g), mean, std, 300,
+                                            device=dev, tile_d=1024, mode="2d")
+        tk.reset_launch_counts()
+        v, s, e, load = sm.pca_core(b0.to(dev), 4, 5)
+        outs[str(dev)] = (v.cpu().numpy(), s.cpu().numpy(), load)
+        if dev != "cpu":
+            assert tk.LAUNCHES == {
+                "fused_gram_q8_packed": 0, "fused_gram_apply_packed": 0,
+                "fused_tsq_packed": 0, "fused_right_apply_packed": 0,
+                "fused_right_apply_2d_packed": 3, "fused_left_apply_2d_packed": 1,
+                "right_apply_2d_q8": 3, "left_apply_2d_q8": 3,
             }
     (vc, sc, lc), (vg, sg, lg) = outs["cpu"], outs["cuda"]
     np.testing.assert_allclose(sg, sc, rtol=1e-3)

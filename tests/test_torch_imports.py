@@ -63,6 +63,9 @@ def test_port_modules_and_help_import_no_jax(blocked_env):
         import genomic_pca_tpu_torch.cli
         import genomic_pca_tpu_torch.workflows
         import genomic_pca_tpu_torch.models.pca
+        import genomic_pca_tpu_torch.models.prepare
+        import genomic_pca_tpu_torch.models.eigensnp
+        import genomic_pca_tpu_torch.utils.checkpoint
         import genomic_pca_tpu_torch.parallel.sharded
         import genomic_pca_tpu_torch.ops.kernels
         import genomic_pca_tpu_torch.ops.build
@@ -117,12 +120,40 @@ def test_gpu_scripts_without_cuda_exit_nonzero(blocked_env, args):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--eigensnp", "--bed-file", "x", "--ld-block-file", "y"],
     ["--project", "--bed-file", "x"],
     ["-d", "x", "-k", "2", "--profile-dir", "p"],
+    ["--eigensnp", "--bed-file", "x", "--ld-block-file", "y",
+     "--eigensnp-qc-mode", "device"],
 ])
 def test_cli_unported_modes_exit_1(blocked_env, tmp_path, flags):
     proc = _run(["-m", "genomic_pca_tpu_torch", "-o", str(tmp_path / "o"),
                  *flags], blocked_env)
     assert proc.returncode == 1
     assert "not yet ported in genomic_pca_tpu_torch" in proc.stderr
+
+
+def _plink_fileset(tmp_path):
+    from genomic_pca_tpu.io.bed import write_plink
+
+    geno = np.random.default_rng(3).integers(0, 3, (40, 12)).astype(np.int8)
+    write_plink(tmp_path / "toy", geno, bp=list(range(10, 410, 10)))
+    (tmp_path / "blocks.tsv").write_text("1 1 200\n1 201 400\n")
+    return ["--eigensnp", "--bed-file", str(tmp_path / "toy"),
+            "--ld-block-file", str(tmp_path / "blocks.tsv")]
+
+
+def test_cli_eigensnp_without_cuda_exits_1_naming_cuda(blocked_env, tmp_path):
+    blocked_env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = _run(["-m", "genomic_pca_tpu_torch", "-o", str(tmp_path / "out"),
+                 *_plink_fileset(tmp_path)], blocked_env)
+    assert proc.returncode == 1
+    assert "CUDA" in proc.stderr
+    assert not list(tmp_path.glob("out*"))
+
+
+def test_cli_eigensnp_compile_only_is_a_no_op(blocked_env, tmp_path):
+    blocked_env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = _run(["-m", "genomic_pca_tpu_torch", "-o", str(tmp_path / "out"),
+                 *_plink_fileset(tmp_path), "--eigensnp-compile-only"], blocked_env)
+    assert proc.returncode == 0, proc.stderr
+    assert not list(tmp_path.glob("out*"))
