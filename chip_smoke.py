@@ -29,7 +29,22 @@ no result line):
    --bed-file ... --ld-block-file ... -o ...` at its default settings on
    a PLINK fileset of 65,536 SNPs x 16,384 samples in 64 LD blocks, made
    on the card; its stage split and launch counts (5 and 6 ran), and its
-   TSVs against a float64 PCA of the PCA-SNP set it kept.
+   TSVs against a float64 PCA of the PCA-SNP set it kept;
+9. the four dense int8 kernels (9-12) against their plain versions at
+   262,144 x 2,048 (L = 128; 10 for the right product) and at 70,001 x
+   2,504 (container width 2,560), and the exact three (10-12) at 65,536
+   x 10,000 (container width 10,112), the width of phase 11;
+10. the dense main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
+   on the genotypes of phase 5 unpacked to int8 on the card: launch
+   counts 3 / 1 / 1 / 1 for kernels 9 / 10 / 12 / 11 and none of 1-8, the
+   float64 gate, and per-PC agreement with the packed run of phase 5;
+11. EigenSNP on the dense container (`run_eigensnp_workflow` with
+   `packed_pipeline=False`, in-process) on a PLINK fileset of 65,536 SNPs
+   x 10,000 samples: its stage split, launches of 10, 11 and 12 only, its
+   TSVs against a float64 PCA; then `python -m genomic_pca_tpu_torch
+   --project` of the same fileset through the fitted model: its scores
+   against the fit's (self-projection) and against a float64 host
+   `transform` of the genotypes made on the card.
 
 The CLI phases hold the separated PCs to a float64 oracle.  The line
 before the last is the `nvidia-smi` name and power limit; the last line
@@ -68,11 +83,17 @@ TOL = {
     "fused_left_apply_2d_packed": 1e-5,
     "right_apply_2d_q8": 0.0,
     "left_apply_2d_q8": 1e-5,
+    "fused_gram_q8": 1e-5,
+    "fused_gram_apply": 1e-5,
+    "fused_tsq": 1e-5,
+    "fused_right_apply": 1e-5,
 }
 KERNELS_1D = ("fused_gram_q8_packed", "fused_gram_apply_packed",
               "fused_tsq_packed", "fused_right_apply_packed")
 KERNELS_2D = ("fused_right_apply_2d_packed", "fused_left_apply_2d_packed",
               "right_apply_2d_q8", "left_apply_2d_q8")
+KERNELS_DENSE = ("fused_gram_q8", "fused_gram_apply", "fused_tsq",
+                 "fused_right_apply")
 CSRC = "genomic_pca_tpu_torch/csrc/"
 PK = "genomic_pca_tpu/ops/pallas_kernels.py:"
 SOURCES = {
@@ -84,8 +105,12 @@ SOURCES = {
     "fused_left_apply_2d_packed": (CSRC + "wide_kernels.cu", PK + "723"),
     "right_apply_2d_q8": (CSRC + "wide_kernels.cu", PK + "1096"),
     "left_apply_2d_q8": (CSRC + "wide_kernels.cu", PK + "1139"),
+    "fused_gram_q8": (CSRC + "dense_kernels.cu", PK + "847"),
+    "fused_gram_apply": (CSRC + "dense_kernels.cu", PK + "144"),
+    "fused_tsq": (CSRC + "dense_kernels.cu", PK + "215"),
+    "fused_right_apply": (CSRC + "dense_kernels.cu", PK + "181"),
 }
-ZERO_LAUNCHES = dict.fromkeys(KERNELS_1D + KERNELS_2D, 0)
+ZERO_LAUNCHES = dict.fromkeys(KERNELS_1D + KERNELS_2D + KERNELS_DENSE, 0)
 
 
 def log(msg: str) -> None:
@@ -145,6 +170,19 @@ def structured_packed(torch, d, n, n_pops, fst, missing, seed, device):
     mean = s1 / nv
     std = torch.sqrt(torch.clamp((s2 - nv * mean * mean) / (nv - 1), min=0.0))
     return packed, mean.to(torch.float32), std.to(torch.float32)
+
+
+def dense_from_packed(torch, packed):
+    """(D, N4) PLINK bytes -> (D, 4 N4) int8 dosages on the card, -127
+    for missing (and for 0x55 padding)."""
+    from genomic_pca_tpu_torch.ops.kernels import packed_codes
+
+    out = torch.empty((packed.shape[0], 4 * packed.shape[1]), dtype=torch.int8,
+                      device=packed.device)
+    for lo in range(0, packed.shape[0], 16384):
+        c = packed_codes(packed[lo:lo + 16384])
+        out[lo:lo + 16384] = torch.where(c == 1, -127, (4 - c) >> 1).to(torch.int8)
+    return out
 
 
 def exact_pca_f64(torch, packed, mean, inv_std, k):
@@ -229,9 +267,12 @@ def kernel_cases(torch, d, n, seed, device, names):
         fused_right_apply_2d_packed_plain, quantize_rows,
     )
     from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
-    from genomic_pca_tpu_torch.parallel.sharded import inv_std_of, packed_cols
+    from genomic_pca_tpu_torch.parallel.sharded import (
+        dense_cols, inv_std_of, packed_cols,
+    )
 
     n4 = packed_cols(n)
+    n_d = dense_cols(n)  # the dense container's width
     packed_data, mean, std = structured_packed(
         torch, d, 4 * (-(-n // 4)), 4, 0.1, 0.01, seed, device)
     packed = torch.full((d, n4), 0x55, dtype=torch.uint8, device=device)
@@ -251,6 +292,9 @@ def kernel_cases(torch, d, n, seed, device, names):
     bq, sb, csum = quantize_basis(b128)
     # z8 / sz of a 2-D q8 pass, quantized per row tile of 1,024.
     z8, sz = quantize_rows(torch.randn((d, 128), generator=gen, device=device), 1024)
+    geno = (dense_from_packed(torch, packed[:, : n_d // 4])
+            if set(names) & set(KERNELS_DENSE) else None)
+    b_d = b128[:n_d]
     cases = {
         "fused_gram_q8_packed": lambda: ((packed, inv, mean * inv, bq, sb, csum),
                                          {"tile_d": 1024}),
@@ -268,6 +312,12 @@ def kernel_cases(torch, d, n, seed, device, names):
             {"precision": "bf16"}),
         "right_apply_2d_q8": lambda: ((packed, bq), {}),
         "left_apply_2d_q8": lambda: ((packed, z8, sz), {"tile_d": 1024}),
+        "fused_gram_q8": lambda: ((geno, inv, mean * inv, *quantize_basis(b_d)),
+                                  {"tile_d": 1024}),
+        "fused_gram_apply": lambda: ((geno, mean, inv, b_d), {"precision": "bf16"}),
+        "fused_tsq": lambda: ((geno, mean, inv, b_d), {"precision": "bf16"}),
+        "fused_right_apply": lambda: ((geno, mean, inv, basis(10)[:n_d]),
+                                      {"precision": "bf16"}),
     }
     return {name: cases[name]() for name in names}
 
@@ -288,7 +338,7 @@ def check_kernels(torch, d, n, seed, device, reps, names):
 
         got, ref = run_k(), run_p()
         torch.cuda.synchronize()
-        if name == "fused_gram_q8_packed":
+        if isinstance(got, tuple):  # a q8 pass: T = out - ru
             got, ref = got[0] - got[1], ref[0] - ref[1]
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
@@ -456,22 +506,39 @@ def check_cli(torch, np, device, n_v, n_files, n_pops, seed, k):
     shutil.rmtree(WORK)
 
 
-def check_main(torch, np, device, label, d, n, k, seed):
-    """The main path on structured genotypes made on the card, twice;
-    returns the launch counts of the first run."""
+def check_main(torch, np, device, label, d, n, k, seed, dense=False,
+               oracle=None):
+    """The main path on structured genotypes made on the card, twice, in
+    the packed layout or (`dense`) unpacked to int8 on the card; returns
+    (launch counts of the first run, scores, float64 oracle, separated
+    prefix).  `oracle` reuses the float64 PCA of the same genotypes."""
     from genomic_pca_tpu_torch.models.pca import streamed_pca
     from genomic_pca_tpu_torch.ops import kernels as tk
     from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix, inv_std_of
 
     packed, mean, std = structured_packed(torch, d, n, 11, 0.1, 0.01, seed, device)
-    packed_np, mean_np, std_np = (x.cpu().numpy() for x in (packed, mean, std))
+    mean_np, std_np = mean.cpu().numpy(), std.cpu().numpy()
+    if dense:
+        geno_np = dense_from_packed(torch, packed).cpu().numpy()
+        lows = range(0, d, 32768)
+
+        def build():
+            return ShardedMatrix.from_arrays(
+                (geno_np[lo:lo + 32768] for lo in lows),
+                means=[mean_np[lo:lo + 32768] for lo in lows],
+                stds=[std_np[lo:lo + 32768] for lo in lows], device=device)
+    else:
+        packed_np = packed.cpu().numpy()
+
+        def build():
+            return ShardedMatrix.from_packed_rows(packed_np, mean_np, std_np, n,
+                                                  device=device)
     runs = []
     for run in range(2):
         tk.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sm = ShardedMatrix.from_packed_rows(packed_np, mean_np, std_np, n,
-                                            device=device)
+        sm = build()
         res = streamed_pca(sm, k=k, n_power_iter=4, seed=7,
                            compute_loadings=True)
         torch.cuda.synchronize()
@@ -486,13 +553,15 @@ def check_main(torch, np, device, label, d, n, k, seed):
             or not np.isfinite(res.loadings).all()):
         raise AssertionError(f"{label}: output has the wrong shape or non-finite values")
     del sm
-    inv_t = torch.from_numpy(inv_std_of(std_np).astype(np.float32)).to(device)
-    t0 = time.perf_counter()
-    v_true, ev_true = exact_pca_f64(torch, packed, mean, inv_t, k)
-    log(f"[{label}] float64 oracle in {time.perf_counter() - t0:.1f} s")
-    check_pcs(np, res.scores, v_true.cpu().numpy(), ev_true.cpu().numpy(),
-              res.singular_values.astype(np.float64) ** 2, k, label)
-    return launches
+    if oracle is None:
+        inv_t = torch.from_numpy(inv_std_of(std_np).astype(np.float32)).to(device)
+        t0 = time.perf_counter()
+        v_true, ev_true = exact_pca_f64(torch, packed, mean, inv_t, k)
+        oracle = (v_true.cpu().numpy(), ev_true.cpu().numpy())
+        log(f"[{label}] float64 oracle in {time.perf_counter() - t0:.1f} s")
+    sep, _, _ = check_pcs(np, res.scores, *oracle,
+                          res.singular_values.astype(np.float64) ** 2, k, label)
+    return launches, res.scores, oracle, sep
 
 
 def write_plink_fileset(np, prefix: Path, packed, n_blocks):
@@ -583,6 +652,131 @@ def check_eigensnp_cli(torch, np, device, d, n, n_blocks, k, seed):
     shutil.rmtree(WORK)
 
 
+def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
+                                        seed):
+    """EigenSNP on the dense container, then `--project` of the same
+    fileset through the fitted model.  The fit: `run_eigensnp_workflow`
+    with `packed_pipeline=False` (the API is the entry point of that
+    configuration; the CLI has no flag for it) at the CLI's defaults,
+    launch counts, TSVs against a float64 PCA of its PCA SNPs.  The
+    projection: the CLI in a subprocess; its scores against the fit's
+    over the separated prefix (self-projection, tests/test_project.py)
+    and against the float64 host `transform` of the genotypes made on the
+    card (not read back from the BED), summed over SNP strips."""
+    import logging
+
+    from genomic_pca_tpu_torch.models.pca import transform
+    from genomic_pca_tpu_torch.ops import kernels as tk
+    from genomic_pca_tpu_torch.parallel.sharded import inv_std_of
+    from genomic_pca_tpu_torch.workflows import (
+        DataPrepConfig, EigenSnpConfig, run_eigensnp_workflow,
+    )
+
+    label = "dense eigensnp"
+    if WORK.exists():
+        shutil.rmtree(WORK)
+    WORK.mkdir(parents=True)
+    t0 = time.perf_counter()
+    packed, mean, std = structured_packed(torch, d, n, 5, 0.03, 0.005, seed, device)
+    prefix = WORK / "cohort"
+    write_plink_fileset(np, prefix, packed, n_blocks)
+    log(f"[{label}] wrote {d} SNPs x {n} samples ({d * n // 4 / 1e6:.0f} MB BED) "
+        f"in {n_blocks} LD blocks in {time.perf_counter() - t0:.1f} s")
+    fit = WORK / "fit"
+    messages = []
+    handler = logging.Handler()
+    handler.emit = lambda record: messages.append(record.getMessage())
+    port_log = logging.getLogger("genomic_pca_tpu_torch")
+    port_log.addHandler(handler)
+    port_log.setLevel(logging.INFO)
+    tk.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_eigensnp_workflow(
+        DataPrepConfig(bed_path=str(prefix), ld_block_path=f"{prefix}.blocks.tsv",
+                       packed_pipeline=False),
+        EigenSnpConfig(), str(fit), write_moments=True, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    port_log.removeHandler(handler)
+    for msg in messages:
+        if msg.startswith(("SNP QC:", "LD mapping:", "EigenSNP matrix loaded",
+                           "EigenSNP stage split:")):
+            log(f"[{label}] {msg}")
+    log(f"[{label}] run_eigensnp_workflow(packed_pipeline=False) in {wall:.2f} s; "
+        f"launches {launches}")
+    want = dict(ZERO_LAUNCHES, fused_gram_apply=1, fused_tsq=1, fused_right_apply=1)
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    pcs = np.loadtxt(f"{fit}.eigensnp.pca.tsv", skiprows=1,
+                     usecols=range(1, k + 1), delimiter="\t")
+    evs = np.loadtxt(f"{fit}.eigenvalues.tsv", skiprows=1, usecols=1, delimiter="\t")
+    ids = np.loadtxt(f"{fit}.eigensnp.loadings.tsv", skiprows=1, usecols=0,
+                     dtype=str, delimiter="\t").tolist()
+    loadings = np.loadtxt(f"{fit}.eigensnp.loadings.tsv", skiprows=1,
+                          usecols=range(3, 3 + k), delimiter="\t")
+    m_ids = np.loadtxt(f"{fit}.eigensnp.moments.tsv", skiprows=1, usecols=0,
+                       dtype=str, delimiter="\t").tolist()
+    m_mean, m_std = np.loadtxt(f"{fit}.eigensnp.moments.tsv", skiprows=1,
+                               usecols=(3, 4), delimiter="\t", unpack=True)
+    if (pcs.shape != (n, k) or evs.shape != (k,) or m_ids != ids
+            or loadings.shape != (len(ids), k) or not np.isfinite(pcs).all()):
+        raise AssertionError(f"TSV shapes {pcs.shape}, {evs.shape}, "
+                             f"{loadings.shape} or non-finite")
+    rows = np.asarray([int(v[3:]) for v in ids])
+    sel = torch.as_tensor(rows, device=device)
+    log(f"[{label}] {len(ids)} of {d} SNPs are PCA SNPs (QC + LD mapping)")
+    inv = torch.from_numpy(inv_std_of(std[sel].cpu().numpy()).astype(np.float32))
+    t0 = time.perf_counter()
+    v_true, ev_true = exact_pca_f64(torch, packed[sel], mean[sel], inv.to(device), k)
+    log(f"[{label}] float64 oracle in {time.perf_counter() - t0:.1f} s")
+    sep, _, _ = check_pcs(np, pcs, v_true.cpu().numpy(), ev_true.cpu().numpy(),
+                          evs * (n - 1), k, label)
+    del v_true
+
+    label = "project cli"
+    proj = WORK / "proj"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "genomic_pca_tpu_torch", "--project",
+         "--bed-file", str(prefix), "--project-loadings",
+         f"{fit}.eigensnp.loadings.tsv", "--project-moments",
+         f"{fit}.eigensnp.moments.tsv", "-o", str(proj)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900,
+    )
+    wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if "timing]" in line or "Total run time" in line:
+            log(f"[{label}] {line.split('] ', 1)[-1]}")
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    log(f"[{label}] python -m genomic_pca_tpu_torch --project exit 0 in {wall:.2f} s")
+    scores = np.loadtxt(f"{proj}.projected.pca.tsv", skiprows=1,
+                        usecols=range(1, k + 1), delimiter="\t")
+    if scores.shape != (n, k) or not np.isfinite(scores).all():
+        raise AssertionError(f"projected scores {scores.shape} or non-finite")
+    rs = []
+    for j in range(sep):
+        x, y = scores[:, j] - scores[:, j].mean(), pcs[:, j] - pcs[:, j].mean()
+        rs.append(abs(float(x @ y / (np.linalg.norm(x) * np.linalg.norm(y)))))
+    t0 = time.perf_counter()
+    host = np.zeros((n, k))
+    for lo in range(0, len(rows), 8192):
+        hi = min(lo + 8192, len(rows))
+        g = dense_from_packed(torch, packed[sel[lo:hi]]).cpu().numpy()
+        host += transform(g, loadings[lo:hi], m_mean[lo:hi], m_std[lo:hi])
+    rel = float(np.abs(scores - host).max() / np.abs(host).max())
+    log(f"[{label}] self-projection per-PC |r| over the separated prefix "
+        f"{[round(r, 7) for r in rs]}; max|scores - float64 transform| / "
+        f"max|transform| {rel:.3e} (bound 1e-4; transform in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if min(rs) <= 0.999 or not rel <= 1e-4:
+        raise AssertionError(f"{label}: projection disagrees: |r| {rs}, rel {rel}")
+    shutil.rmtree(WORK)
+
+
 def main() -> int:
     import torch
 
@@ -634,6 +828,7 @@ def main() -> int:
 
     # 5-6. The main path in each mode.
     launches = {}
+    main_1d = None
     for label, d, n, seed, want in (
         ("main 1-D", 262_144, 2048, SEED + 2,
          {"fused_gram_q8_packed": 3, "fused_gram_apply_packed": 1,
@@ -642,10 +837,12 @@ def main() -> int:
          {"fused_right_apply_2d_packed": 3, "fused_left_apply_2d_packed": 1,
           "right_apply_2d_q8": 3, "left_apply_2d_q8": 3}),
     ):
-        got = check_main(torch, np, device, label, d, n, 10, seed)
+        got, scores, oracle, sep = check_main(torch, np, device, label, d, n, 10,
+                                              seed)
         if got != dict(ZERO_LAUNCHES, **want):
             raise AssertionError(f"{label}: launch counts {got} != {want}")
         launches.update({name: got[name] for name in want})
+        main_1d = main_1d or (scores, oracle, sep)
         torch.cuda.empty_cache()
 
     # 7. The VCF CLI on VCF directories of 1000 Genomes phase 3 width:
@@ -657,6 +854,38 @@ def main() -> int:
 
     # 8. The EigenSNP CLI at 16,384 samples.
     check_eigensnp_cli(torch, np, device, 65_536, 16_384, 64, 10, SEED + 5)
+
+    # 9. The dense int8 kernels at the 1-D main shape, a ragged one, and
+    # the exact three at the width of the dense EigenSNP run (10,000
+    # samples, container width 10,112), whose tile grid and split-K
+    # differ from the narrower shapes.
+    results.update(check_kernels(torch, 262_144, 2048, SEED, device, 5,
+                                 KERNELS_DENSE))
+    check_kernels(torch, 70_001, 2504, SEED + 1, device, 3, KERNELS_DENSE)
+    check_kernels(torch, 65_536, 10_000, SEED + 9, device, 3,
+                  ("fused_gram_apply", "fused_tsq", "fused_right_apply"))
+    torch.cuda.empty_cache()
+
+    # 10. The dense main path on the genotypes of the packed one.
+    packed_scores, oracle, sep = main_1d
+    got, scores, _, _ = check_main(torch, np, device, "main dense 1-D", 262_144,
+                                   2048, 10, SEED + 2, dense=True, oracle=oracle)
+    want = {"fused_gram_q8": 3, "fused_gram_apply": 1, "fused_tsq": 1,
+            "fused_right_apply": 1}
+    if got != dict(ZERO_LAUNCHES, **want):
+        raise AssertionError(f"main dense 1-D: launch counts {got} != {want}")
+    launches.update(want)
+    rs = [abs(float(np.corrcoef(scores[:, j], packed_scores[:, j])[0, 1]))
+          for j in range(sep)]
+    log(f"[main dense 1-D] per-PC |r| against the packed run over the "
+        f"separated prefix: min {min(rs):.7f}")
+    if min(rs) <= 0.999:
+        raise AssertionError(f"dense and packed main paths disagree: {rs}")
+    torch.cuda.empty_cache()
+
+    # 11. EigenSNP on the dense container at 10,000 samples, then --project.
+    check_dense_eigensnp_and_projection(torch, np, device, 65_536, 10_000, 64, 10,
+                                        SEED + 8)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -2,16 +2,19 @@
 
 The parser takes the same flags as `genomic_pca_tpu/cli.py` (rebuilt
 here: loading that module loads jax through its package).  It runs the
-VCF workflow and the EigenSNP workflow on a CUDA device; without one
-either exits 1 naming CUDA - it does not fall back to the CPU.
-`--project`, `--profile-dir` and `--eigensnp-qc-mode device` exit 1 as
-not yet ported; `--eigensnp-compile-only` exits 0 without running (there
-is nothing to compile ahead of time: the kernels build at first use).
+VCF, EigenSNP and projection workflows on a CUDA device; without one each
+exits 1 naming CUDA - it does not fall back to the CPU.  `--profile-dir`
+and `--eigensnp-qc-mode device` exit 1 as not yet ported;
+`--eigensnp-compile-only` exits 0 without running (there is nothing to
+compile ahead of time: the kernels build at first use).
 
 Usage:
     python -m genomic_pca_tpu_torch -d vcf_dir/ -o out -k 10
     python -m genomic_pca_tpu_torch --eigensnp --bed-file data \
-        --ld-block-file blocks.tsv -o out
+        --ld-block-file blocks.tsv -o out --write-moments
+    python -m genomic_pca_tpu_torch --project --bed-file new \
+        --project-loadings out.eigensnp.loadings.tsv \
+        --project-moments out.eigensnp.moments.tsv -o proj
 """
 
 from __future__ import annotations
@@ -195,6 +198,41 @@ def _no_cuda(workflow: str) -> bool:
     return True
 
 
+def _run_projection(args) -> int:
+    """`--project`: its own dispatch mode, validated as the JAX CLI's
+    (genomic_pca_tpu/cli.py:192-235)."""
+    conflicting = [
+        name
+        for name, val in (("--eigensnp", args.eigensnp),
+                          ("--vcf-dir", args.vcf_dir),
+                          ("-k/--components", args.components))
+        if val
+    ]
+    if conflicting:
+        log.error("--project cannot be combined with fit-mode flags (%s): run "
+                  "the fit and the projection as separate invocations.",
+                  ", ".join(conflicting))
+        return 2
+    missing = [
+        name
+        for name, val in (("--bed-file", args.bed_file),
+                          ("--project-loadings", args.project_loadings),
+                          ("--project-moments", args.project_moments))
+        if val is None
+    ]
+    if missing:
+        log.error("%s required when --project is used.", ", ".join(missing))
+        return 2
+    if _no_cuda("projection"):
+        return 1
+    from genomic_pca_tpu_torch.workflows import run_projection_workflow
+
+    run_projection_workflow(args.bed_file, args.project_loadings,
+                            args.project_moments, args.output_prefix,
+                            device="cuda")
+    return 0
+
+
 def _run_eigensnp(args) -> int:
     missing = [
         name
@@ -261,18 +299,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     setup_logging(args.log_level)
     t0 = time.perf_counter()
 
-    for flag, val in (("--project", args.project),
-                      ("--profile-dir", args.profile_dir)):
-        if val:
-            log.error("%s is %s.", flag, NOT_PORTED)
-            return 1
+    if args.profile_dir:
+        log.error("--profile-dir is %s.", NOT_PORTED)
+        return 1
 
     from genomic_pca_tpu.io.native import set_default_threads
 
     set_default_threads(args.threads)
-    if args.eigensnp:
+    if args.project or args.eigensnp:
         try:
-            rc = _run_eigensnp(args)
+            rc = (_run_projection if args.project else _run_eigensnp)(args)
         except Exception:
             log.exception("Workflow failed.")
             return 1

@@ -1,0 +1,78 @@
+// Dense int8 kernels of the 1-D mode: genotypes as one signed byte per
+// sample, -127 missing (the JAX package's `packed_pipeline=False`
+// container and `transform_device`).  They replace, in
+// genomic_pca_tpu/ops/pallas_kernels.py:
+//
+//   fused_right_apply (:181, pallas_call :197)  -> gp_right_dense
+//   fused_gram_apply  (:144, pallas_call :160)  -> gp_right_dense, round_out,
+//                                                  then gp_left_dense
+//   fused_tsq         (:215, pallas_call :231)  -> gp_right_dense, round_out,
+//                                                  then gp_wtw (exact_kernels.cu)
+//   fused_gram_q8     (:847, pallas_call :863)  -> gp_q8_w_dense, then
+//                                                  gp_q8_left_dense
+//
+// The TPU kernels carry one VMEM accumulator through a sequential grid of
+// row tiles.  Here every pass runs the main loops of packed_common.cuh,
+// the designs of the packed kernels (one block per 64 x 64 output tile;
+// contractions over the variant axis split across block layers with f32
+// atomics; q8 in two kernels because a tile's scale max|z| is needed
+// before z8 exists), instantiated for DenseRows: the tile loader reads one
+// aligned 32-bit word (four samples) per thread where the packed loader
+// reads one byte.
+//
+// Bound on an H100: each pass reads D*N bytes, four times the packed bytes
+// (512 MiB at 262,144 x 2,048: about 0.16 ms at 3.35 TB/s), against
+// 2*D*N*L operations per product in f32 FMAs (exact) or dp4a lanes (q8):
+// 1.4e11 at L = 128, about 7 ms at the 21 TFLOP/s the packed right kernel
+// reaches.  So the kernels are bound by the FMA and dp4a issue rates, as
+// the packed ones are, and the 4x bytes cost little; tensor cores are
+// later work.
+//
+// Exact passes: valid = (g != -127); bf16 mode standardises as
+// bf16(bf16(g * bf16(inv)) + bf16(-mean * inv)) (pallas_kernels.py
+// :72-78), f32 mode as g * inv + (-mean * inv) (:79-82).  q8: G0 =
+// max(g, 0) per byte with __vmaxs4, fed to __dp4a as it is; the -127
+// sentinel becomes raw 0.
+//
+// Every entry point launches on the given stream and returns
+// cudaGetLastError() so that a refused launch is never silent.
+#include "packed_common.cuh"
+
+extern "C" {
+
+// out (D, L) = A B; with round_out the W of the gram and tsq passes,
+// rounded to bf16 as the reference rounds it.
+int gp_right_dense(const void* geno, const void* mean, const void* inv_std,
+                   const void* b, void* out, int D, int n4, int L, int bf16,
+                   int round_out, void* stream) {
+  return gp::launch_right(gp::DenseRows{(const int8_t*)geno, n4}, mean,
+                          inv_std, b, out, D, L, bf16, round_out, stream);
+}
+
+// out (N, L) += A^T W, split-K over `splits` row ranges.
+int gp_left_dense(const void* geno, const void* mean, const void* inv_std,
+                  const void* w, void* out, int D, int n4, int L, int bf16,
+                  int splits, int rows_per_split, void* stream) {
+  return gp::launch_left(gp::DenseRows{(const int8_t*)geno, n4}, mean, inv_std,
+                         w, out, D, L, bf16, splits, rows_per_split, stream);
+}
+
+// The first half of the q8 pass: z, ru and the per-tile max|z|.
+int gp_q8_w_dense(const void* geno, const void* inv_std, const void* u,
+                  const void* bq, const void* sb, const void* csum, void* z,
+                  void* tile_max, void* ru, int D, int n4, int L, int tile_d,
+                  void* stream) {
+  return gp::launch_q8_w(gp::DenseRows{(const int8_t*)geno, n4}, inv_std, u,
+                         bq, sb, csum, z, tile_max, ru, D, L, tile_d, stream);
+}
+
+// The second half: sum_t sz_t G0_t^T z8_t, split-K over tile ranges.
+int gp_q8_left_dense(const void* geno, const void* z, const void* tile_max,
+                     void* out, int D, int n4, int L, int tile_d, int splits,
+                     int tiles_per_split, void* stream) {
+  return gp::launch_q8_left(gp::DenseRows{(const int8_t*)geno, n4}, z,
+                            tile_max, out, D, L, tile_d, splits,
+                            tiles_per_split, stream);
+}
+
+}  // extern "C"

@@ -1,122 +1,15 @@
 // Exact (bf16 or f32 operand) packed kernels: A B, A^T W and W^T W.
 //
-// The TPU kernels carry one accumulator through a sequential grid over
-// row tiles.  Here blocks run in parallel, so the two contractions over
-// the variant axis (A^T W and W^T W) split that axis into ranges, one per
-// block layer, and add their partial tiles into a zeroed output with f32
-// atomics.  The order of those adds differs from run to run: results
-// agree to f32 rounding, not bit for bit.
+// The main loops of A B and A^T W are those of packed_common.cuh,
+// instantiated for the PLINK 2-bit layout; W^T W takes no genotypes and
+// also serves the dense tsq pass (dense_kernels.cu).  The contractions over
+// the variant axis split it across block layers with f32 atomics.
 //
 // Every entry point launches on the given stream and returns
 // cudaGetLastError() so that a refused launch is never silent.
 #include "packed_common.cuh"
 
 namespace gp {
-
-// out (D, L) = A (D, N) . B (N, L), N = 4 * n4.  One block per 64 x 64
-// output tile, looping over the samples 16 at a time.
-__global__ void __launch_bounds__(kThreads)
-right_packed_kernel(const uint8_t* __restrict__ packed,
-                    const float* __restrict__ mean,
-                    const float* __restrict__ inv_std,
-                    const float* __restrict__ b, float* __restrict__ out,
-                    int D, int n4, int L, int bf16, int round_out) {
-  __shared__ float As[kBK][kBM];
-  __shared__ float Bs[kBK][kBN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int d0 = blockIdx.x * kBM, l0 = blockIdx.y * kBN;
-  const int N = 4 * n4;
-  // A loader: one byte (4 samples) of one row per thread.
-  const int ar = tid >> 2, aq = tid & 3;
-  const int d = d0 + ar;
-  const bool row_ok = d < D;
-  RowScale rs = {0.f, 0.f};
-  if (row_ok) rs = row_scale(mean, inv_std, d, bf16);
-
-  float acc[4][4] = {};
-  for (int s0 = 0; s0 < N; s0 += kBK) {
-    const int byte = (s0 >> 2) + aq;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row_ok && byte < n4) {
-      const uint32_t v = packed[(size_t)d * n4 + byte];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) x[p] = standardize(code_at(v, p), rs, bf16);
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p) As[aq * 4 + p][ar] = x[p];
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int k = e / kBN, n = e % kBN;
-      const int s = s0 + k, l = l0 + n;
-      const float v = (s < N && l < L) ? b[(size_t)s * L + l] : 0.f;
-      Bs[k][n] = bf16 ? round_bf16(v) : v;
-    }
-    __syncthreads();
-    fma_tile(As, Bs, acc, tx, ty);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = d0 + ty + 16 * i;
-    if (r >= D) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = l0 + tx + 16 * j;
-      if (c < L) out[(size_t)r * L + c] = round_out ? round_bf16(acc[i][j]) : acc[i][j];
-    }
-  }
-}
-
-// out (N, L) += A^T (N, D) . W (D, L) over rows [z * rows_per_split, ...).
-// W arrives already rounded to the operand type.
-__global__ void __launch_bounds__(kThreads)
-left_packed_kernel(const uint8_t* __restrict__ packed,
-                   const float* __restrict__ mean,
-                   const float* __restrict__ inv_std,
-                   const float* __restrict__ w, float* __restrict__ out,
-                   int D, int n4, int L, int bf16, int rows_per_split) {
-  __shared__ float As[kBK][kBM];
-  __shared__ float Bs[kBK][kBN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int s0 = blockIdx.x * kBM, l0 = blockIdx.y * kBN;
-  const int dlo = blockIdx.z * rows_per_split;
-  const int dhi = min(D, dlo + rows_per_split);
-  const int N = 4 * n4;
-  // A loader: row ak of the chunk, byte aq of the block's 16 bytes.
-  const int ak = tid >> 4, aq = tid & 15;
-  const int byte = (s0 >> 2) + aq;
-
-  float acc[4][4] = {};
-  for (int dc = dlo; dc < dhi; dc += kBK) {
-    const int d = dc + ak;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
-    if (d < dhi && byte < n4) {
-      const RowScale rs = row_scale(mean, inv_std, d, bf16);
-      const uint32_t v = packed[(size_t)d * n4 + byte];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) x[p] = standardize(code_at(v, p), rs, bf16);
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p) As[ak][aq * 4 + p] = x[p];
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int k = e / kBN, n = e % kBN;
-      const int dd = dc + k, l = l0 + n;
-      Bs[k][n] = (dd < dhi && l < L) ? w[(size_t)dd * L + l] : 0.f;
-    }
-    __syncthreads();
-    fma_tile(As, Bs, acc, tx, ty);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = s0 + ty + 16 * i;
-    if (s >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = l0 + tx + 16 * j;
-      if (c < L) atomicAdd(&out[(size_t)s * L + c], acc[i][j]);
-    }
-  }
-}
 
 // out (L, L) += W^T W over rows [z * rows_per_split, ...).
 __global__ void __launch_bounds__(kThreads)
@@ -160,30 +53,23 @@ extern "C" {
 int gp_right_packed(const void* packed, const void* mean, const void* inv_std,
                     const void* b, void* out, int D, int n4, int L, int bf16,
                     int round_out, void* stream) {
-  const dim3 grid((D + gp::kBM - 1) / gp::kBM, (L + gp::kBN - 1) / gp::kBN);
-  gp::right_packed_kernel<<<grid, gp::kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, (const float*)mean, (const float*)inv_std,
-      (const float*)b, (float*)out, D, n4, L, bf16, round_out);
-  return (int)cudaGetLastError();
+  return gp::launch_right(gp::PackedRows{(const uint8_t*)packed, n4}, mean,
+                          inv_std, b, out, D, L, bf16, round_out, stream);
 }
 
 int gp_left_packed(const void* packed, const void* mean, const void* inv_std,
                    const void* w, void* out, int D, int n4, int L, int bf16,
                    int splits, int rows_per_split, void* stream) {
-  const dim3 grid((4 * n4 + gp::kBM - 1) / gp::kBM,
-                  (L + gp::kBN - 1) / gp::kBN, splits);
-  gp::left_packed_kernel<<<grid, gp::kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, (const float*)mean, (const float*)inv_std,
-      (const float*)w, (float*)out, D, n4, L, bf16, rows_per_split);
-  return (int)cudaGetLastError();
+  return gp::launch_left(gp::PackedRows{(const uint8_t*)packed, n4}, mean,
+                         inv_std, w, out, D, L, bf16, splits, rows_per_split,
+                         stream);
 }
 
 int gp_wtw(const void* w, void* out, int D, int L, int splits,
            int rows_per_split, void* stream) {
-  const dim3 grid((L + gp::kBM - 1) / gp::kBM, (L + gp::kBN - 1) / gp::kBN,
-                  splits);
-  gp::wtw_kernel<<<grid, gp::kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)w, (float*)out, D, L, rows_per_split);
+  gp::wtw_kernel<<<gp::grid_of(L, L, splits), gp::kThreads, 0,
+                   (cudaStream_t)stream>>>((const float*)w, (float*)out, D, L,
+                                           rows_per_split);
   return (int)cudaGetLastError();
 }
 

@@ -24,8 +24,6 @@
 
 namespace gp {
 
-constexpr int kQR = 16;  // variant rows per chunk of the q8 left product
-
 constexpr int kRowBlock = 1024;  // rows summed in a partial of left2d
 
 // out (N, L) = A^T (N, D) . W (D, L), N = 4 * n4; one block per 64 x 64
@@ -68,7 +66,8 @@ left2d_packed_kernel(const uint8_t* __restrict__ packed,
       const RowScale rs = row_scale(mean, inv_std, d, bf16);
       const uint32_t v = packed[(size_t)d * n4 + byte];
 #pragma unroll
-      for (int p = 0; p < 4; ++p) x[p] = standardize(code_at(v, p), rs, bf16);
+      for (int p = 0; p < 4; ++p)
+        x[p] = standardized<PackedRows>(v, p, rs, bf16);
     }
 #pragma unroll
     for (int p = 0; p < 4; ++p) As[ak][aq * 4 + p] = x[p];
@@ -105,7 +104,7 @@ q8_right2d_kernel(const uint8_t* __restrict__ packed,
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int d0 = blockIdx.x * kBM, l0 = blockIdx.y * kBN;
   int acc[4][4] = {};
-  q8_right_tile(packed, bq, D, n4, L, d0, l0, acc);
+  q8_right_tile(PackedRows{packed, n4}, bq, D, L, d0, l0, acc);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = d0 + ty + 16 * i;

@@ -3,7 +3,7 @@ condensed global eigensolve -> refinement through the container's
 `pca_core`.
 
 Counterpart of `genomic_pca_tpu/models/eigensnp.py` on the resident
-packed container (parallel/sharded.py):
+container (parallel/sharded.py), packed or dense int8:
 
   Stage 1 - for each LD block, a randomized SVD of the standardized block
   restricted to a sample subset (`cfg.subset_size`), with

@@ -1,10 +1,13 @@
-"""Streamed randomized PCA (the `rfit` equivalent) on the port.
+"""Streamed randomized PCA (the `rfit` equivalent) and projection of new
+samples, on the port.
 
 Counterpart of `genomic_pca_tpu/models/pca.py`: validate k, widen the
 sketch to the 128-lane width the reference kernels pad to, draw the
 Gaussian sketch from a seeded generator (utils/rng.py), and run the whole
-PCA through the container's `pca_core`.  `transform`, `transform_device`
-and `StripProjector` are not ported yet.
+PCA through the container's `pca_core`.  `transform` (float64 on the
+host), `transform_device` (a dense container over the new samples, then
+`left_apply`) and `StripProjector` (one projector reused across strips)
+project new samples through fitted loadings.
 """
 
 from __future__ import annotations
@@ -14,8 +17,10 @@ import logging
 from typing import Optional
 
 import numpy as np
+import torch
 
 from genomic_pca_tpu.errors import ComputeError
+from genomic_pca_tpu_torch.ops.standardize import MISSING, standardize_rows
 from genomic_pca_tpu_torch.utils.rng import normal
 
 log = logging.getLogger(__name__)
@@ -108,3 +113,98 @@ def streamed_pca(
         k=k,
         n_iter_done=n_done,
     )
+
+
+def transform(
+    new_geno: np.ndarray,
+    loadings: np.ndarray,
+    mean: np.ndarray,
+    std: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Project NEW samples into the fitted PC space, in float64 on the host.
+
+    `new_geno` is (n_snps, n_new) int8 dosages over the fitted SNP set
+    (PcaSnpId order); `mean` / `std` are the TRAINING moments (std None:
+    center-only, the VCF workflow's convention).  Missing (-127) imputes
+    to the training mean; SNPs with std == 0 contribute zero.  Returns
+    (n_new, k) f32 scores."""
+    g = np.asarray(new_geno, dtype=np.float64)
+    valid = np.asarray(new_geno) != MISSING
+    mean = np.asarray(mean, dtype=np.float64)
+    x = np.where(valid, g, mean[:, None]) - mean[:, None]
+    if std is not None:
+        s = np.asarray(std, dtype=np.float64)
+        x *= np.where(s > 0, 1.0 / np.where(s > 0, s, 1.0), 0.0)[:, None]
+    return (x.T @ np.asarray(loadings, dtype=np.float64)).astype(np.float32)
+
+
+def transform_device(
+    new_geno: np.ndarray,
+    loadings: np.ndarray,
+    mean: np.ndarray,
+    std: Optional[np.ndarray] = None,
+    device="cuda",
+) -> np.ndarray:
+    """`transform` on `device`: the dense int8 container over the new
+    samples with the TRAINING moments (`from_arrays`), then `left_apply`
+    of the loadings.  Missing genotypes standardize to zero, the
+    impute-to-training-mean of the host path."""
+    from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix
+
+    new_geno = np.asarray(new_geno, dtype=np.int8)
+    mean = np.asarray(mean, dtype=np.float32)
+    stds = (np.ones_like(mean) if std is None
+            else np.asarray(std, dtype=np.float32))
+    sm = ShardedMatrix.from_arrays(iter([new_geno]), means=[mean], stds=[stds],
+                                   device=device)
+    return sm.left_apply(np.asarray(loadings, dtype=np.float32)).astype(np.float32)
+
+
+class StripProjector:
+    """One projector reused across strips of up to `strip_rows` SNPs:
+    device buffers for the strip, its moments and its loadings are made
+    once, and each call fills them and returns the strip's partial scores
+    (n_new, k).  Rows past a short strip are inert (inv_std = 0), as are
+    SNPs with std == 0; `std=None` is center-only.  Plain torch on
+    `device` (the reference's jitted einsum, outside any kernel)."""
+
+    def __init__(self, strip_rows: int, n_new: int, k: int, device="cuda") -> None:
+        self.rows = int(strip_rows)
+        self.n_new = int(n_new)
+        self.k = int(k)
+        self.device = torch.device(device)
+        dev = self.device
+        self._g = torch.zeros((self.rows, self.n_new), dtype=torch.int8, device=dev)
+        self._m = torch.zeros(self.rows, dtype=torch.float32, device=dev)
+        self._iv = torch.zeros(self.rows, dtype=torch.float32, device=dev)
+        self._w = torch.zeros((self.rows, self.k), dtype=torch.float32, device=dev)
+
+    def __call__(
+        self,
+        g_strip: np.ndarray,
+        loadings: np.ndarray,
+        mean: np.ndarray,
+        std: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Partial scores (n_new, k) f32 of one strip of model SNP rows."""
+        g_strip = np.asarray(g_strip, dtype=np.int8)
+        r = g_strip.shape[0]
+        if r > self.rows or g_strip.shape[1] != self.n_new:
+            raise ValueError(
+                f"strip shape {g_strip.shape} exceeds projector shape "
+                f"({self.rows}, {self.n_new})"
+            )
+        mean = np.asarray(mean, dtype=np.float32)
+        if std is None:
+            iv = np.ones(r, dtype=np.float32)
+        else:
+            s = np.asarray(std, dtype=np.float32)
+            iv = np.where(s > 0, 1.0 / np.where(s > 0, s, 1.0), 0.0).astype(np.float32)
+        self._g[:r].copy_(torch.from_numpy(g_strip))
+        self._m[:r].copy_(torch.from_numpy(mean))
+        self._iv[:r].copy_(torch.from_numpy(iv))
+        self._iv[r:] = 0.0
+        self._w[:r].copy_(torch.from_numpy(np.asarray(loadings, dtype=np.float32)))
+        self._w[r:] = 0.0
+        x = standardize_rows(self._g, self._m, self._iv)
+        return (x.T @ self._w).cpu().numpy()

@@ -1,19 +1,22 @@
 """Data preparation of the EigenSNP workflow: sample QC, SNP QC, LD mapping
-and the resident packed matrix, on one device.
+and the resident matrix, on one device.
 
 Counterpart of `genomic_pca_tpu/models/prepare.py` in its single-process
 default: the SNP-QC scan runs on the host (`qc_mode` "auto" or "host"),
 counting 2-bit codes straight off the mmap'd BED (native popcounts, numpy
-fallback) or, under a sample keep-list, the decoded kept columns; the
-post-QC matrix then uploads once, as raw BED bytes for the full sample set
-or repacked to 2-bit on the host for a keep-list.  QC decisions and
-moments are bit-identical to the reference's (exact integer counts).
+fallback) or, under a sample keep-list, the decoded kept columns.  The
+post-QC matrix then uploads once: with `packed_pipeline` (the default) as
+raw BED bytes for the full sample set or repacked to 2-bit on the host for
+a keep-list; without it as the dense int8 container (`from_arrays` over
+decoded strips).  QC decisions and moments are bit-identical to the
+reference's (exact integer counts).
 
 Not ported yet, each refused with an error that says so: the device QC
 scan and its QC->matrix capture fusion (`qc_mode="device"`, multi-GPU
-work), the host-streamed container (chosen by the reference when the
-packed matrix exceeds 60% of device memory), and the dense int8 pipeline
-(`packed_pipeline=False`).
+work; for `packed_pipeline=False` the reference's "auto" takes them, and
+the port takes the host scan, with the same decisions), and the
+host-streamed container (chosen by the reference when the resident matrix
+exceeds 60% of device memory).
 """
 
 from __future__ import annotations
@@ -34,13 +37,14 @@ from genomic_pca_tpu.io.ldblocks import (
 from genomic_pca_tpu_torch.ops.qc import (
     genotype_counts_int8_host, genotype_counts_packed_host, snp_qc_from_counts,
 )
+from genomic_pca_tpu_torch.ops.standardize import MISSING
 from genomic_pca_tpu_torch.parallel.sharded import (
-    ShardedMatrix, pack_int8_rows, packed_cols, sanitize_partial_byte,
+    ShardedMatrix, dense_cols, pack_int8_rows, packed_cols,
+    sanitize_partial_byte,
 )
 
 log = logging.getLogger(__name__)
 
-MISSING = -127
 NOT_PORTED = "not yet ported in genomic_pca_tpu_torch"
 
 
@@ -109,32 +113,57 @@ class PreparedData:
             )
 
     def estimate_resident_bytes(self) -> int:
-        """Device bytes of the resident 2-bit packed matrix."""
-        return self.n_pca_snps * packed_cols(self.n_samples)
+        """Device bytes of the resident matrix: 2-bit packed, or int8 with
+        128-padded rows for `packed_pipeline=False`."""
+        if self.config.packed_pipeline:
+            return self.n_pca_snps * packed_cols(self.n_samples)
+        return self.n_pca_snps * dense_cols(self.n_samples)
 
-    def load_matrix(self, device) -> ShardedMatrix:
-        """The resident packed container on `device`.
+    def _strip_gen(self, strip_size: int):
+        """(strips, means, stds) of the PCA rows: decoded int8 strips of
+        the kept samples (-127 missing) with their moments, as the
+        reference's `_strip_gen` yields them (the full sample set decodes
+        without a column gather)."""
+        full = self.n_samples == self.bed.n_samples
+        sel = None if full else self.qc_sample_indices
 
-        Full sample set: the PCA rows' raw BED bytes, strip by strip;
-        keep-list: the kept columns decoded per strip and repacked to
-        2-bit on the host.  Both upload into one preallocated device
-        block (`from_packed_strips`), so the device never holds a second
-        copy.  Refuses what the reference would stream from the host."""
-        if not self.config.packed_pipeline:
-            raise ComputeError(
-                "packed_pipeline=False (the dense int8 container) is "
-                f"{NOT_PORTED}."
-            )
+        def gen():
+            for start in range(0, self.n_pca_snps, strip_size):
+                end = min(start + strip_size, self.n_pca_snps)
+                raw = self.bed.read(self.pca_snp_orig_indices[start:end], sel)
+                self._check_missing_policy(raw)
+                yield raw
+
+        bounds = range(0, self.n_pca_snps, strip_size)
+        return (gen(), [self.mean[s:s + strip_size] for s in bounds],
+                [self.std[s:s + strip_size] for s in bounds])
+
+    def load_matrix(self, device, strip_size: int = 2048) -> ShardedMatrix:
+        """The resident container on `device`.
+
+        Packed pipeline, full sample set: the PCA rows' raw BED bytes,
+        strip by strip; keep-list: the kept columns decoded per strip and
+        repacked to 2-bit on the host.  Both upload into one preallocated
+        device block (`from_packed_strips`), so the device never holds a
+        second copy.  `packed_pipeline=False`: the dense int8 container
+        from decoded strips of `strip_size` rows (`from_arrays`).
+        Refuses what the reference would stream from the host."""
         if self.n_pca_snps == 0:
             raise ComputeError("No PCA SNPs to load.")
         resident = self.estimate_resident_bytes()
         budget = device_memory_budget(device)
         if resident > 0.6 * budget:
             raise ComputeError(
-                f"The packed genotype matrix ({resident / 1e9:.1f} GB) exceeds "
+                f"The genotype matrix ({resident / 1e9:.1f} GB) exceeds "
                 f"60% of device memory ({budget / 1e9:.1f} GB): the JAX "
                 "package switches to its host-streamed container here, "
                 f"which is {NOT_PORTED}."
+            )
+        if not self.config.packed_pipeline:
+            gen, means, stds = self._strip_gen(strip_size)
+            return ShardedMatrix.from_arrays(
+                gen, means=means, stds=stds, device=device,
+                missing_fraction=self.missing_fraction_bound,
             )
         idx = self.pca_snp_orig_indices
 
@@ -251,10 +280,6 @@ def prepare_data(config: DataPrepConfig) -> PreparedData:
             "qc_mode='device' (the device QC scan and its QC->matrix "
             f"capture fusion) is {NOT_PORTED}; use 'auto' or 'host'."
         )
-    if not config.packed_pipeline:
-        raise DataPrepError(
-            f"packed_pipeline=False (the dense int8 pipeline) is {NOT_PORTED}."
-        )
     bed = BedReader(config.bed_path)
     qc_samples = perform_sample_qc(bed, config.sample_keep_path)
     n_qc = len(qc_samples)
@@ -264,6 +289,11 @@ def prepare_data(config: DataPrepConfig) -> PreparedData:
     parsed_blocks = parse_ld_block_file(config.ld_block_path)
     log.info("SNP QC: host-side %s scan (qc_mode=%s).",
              "packed" if sample_sel is None else "decoded-subset", config.qc_mode)
+    if config.qc_mode == "auto" and not config.packed_pipeline:
+        log.info("SNP QC: packed_pipeline=False takes the host scan here; the "
+                 "JAX package's device scan and QC->matrix capture fusion are "
+                 "%s (QC decisions are the same: exact integer counts).",
+                 NOT_PORTED)
     keep, mean_all, std_all = _qc_snp_range_hostscan(
         bed, config, n_qc, 0, bed.n_snps, sample_sel=sample_sel
     )

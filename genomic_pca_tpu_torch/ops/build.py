@@ -43,6 +43,10 @@ SIGNATURES = {
     "gp_left2d_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_right2d": [_P, _P, _P, _I, _I, _I, _P],
     "gp_q8_left2d": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gp_right_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gp_left_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gp_q8_w_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gp_q8_left_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

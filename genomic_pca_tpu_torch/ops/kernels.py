@@ -1,11 +1,13 @@
-"""The packed-genotype kernels of the randomized-PCA core.
+"""The genotype kernels of the randomized-PCA core.
 
-Four serve the 1-D mode of the container (every sample tile of a row
-band in one pass), four the wide-sample 2-D mode, where the JAX package
-tiles both axes.  Each public function takes the PLINK 2-bit matrix as a
-(D, N4) uint8 tensor in ORIGINAL sample order (byte j, bits 2p <->
-sample 4j + p; no plane-major permutation), per-SNP (D, 1) f32 columns,
-and sample- or variant-indexed (., L) operands, and returns what the TPU
+Eight serve the PLINK 2-bit packed layout - four the 1-D mode of the
+container (every sample tile of a row band in one pass), four the
+wide-sample 2-D mode, where the JAX package tiles both axes - and four the
+1-D mode of the dense int8 layout.  Each public function takes the
+genotypes in ORIGINAL sample order - packed as a (D, N4) uint8 tensor
+(byte j, bits 2p <-> sample 4j + p; no plane-major permutation), dense as
+a (D, N) int8 tensor with -127 missing - per-SNP (D, 1) f32 columns, and
+sample- or variant-indexed (., L) operands, and returns what the TPU
 kernel of the same name in `genomic_pca_tpu/ops/pallas_kernels.py`
 returns, un-permuted.
 
@@ -26,6 +28,8 @@ from typing import Dict
 
 import torch
 
+from genomic_pca_tpu_torch.ops.standardize import MISSING, standardize_rows
+
 LAUNCHES: Dict[str, int] = {
     "fused_gram_q8_packed": 0,
     "fused_gram_apply_packed": 0,
@@ -35,6 +39,10 @@ LAUNCHES: Dict[str, int] = {
     "fused_left_apply_2d_packed": 0,
     "right_apply_2d_q8": 0,
     "left_apply_2d_q8": 0,
+    "fused_gram_q8": 0,
+    "fused_gram_apply": 0,
+    "fused_tsq": 0,
+    "fused_right_apply": 0,
 }
 
 
@@ -64,6 +72,13 @@ def unpack_dosages(packed: torch.Tensor) -> torch.Tensor:
     return torch.where(c != 1, (4 - c) >> 1, 0).to(torch.int8)
 
 
+def dosages_g0(geno: torch.Tensor) -> torch.Tensor:
+    """G0 of either layout: (D, N) int8 dosages with missing -> 0."""
+    if geno.dtype == torch.uint8:
+        return unpack_dosages(geno)
+    return torch.clamp(geno, min=0)
+
+
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
@@ -89,30 +104,49 @@ def standardize_packed(packed, mean, inv_std, precision: str = "bf16"):
     return torch.where(c != 1, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def standardize_dense(geno, mean, inv_std, precision: str = "bf16"):
+    """(D, N) f32 standardized tile A of int8 dosages (-127 missing),
+    rounded as the TPU's dense bf16 tile rounds it
+    (pallas_kernels.py:72-78): bf16(bf16(g * bf16(inv_std)) +
+    bf16(-mean * inv_std)); f32 mode is `standardize_rows`."""
+    if not _bf16(precision):
+        return standardize_rows(geno, mean.reshape(-1), inv_std.reshape(-1))
+    g = geno.to(torch.float32)
+    x = _round_bf16(_round_bf16(g * _round_bf16(inv_std)) + _round_bf16(-mean * inv_std))
+    return torch.where(geno != MISSING, x,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def standardize(geno, mean, inv_std, precision: str = "bf16"):
+    """The standardized tile A of either layout (uint8 packed, int8 dense)."""
+    fn = standardize_packed if geno.dtype == torch.uint8 else standardize_dense
+    return fn(geno, mean, inv_std, precision)
+
+
 def _operand(b: torch.Tensor, bf16: bool) -> torch.Tensor:
     b = b.to(torch.float32)
     return _round_bf16(b) if bf16 else b
 
 
 # ---------------------------------------------------------------------------
-# Plain versions.
+# Plain versions, for either layout.
 
 
-def fused_right_apply_packed_plain(packed, mean, inv_std, b, precision="bf16"):
+def fused_right_apply_packed_plain(geno, mean, inv_std, b, precision="bf16"):
     bf16 = _bf16(precision)
-    return standardize_packed(packed, mean, inv_std, precision) @ _operand(b, bf16)
+    return standardize(geno, mean, inv_std, precision) @ _operand(b, bf16)
 
 
-def fused_gram_apply_packed_plain(packed, mean, inv_std, b, precision="bf16"):
+def fused_gram_apply_packed_plain(geno, mean, inv_std, b, precision="bf16"):
     bf16 = _bf16(precision)
-    x = standardize_packed(packed, mean, inv_std, precision)
+    x = standardize(geno, mean, inv_std, precision)
     w = _operand(x @ _operand(b, bf16), bf16)
     return x.T @ w
 
 
-def fused_tsq_packed_plain(packed, mean, inv_std, b, precision="bf16"):
+def fused_tsq_packed_plain(geno, mean, inv_std, b, precision="bf16"):
     bf16 = _bf16(precision)
-    x = standardize_packed(packed, mean, inv_std, precision)
+    x = standardize(geno, mean, inv_std, precision)
     w = _operand(x @ _operand(b, bf16), bf16)
     return w.T @ w
 
@@ -124,17 +158,18 @@ def _exact_int_dtype(bound: int) -> torch.dtype:
 
 def fused_left_apply_2d_packed_plain(packed, mean, inv_std, w, precision="bf16"):
     bf16 = _bf16(precision)
-    return standardize_packed(packed, mean, inv_std, precision).T @ _operand(w, bf16)
+    return standardize(packed, mean, inv_std, precision).T @ _operand(w, bf16)
 
 
 # Integer products are computed exactly in f32 / f64: int8 matmul wraps
 # on the CPU and has no CUDA path.
 
 
-def right_apply_2d_q8_plain(packed, bq):
+def right_apply_2d_q8_plain(geno, bq):
     """Raw integer products G0 bq, computed exactly, rounded once to f32."""
-    dt = _exact_int_dtype(2 * 127 * 4 * packed.shape[1])
-    return (unpack_dosages(packed).to(dt) @ bq.to(dt)).to(torch.float32)
+    g0 = dosages_g0(geno)
+    dt = _exact_int_dtype(2 * 127 * g0.shape[1])
+    return (g0.to(dt) @ bq.to(dt)).to(torch.float32)
 
 
 def _row_tiles(x: torch.Tensor, tile_d: int) -> torch.Tensor:
@@ -146,9 +181,9 @@ def _row_tiles(x: torch.Tensor, tile_d: int) -> torch.Tensor:
     )
 
 
-def left_apply_2d_q8_plain(packed, z8, sz, tile_d):
+def left_apply_2d_q8_plain(geno, z8, sz, tile_d):
     """sum_t sz[t] (G0_t^T z8_t), each tile's integer product exact."""
-    g_t = _row_tiles(unpack_dosages(packed), tile_d)
+    g_t = _row_tiles(dosages_g0(geno), tile_d)
     dt = _exact_int_dtype(2 * 127 * tile_d)
     t_int = g_t.to(dt).transpose(1, 2) @ _row_tiles(z8, tile_d).to(dt)
     return (t_int.to(torch.float32) * sz[:, None, None]).sum(dim=0)
@@ -164,26 +199,41 @@ def quantize_rows(z: torch.Tensor, tile_d: int):
     return z8.reshape(-1, z.shape[1])[: z.shape[0]].to(torch.int8), sz
 
 
-def _q8_pass(right, left, packed, inv_std, u, bq, sb, csum, tile_d):
+def _q8_pass(right, left, geno, inv_std, u, bq, sb, csum, tile_d):
     """One quantized power pass from its two integer products: W = G0 bq,
     the corrections y = s (W sb) - u csum and z = s y, z quantized per row
     tile, then G0^T z8 scaled per tile.  Returns (out, ru = sum u y)."""
-    w = right(packed, bq)
+    w = right(geno, bq)
     y = inv_std * (w * sb) - u * csum
     z = inv_std * y
     z8, sz = quantize_rows(z, tile_d)
-    return left(packed, z8, sz, tile_d), (u * y).sum(dim=0, keepdim=True)
+    return left(geno, z8, sz, tile_d), (u * y).sum(dim=0, keepdim=True)
 
 
-def fused_gram_q8_packed_plain(packed, inv_std, u, bq, sb, csum, tile_d=1024):
+def fused_gram_q8_packed_plain(geno, inv_std, u, bq, sb, csum, tile_d=1024):
     """Plain q8 pass: the kernel's quantization model, integer products
     exact."""
-    return _q8_pass(right_apply_2d_q8_plain, left_apply_2d_q8_plain, packed,
+    return _q8_pass(right_apply_2d_q8_plain, left_apply_2d_q8_plain, geno,
                     inv_std, u, bq, sb, csum, tile_d)
+
+
+# The dense kernels compute the same functions of the same G0 and A.
+fused_gram_q8_plain = fused_gram_q8_packed_plain
+fused_gram_apply_plain = fused_gram_apply_packed_plain
+fused_tsq_plain = fused_tsq_packed_plain
+fused_right_apply_plain = fused_right_apply_packed_plain
 
 
 # ---------------------------------------------------------------------------
 # Launch helpers.
+
+# C entry points of each pass, by genotype layout.
+_ENTRY = {
+    torch.uint8: {"right": "gp_right_packed", "left": "gp_left_packed",
+                  "q8_w": "gp_q8_w", "q8_left": "gp_q8_left"},
+    torch.int8: {"right": "gp_right_dense", "left": "gp_left_dense",
+                 "q8_w": "gp_q8_w_dense", "q8_left": "gp_q8_left_dense"},
+}
 
 
 def _launch(device: torch.device, entry: str, *args) -> None:
@@ -209,13 +259,13 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> torch.Tensor:
     return t.contiguous()
 
 
-def _route(packed: torch.Tensor) -> str:
-    if packed.device.type == "cpu":
+def _route(geno: torch.Tensor) -> str:
+    if geno.device.type == "cpu":
         return "plain"
-    if packed.device.type == "cuda":
+    if geno.device.type == "cuda":
         return "cuda"
     raise ValueError(
-        f"no kernel for device {packed.device}: packed kernels run on "
+        f"no kernel for device {geno.device}: genotype kernels run on "
         "cuda (hand-written kernel) or cpu (plain version)"
     )
 
@@ -229,32 +279,108 @@ def _split(device: torch.device, tiles_2d: int, units: int, unit: int = 1):
     return -(-units // per), per * unit
 
 
-def _check_common(packed, mean, inv_std, b, precision):
+def _check_geno(geno: torch.Tensor, dtype) -> torch.Tensor:
+    """The (D, C) genotype tensor of the layout `dtype`, contiguous.  The
+    dense loader reads one 32-bit word (four samples) per group, so a
+    dense row must hold a multiple of 4 samples and the base be 4-byte
+    aligned (`from_arrays` pads rows to a multiple of 128)."""
+    name = "packed" if dtype == torch.uint8 else "geno"
+    if geno.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, got shape {tuple(geno.shape)}")
+    geno = _require(geno, name, dtype, geno.shape, geno.device)
+    if dtype == torch.int8 and (geno.shape[1] % 4 or geno.data_ptr() % 4):
+        raise ValueError(
+            "dense kernels read four samples per aligned 32-bit word: the "
+            f"sample count must be a multiple of 4, got {geno.shape[1]}"
+        )
+    return geno
+
+
+def _samples(geno: torch.Tensor) -> int:
+    return 4 * geno.shape[1] if geno.dtype == torch.uint8 else geno.shape[1]
+
+
+def _check_common(geno, mean, inv_std, b, precision, dtype=torch.uint8):
     _bf16(precision)
-    if packed.dim() != 2:
-        raise ValueError(f"packed must be (D, N4), got {tuple(packed.shape)}")
-    d, n4 = packed.shape
-    dev = packed.device
-    packed = _require(packed, "packed", torch.uint8, (d, n4), dev)
+    geno = _check_geno(geno, dtype)
+    d, n = geno.shape[0], _samples(geno)
+    dev = geno.device
     mean = _require(mean, "mean", torch.float32, (d, 1), dev)
     inv_std = _require(inv_std, "inv_std", torch.float32, (d, 1), dev)
-    if b.dim() != 2 or b.shape[0] != 4 * n4:
-        raise ValueError(f"b must be ({4 * n4}, L), got {tuple(b.shape)}")
+    if b.dim() != 2 or b.shape[0] != n:
+        raise ValueError(f"b must be ({n}, L), got {tuple(b.shape)}")
     b = _require(b, "b", torch.float32, b.shape, dev)
-    return packed, mean, inv_std, b
+    return geno, mean, inv_std, b
 
 
-def _launch_right(packed, mean, inv_std, b, bf16: bool, round_out: bool):
-    d, n4 = packed.shape
+def _launch_right(geno, mean, inv_std, b, bf16: bool, round_out: bool):
+    d = geno.shape[0]
     ell = b.shape[1]
-    out = torch.empty((d, ell), dtype=torch.float32, device=packed.device)
-    _launch(packed.device, "gp_right_packed", packed, mean, inv_std, b, out,
-            d, n4, ell, int(bf16), int(round_out))
+    out = torch.empty((d, ell), dtype=torch.float32, device=geno.device)
+    _launch(geno.device, _ENTRY[geno.dtype]["right"], geno, mean, inv_std, b,
+            out, d, _samples(geno) // 4, ell, int(bf16), int(round_out))
     return out
 
 
+def _launch_gram(geno, mean, inv_std, b, bf16: bool):
+    """W = A B (rounded to bf16 in bf16 mode), then A^T W split-K."""
+    d, n, ell, dev = geno.shape[0], _samples(geno), b.shape[1], geno.device
+    w = _launch_right(geno, mean, inv_std, b, bf16, bf16)
+    out = torch.zeros((n, ell), dtype=torch.float32, device=dev)
+    splits, rows = _split(dev, -(-n // 64) * -(-ell // 64), -(-d // 16), 16)
+    _launch(dev, _ENTRY[geno.dtype]["left"], geno, mean, inv_std, w, out, d,
+            n // 4, ell, int(bf16), splits, rows)
+    return out
+
+
+def _launch_tsq(geno, mean, inv_std, b, bf16: bool):
+    """W = A B (rounded to bf16 in bf16 mode), then W^T W split-K."""
+    d, ell = geno.shape[0], b.shape[1]
+    w = _launch_right(geno, mean, inv_std, b, bf16, bf16)
+    out = torch.zeros((ell, ell), dtype=torch.float32, device=geno.device)
+    splits, rows = _split(geno.device, (-(-ell // 64)) ** 2, -(-d // 16), 16)
+    _launch(geno.device, "gp_wtw", w, out, d, ell, splits, rows)
+    return out
+
+
+def _check_q8(geno, inv_std, u, bq, sb, csum, tile_d, dtype=torch.uint8):
+    if tile_d <= 0 or tile_d % 64:
+        raise ValueError(f"tile_d must be a positive multiple of 64, got {tile_d}")
+    geno = _check_geno(geno, dtype)
+    d, n = geno.shape[0], _samples(geno)
+    dev = geno.device
+    if bq.dim() != 2 or bq.shape[0] != n:
+        raise ValueError(f"bq must be ({n}, L), got {tuple(bq.shape)}")
+    ell = bq.shape[1]
+    return (
+        geno,
+        _require(inv_std, "inv_std", torch.float32, (d, 1), dev),
+        _require(u, "u", torch.float32, (d, 1), dev),
+        _require(bq, "bq", torch.int8, (n, ell), dev),
+        _require(sb, "sb", torch.float32, (1, 1), dev),
+        _require(csum, "csum", torch.float32, (1, ell), dev),
+    )
+
+
+def _launch_q8(geno, inv_std, u, bq, sb, csum, tile_d):
+    """The two kernels of a q8 pass: (out (N, L), ru (1, L))."""
+    d, n, ell, dev = geno.shape[0], _samples(geno), bq.shape[1], geno.device
+    entry = _ENTRY[geno.dtype]
+    n_tiles = -(-d // tile_d)
+    z = torch.empty((d, ell), dtype=torch.float32, device=dev)
+    tile_max = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    ru = torch.zeros(ell, dtype=torch.float32, device=dev)
+    out = torch.zeros((n, ell), dtype=torch.float32, device=dev)
+    _launch(dev, entry["q8_w"], geno, inv_std, u, bq, sb, csum, z, tile_max,
+            ru, d, n // 4, ell, tile_d)
+    splits, per = _split(dev, -(-n // 64) * -(-ell // 64), n_tiles)
+    _launch(dev, entry["q8_left"], geno, z, tile_max, out, d, n // 4, ell,
+            tile_d, splits, per)
+    return out, ru.reshape(1, ell)
+
+
 # ---------------------------------------------------------------------------
-# The four kernels.
+# The four kernels of the packed 1-D mode.
 #
 # fused_right_apply_packed replaces genomic_pca_tpu/ops/pallas_kernels.py
 # fused_right_apply_packed (:529, pallas_call :545).  On the H100 it reads
@@ -289,16 +415,7 @@ def fused_gram_apply_packed(packed, mean, inv_std, b, precision="bf16"):
     if _route(packed) == "plain":
         return fused_gram_apply_packed_plain(packed, mean, inv_std, b, precision)
     LAUNCHES["fused_gram_apply_packed"] += 1
-    bf16 = _bf16(precision)
-    d, n4 = packed.shape
-    ell = b.shape[1]
-    w = _launch_right(packed, mean, inv_std, b, bf16, bf16)
-    out = torch.zeros((4 * n4, ell), dtype=torch.float32, device=packed.device)
-    splits, rows = _split(packed.device, -(-4 * n4 // 64) * -(-ell // 64),
-                          -(-d // 16), 16)
-    _launch(packed.device, "gp_left_packed", packed, mean, inv_std, w, out,
-            d, n4, ell, int(bf16), splits, rows)
-    return out
+    return _launch_gram(packed, mean, inv_std, b, _bf16(precision))
 
 
 # fused_tsq_packed replaces pallas_kernels.py fused_tsq_packed (:564,
@@ -313,14 +430,7 @@ def fused_tsq_packed(packed, mean, inv_std, b, precision="bf16"):
     if _route(packed) == "plain":
         return fused_tsq_packed_plain(packed, mean, inv_std, b, precision)
     LAUNCHES["fused_tsq_packed"] += 1
-    bf16 = _bf16(precision)
-    d = packed.shape[0]
-    ell = b.shape[1]
-    w = _launch_right(packed, mean, inv_std, b, bf16, bf16)
-    out = torch.zeros((ell, ell), dtype=torch.float32, device=packed.device)
-    splits, rows = _split(packed.device, (-(-ell // 64)) ** 2, -(-d // 16), 16)
-    _launch(packed.device, "gp_wtw", w, out, d, ell, splits, rows)
-    return out
+    return _launch_tsq(packed, mean, inv_std, b, _bf16(precision))
 
 
 # fused_gram_q8_packed replaces pallas_kernels.py fused_gram_q8_packed
@@ -328,30 +438,11 @@ def fused_tsq_packed(packed, mean, inv_std, b, precision="bf16"):
 # _unpack_packed_tile_s8 :902).  Integer products on __dp4a (4 int8 lanes
 # per instruction); bound by the dp4a issue rate at L = 128.  The per-tile
 # scale max|z| over a whole (tile_d, L) tile needs a reduction before the
-# second product, so the pass is two kernels (csrc/q8_kernels.cu): W -> y,
-# z (D*L*4 bytes to device memory), ru and the tile maxima; then z8 and
-# G0^T z8 summed exactly in int32 per tile, scaled, split-K f32 atomics.
-# `tile_d`, the quantization tile, is independent of the block shape.
-
-
-def _check_q8(packed, inv_std, u, bq, sb, csum, tile_d):
-    if packed.dim() != 2:
-        raise ValueError(f"packed must be (D, N4), got {tuple(packed.shape)}")
-    if tile_d <= 0 or tile_d % 64:
-        raise ValueError(f"tile_d must be a positive multiple of 64, got {tile_d}")
-    d, n4 = packed.shape
-    dev = packed.device
-    if bq.dim() != 2 or bq.shape[0] != 4 * n4:
-        raise ValueError(f"bq must be ({4 * n4}, L), got {tuple(bq.shape)}")
-    ell = bq.shape[1]
-    return (
-        _require(packed, "packed", torch.uint8, (d, n4), dev),
-        _require(inv_std, "inv_std", torch.float32, (d, 1), dev),
-        _require(u, "u", torch.float32, (d, 1), dev),
-        _require(bq, "bq", torch.int8, (4 * n4, ell), dev),
-        _require(sb, "sb", torch.float32, (1, 1), dev),
-        _require(csum, "csum", torch.float32, (1, ell), dev),
-    )
+# second product, so the pass is two kernels (csrc/packed_common.cuh
+# q8_w_kernel, q8_left_kernel): W -> y, z (D*L*4 bytes to device memory),
+# ru and the tile maxima; then z8 and G0^T z8 summed exactly in int32 per
+# tile, scaled, split-K f32 atomics.  `tile_d`, the quantization tile, is
+# independent of the block shape.
 
 
 def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
@@ -363,20 +454,81 @@ def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
     if _route(packed) == "plain":
         return fused_gram_q8_packed_plain(packed, inv_std, u, bq, sb, csum, tile_d)
     LAUNCHES["fused_gram_q8_packed"] += 1
-    d, n4 = packed.shape
-    ell = bq.shape[1]
-    dev = packed.device
-    n_tiles = -(-d // tile_d)
-    z = torch.empty((d, ell), dtype=torch.float32, device=dev)
-    tile_max = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    ru = torch.zeros(ell, dtype=torch.float32, device=dev)
-    out = torch.zeros((4 * n4, ell), dtype=torch.float32, device=dev)
-    _launch(dev, "gp_q8_w", packed, inv_std, u, bq, sb, csum, z, tile_max, ru,
-            d, n4, ell, tile_d)
-    splits, per = _split(dev, -(-4 * n4 // 64) * -(-ell // 64), n_tiles)
-    _launch(dev, "gp_q8_left", packed, z, tile_max, out, d, n4, ell, tile_d,
-            splits, per)
-    return out, ru.reshape(1, ell)
+    return _launch_q8(packed, inv_std, u, bq, sb, csum, tile_d)
+
+
+# ---------------------------------------------------------------------------
+# The four kernels of the dense int8 1-D mode (csrc/dense_kernels.cu): the
+# packed kernels' main loops with a loader that reads one aligned 32-bit
+# word of four int8 samples per thread where the packed one reads a byte.
+# Each pass reads D*N bytes, four times the packed bytes, and stays bound
+# by the FMA / dp4a issue rate (2*D*N*L operations per product).
+#
+# fused_right_apply replaces pallas_kernels.py fused_right_apply (:181,
+# pallas_call :197; body _right_kernel :112): one block per 64 x 64
+# output tile, standardize in the shared-memory load.
+
+
+def fused_right_apply(geno, mean, inv_std, b, precision="bf16"):
+    """A B over (D, N) int8 dosages: (D, L) f32."""
+    geno, mean, inv_std, b = _check_common(geno, mean, inv_std, b, precision,
+                                           torch.int8)
+    if _route(geno) == "plain":
+        return fused_right_apply_plain(geno, mean, inv_std, b, precision)
+    LAUNCHES["fused_right_apply"] += 1
+    return _launch_right(geno, mean, inv_std, b, _bf16(precision), False)
+
+
+# fused_gram_apply replaces pallas_kernels.py fused_gram_apply (:144,
+# pallas_call :160; body _gram_kernel :95).  The TPU kernel carries the
+# (N, L) accumulator through a sequential grid; here W = A B (rounded to
+# bf16 as the reference rounds it) then A^T W split across block layers
+# with f32 atomics.  4*D*N*L operations, FMA bound.
+
+
+def fused_gram_apply(geno, mean, inv_std, b, precision="bf16"):
+    """A^T (A B) over (D, N) int8 dosages: (N, L) f32."""
+    geno, mean, inv_std, b = _check_common(geno, mean, inv_std, b, precision,
+                                           torch.int8)
+    if _route(geno) == "plain":
+        return fused_gram_apply_plain(geno, mean, inv_std, b, precision)
+    LAUNCHES["fused_gram_apply"] += 1
+    return _launch_gram(geno, mean, inv_std, b, _bf16(precision))
+
+
+# fused_tsq replaces pallas_kernels.py fused_tsq (:215, pallas_call :231;
+# body _tsq_kernel :120): W = A B rounded to bf16 in bf16 mode, then
+# W^T W split-K (gp_wtw).  FMA bound.
+
+
+def fused_tsq(geno, mean, inv_std, b, precision="bf16"):
+    """(A B)^T (A B) over (D, N) int8 dosages: (L, L) f32."""
+    geno, mean, inv_std, b = _check_common(geno, mean, inv_std, b, precision,
+                                           torch.int8)
+    if _route(geno) == "plain":
+        return fused_tsq_plain(geno, mean, inv_std, b, precision)
+    LAUNCHES["fused_tsq"] += 1
+    return _launch_tsq(geno, mean, inv_std, b, _bf16(precision))
+
+
+# fused_gram_q8 replaces pallas_kernels.py fused_gram_q8 (:847,
+# pallas_call :863; body _gram_q8_kernel :807): the packed q8 pass's two
+# kernels with G0 = max(g, 0) taken per byte by __vmaxs4, so the -127
+# sentinel is raw 0, and the word fed to __dp4a as it is.  dp4a bound.
+# The quantization tile is the container's tile_d (1,024), where the JAX
+# container takes auto_tile_d's VMEM tile (1,024 at n_pad 2,048, 256 at
+# 4,096): that changes only how the steering passes quantize z.
+
+
+def fused_gram_q8(geno, inv_std, u, bq, sb, csum, tile_d=1024):
+    """Quantized power pass over (D, N) int8 dosages: (out (N, L), ru
+    (1, L)); same contract as `fused_gram_q8_packed`."""
+    geno, inv_std, u, bq, sb, csum = _check_q8(geno, inv_std, u, bq, sb, csum,
+                                               tile_d, torch.int8)
+    if _route(geno) == "plain":
+        return fused_gram_q8_plain(geno, inv_std, u, bq, sb, csum, tile_d)
+    LAUNCHES["fused_gram_q8"] += 1
+    return _launch_q8(geno, inv_std, u, bq, sb, csum, tile_d)
 
 
 # ---------------------------------------------------------------------------
@@ -521,4 +673,8 @@ PLAIN = {
     "fused_left_apply_2d_packed": fused_left_apply_2d_packed_plain,
     "right_apply_2d_q8": right_apply_2d_q8_plain,
     "left_apply_2d_q8": left_apply_2d_q8_plain,
+    "fused_gram_q8": fused_gram_q8_plain,
+    "fused_gram_apply": fused_gram_apply_plain,
+    "fused_tsq": fused_tsq_plain,
+    "fused_right_apply": fused_right_apply_plain,
 }

@@ -1,39 +1,47 @@
-"""Packed genotype container on one device: the randomized-PCA core.
+"""Genotype container on one device: the randomized-PCA core.
 
-Counterpart of `genomic_pca_tpu/parallel/sharded.py` for the PLINK 2-bit
-layout on a single device.  The class keeps the name `ShardedMatrix` so
-that multi-GPU support can extend it; it takes `device` where the JAX
-class takes `mesh`.
+Counterpart of `genomic_pca_tpu/parallel/sharded.py` on a single device.
+The class keeps the name `ShardedMatrix` so that multi-GPU support can
+extend it; it takes `device` where the JAX class takes `mesh`.  As in the
+JAX class, the dtype of `geno` selects the layout:
 
-Layout: `geno` (d_pad, N4) uint8 PLINK bytes in ORIGINAL sample order,
-`mean` / `inv_std` (d_pad, 1) f32.  Padding is inert: sample bytes beyond
-the data are 0x55 (all missing -> 0) and padded rows carry inv_std = 0.
+- packed (uint8): (d_pad, N4) PLINK bytes in ORIGINAL sample order;
+  sample bytes beyond the data are 0x55 (all missing -> 0);
+- dense (int8): (d_pad, n_pad) dosages, -127 missing, n_pad the sample
+  count rounded up to 128 with -127 (`from_arrays`);
+
+with `mean` / `inv_std` (d_pad, 1) f32.  Padded rows carry inv_std = 0.
 The kernels (ops/kernels.py) take any D, so this container adds no row
 padding of its own; `from_reference_arrays` keeps the reference's.
 
-Two modes, as in the JAX container: "1d" runs the four 1-D kernels;
-"2d", the wide-sample mode, runs every exact pass as the right product
-then the left product over both tiled axes, and every q8 steering pass
-through `q8_power_pass_2d`.  The modes differ numerically (the 2-D tsq
-takes W in f32, the 1-D one W rounded to bf16), so the port switches at
-the sample count where the JAX container does.
+Two modes, as in the JAX container: "1d" runs the four 1-D kernels of the
+layout; "2d", the wide-sample mode, runs every exact pass as the right
+product then the left product over both tiled axes, and every q8
+steering pass through `q8_power_pass_2d`.  The modes differ numerically
+(the 2-D tsq takes W in f32, the 1-D one W rounded to bf16), so the port
+switches at the sample count where the JAX container does.  The dense
+2-D kernels are not ported yet: a dense container in 2-D mode builds, and
+`left_apply`, `fetch_blocks_device` and `count_missing` work, but its PCA
+passes raise `ComputeError`.
 
-Not ported here: left_apply, the dense int8 layout, the from_arrays /
-from_local_rows / from_owned_units constructors, row segments (the
-one-device layout is a single segment) and the TPU tile choosers.
+Not ported here: the from_local_rows / from_owned_units constructors, row
+segments (the one-device layout is a single segment) and the TPU tile
+choosers.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from genomic_pca_tpu.errors import ComputeError
 from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.rsvd import (
     cholqr2_q, quantize_basis, subspace_residual,
 )
+from genomic_pca_tpu_torch.ops.standardize import MISSING
 
 PACKED_MISSING_BYTE = 0x55  # four 01 (missing) fields
 
@@ -47,10 +55,20 @@ PACKED_MISSING_BYTE = 0x55  # four 01 (missing) fields
 # packed layout.  Same rule, same algorithm for the same data.
 WIDE_N_PAD = 11_264
 WIDE_N_PAD_F32 = 9_216
+# The same rule for the dense int8 layout, whose n_pad steps by 128: the
+# budget fails at 1472 * n_pad bytes (q8, bf16: 1280 + 6 * 32) from n_pad
+# = 11,136 (11,008 still fits) and at 1856 * n_pad (f32: 1536 + 10 * 32)
+# from 8,832 (8,704 fits).
+DENSE_WIDE_N_PAD = 11_136
+DENSE_WIDE_N_PAD_F32 = 8_832
 
 
-def default_mode(n_pad: int, kernel_precision: str) -> str:
-    wide = WIDE_N_PAD_F32 if kernel_precision == "f32" else WIDE_N_PAD
+def default_mode(n_pad: int, kernel_precision: str, packed: bool = True) -> str:
+    f32 = kernel_precision == "f32"
+    if packed:
+        wide = WIDE_N_PAD_F32 if f32 else WIDE_N_PAD
+    else:
+        wide = DENSE_WIDE_N_PAD_F32 if f32 else DENSE_WIDE_N_PAD
     return "2d" if n_pad >= wide else "1d"
 
 
@@ -85,6 +103,28 @@ def packed_cols(n_samples: int) -> int:
     return _round_up(max(-(-n_samples // 4), 1), 128)
 
 
+def dense_cols(n_samples: int) -> int:
+    """Device columns of dense int8 rows: n padded to 128, as the JAX
+    `from_arrays` pads them."""
+    return _round_up(n_samples, 128)
+
+
+def host_moments(g: np.ndarray) -> tuple:
+    """(mean, std) f32 of (D, N) int8 dosages from exact integer
+    histograms over valid entries (std with ddof 1; 0 below two valid
+    entries), as the JAX `from_arrays` computes them when none are
+    given."""
+    n1 = (g == 1).sum(axis=1, dtype=np.int64)
+    n2 = (g == 2).sum(axis=1, dtype=np.int64)
+    nv = n1 + n2 + (g == 0).sum(axis=1, dtype=np.int64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        m = np.where(nv > 0, (n1 + 2.0 * n2) / np.maximum(nv, 1), 0.0)
+        ssd = (n1 + 4.0 * n2) - nv * m * m
+        var = np.where(nv >= 2, ssd / np.maximum(nv - 1, 1), 0.0)
+        s = np.sqrt(np.maximum(var, 0.0))
+    return m.astype(np.float32), s.astype(np.float32)
+
+
 def sanitize_partial_byte(packed: np.ndarray, n_samples: int) -> np.ndarray:
     """Force trailing 2-bit fields of the last data byte to 01 (missing).
 
@@ -113,15 +153,25 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
+# The 1-D kernels of each layout (packed?): gram, tsq, right, q8.
+_KERNELS_1D = {
+    True: (kernels.fused_gram_apply_packed, kernels.fused_tsq_packed,
+           kernels.fused_right_apply_packed, kernels.fused_gram_q8_packed),
+    False: (kernels.fused_gram_apply, kernels.fused_tsq,
+            kernels.fused_right_apply, kernels.fused_gram_q8),
+}
+
+
 class ShardedMatrix:
-    """Standardized genotype operator, PLINK 2-bit packed, on one device.
+    """Standardized genotype operator, packed or dense int8, on one device.
 
     Implements ops.operator.StandardizedOperator plus the fast paths
     `power_iterate` and `pca_core`.  `kernel_precision` "q8" (default)
     steers with the int8 kernel and runs every exact pass in bf16; "bf16"
     and "f32" run only exact passes at that precision.  `tile_d` is the
     q8 quantization tile (rows sharing one z scale).  `mode` is "1d",
-    "2d" or None (chosen from the sample count by `default_mode`).
+    "2d" or None (chosen from the layout and the sample count by
+    `default_mode`).
     """
 
     def __init__(
@@ -152,9 +202,13 @@ class ShardedMatrix:
         self.kernel_precision = kernel_precision
         self.exact_precision = "bf16" if kernel_precision == "q8" else kernel_precision
         self.q8_polish = resolve_q8_polish(q8_polish, missing_fraction)
+        if geno.dtype not in (torch.uint8, torch.int8):
+            raise TypeError(f"geno must be uint8 (packed) or int8 (dense), got {geno.dtype}")
+        self.packed = geno.dtype == torch.uint8
         self.d_pad = geno.shape[0]
-        self.n_pad = geno.shape[1] * 4
-        self.mode = mode or default_mode(self.n_pad, kernel_precision)
+        self.n_pad = geno.shape[1] * 4 if self.packed else geno.shape[1]
+        self.mode = mode or default_mode(self.n_pad, kernel_precision, self.packed)
+        self._k1d = _KERNELS_1D[self.packed]
         self._u = mean * inv_std
         self._pmask = (
             torch.arange(self.n_pad, device=self.device) < n_samples
@@ -163,7 +217,7 @@ class ShardedMatrix:
     # ------------------------------------------------------------------
     @staticmethod
     def from_reference_arrays(
-        packed: np.ndarray,
+        geno: np.ndarray,
         mean: np.ndarray,
         inv_std: np.ndarray,
         n_rows: int,
@@ -171,12 +225,13 @@ class ShardedMatrix:
         device,
         **kw,
     ) -> "ShardedMatrix":
-        """Adopt already padded arrays verbatim: (d_pad, N4) uint8 and
-        (d_pad, 1) f32, e.g. `np.asarray(sm.geno)` of the JAX container,
-        so that both containers hold identical bytes."""
+        """Adopt already padded arrays verbatim: (d_pad, N4) uint8 packed
+        or (d_pad, n_pad) int8 dense genotypes and (d_pad, 1) f32, e.g.
+        `np.asarray(sm.geno)` of the JAX container, so that both
+        containers hold identical bytes."""
         dev = torch.device(device)
         return ShardedMatrix(
-            geno=torch.tensor(np.asarray(packed, dtype=np.uint8), device=dev),
+            geno=torch.tensor(np.asarray(geno), device=dev),
             mean=torch.tensor(np.asarray(mean, np.float32).reshape(-1, 1),
                               device=dev),
             inv_std=torch.tensor(np.asarray(inv_std, np.float32).reshape(-1, 1),
@@ -241,6 +296,52 @@ class ShardedMatrix:
         m, iv = ShardedMatrix._moments(mean, std, n_rows, dev)
         return ShardedMatrix(geno, m, iv, n_rows, n_samples, dev, **kw)
 
+    @staticmethod
+    def from_arrays(
+        geno_strips,
+        means: Optional[List[np.ndarray]] = None,
+        stds: Optional[List[np.ndarray]] = None,
+        strip_size: int = 2048,
+        center_only: bool = False,
+        *,
+        device,
+        **kw,
+    ) -> "ShardedMatrix":
+        """The dense int8 container from host (rows, N) int8 strips
+        (-127 missing), as the JAX `from_arrays`: moments per strip from
+        `means` / `stds`, or else from exact host histograms
+        (`host_moments`); `center_only` sets std to 1; columns pad to a
+        multiple of 128 with -127.  Strips upload one by one into a
+        preallocated device block whose padding is filled on the device.
+        `strip_size` is accepted for API compatibility."""
+        gs: List[np.ndarray] = []
+        ms: List[np.ndarray] = []
+        ss: List[np.ndarray] = []
+        for i, g in enumerate(geno_strips):
+            g = np.asarray(g, dtype=np.int8)
+            if means is not None and stds is not None:
+                m = np.asarray(means[i], dtype=np.float32)
+                s = np.asarray(stds[i], dtype=np.float32)
+            else:
+                m, s = host_moments(g)
+            gs.append(g)
+            ms.append(m)
+            ss.append(np.ones_like(m) if center_only else s)
+        if not gs:
+            raise ValueError("No strips provided.")
+        n_samples = gs[0].shape[1]
+        n_rows = sum(g.shape[0] for g in gs)
+        n_pad = dense_cols(n_samples)
+        dev = torch.device(device)
+        geno = torch.full((n_rows, n_pad), MISSING, dtype=torch.int8, device=dev)
+        lo = 0
+        for g in gs:
+            geno[lo:lo + g.shape[0], :n_samples].copy_(torch.from_numpy(g))
+            lo += g.shape[0]
+        m, iv = ShardedMatrix._moments(np.concatenate(ms), np.concatenate(ss),
+                                       n_rows, dev)
+        return ShardedMatrix(geno, m, iv, n_rows, n_samples, dev, **kw)
+
     # ------------------------------------------------------------------
     def _pad_b(self, b) -> torch.Tensor:
         b = _as_tensor(b, self.device)
@@ -254,30 +355,44 @@ class ShardedMatrix:
     # is W = A B then A^T W, tsq is W^T W on the f32 W (a plain f32
     # product, TF32 off, as the reference's jnp.dot at HIGHEST outside
     # any kernel), and the q8 pass is q8_power_pass_2d.
+    def _wide(self) -> bool:
+        """True in 2-D mode; raises for the dense layout, whose 2-D
+        kernels are not ported yet."""
+        if self.mode != "2d":
+            return False
+        if not self.packed:
+            raise ComputeError(
+                f"The dense int8 container at n_pad {self.n_pad} runs in 2-D "
+                f"mode (from {DENSE_WIDE_N_PAD:,} samples; {DENSE_WIDE_N_PAD_F32:,}"
+                " in f32), whose kernels - fused_right_apply_2d, "
+                "fused_left_apply_2d and the int8 branch of right_apply_2d_q8 "
+                "/ left_apply_2d_q8 - are not yet ported in "
+                "genomic_pca_tpu_torch; use the packed layout "
+                "(packed_pipeline=True)."
+            )
+        return True
+
     def _gram(self, bp: torch.Tensor) -> torch.Tensor:
         args = (self.geno, self.mean, self.inv_std)
-        if self.mode == "2d":
+        if self._wide():
             w = kernels.fused_right_apply_2d_packed(*args, bp, self.exact_precision)
             return kernels.fused_left_apply_2d_packed(*args, w, self.exact_precision)
-        return kernels.fused_gram_apply_packed(*args, bp, self.exact_precision)
+        return self._k1d[0](*args, bp, self.exact_precision)
 
     def _tsq(self, bp: torch.Tensor) -> torch.Tensor:
-        if self.mode == "2d":
+        if self._wide():
             w = self._right(bp)
             return w.T @ w
-        return kernels.fused_tsq_packed(
-            self.geno, self.mean, self.inv_std, bp, self.exact_precision
-        )
+        return self._k1d[1](self.geno, self.mean, self.inv_std, bp,
+                            self.exact_precision)
 
     def _right(self, bp: torch.Tensor) -> torch.Tensor:
-        fn = (kernels.fused_right_apply_2d_packed if self.mode == "2d"
-              else kernels.fused_right_apply_packed)
+        fn = kernels.fused_right_apply_2d_packed if self._wide() else self._k1d[2]
         return fn(self.geno, self.mean, self.inv_std, bp, self.exact_precision)
 
     def _gram_q8(self, bp: torch.Tensor) -> torch.Tensor:
+        fn = kernels.q8_power_pass_2d if self._wide() else self._k1d[3]
         bq, sb, csum = quantize_basis(bp)
-        fn = (kernels.q8_power_pass_2d if self.mode == "2d"
-              else kernels.fused_gram_q8_packed)
         out, ru = fn(self.geno, self.inv_std, self._u, bq, sb, csum,
                      tile_d=self.tile_d)
         return out - ru
@@ -294,6 +409,37 @@ class ShardedMatrix:
     def right_apply(self, b) -> np.ndarray:
         """A B on host with padding removed: (n_rows, l)."""
         return self._right(self._pad_b(b))[: self.n_rows].cpu().numpy()
+
+    def _strip_rows(self) -> int:
+        """Rows per strip of the torch-side scans: 64 Mi elements."""
+        return max(1, (1 << 26) // self.n_pad)
+
+    def _standardized(self, rows) -> torch.Tensor:
+        """(R, n_pad) f32 standardized rows (a slice or an index tensor)
+        in original sample order, missing -> 0, in f32 as the reference's
+        XLA slicers and strip scans compute them."""
+        return kernels.standardize(self.geno[rows], self.mean[rows],
+                                   self.inv_std[rows], "f32")
+
+    def left_apply(self, w) -> np.ndarray:
+        """A^T W: (n_samples, k) for row-space W (n_rows, k), in original
+        sample order: the device projection path (with A over new
+        samples and the training moments, `left_apply(loadings)` is
+        PCA::transform).  The reference computes it as an XLA strip scan
+        outside any kernel (genomic_pca_tpu/parallel/sharded.py:1162-1198,
+        1561-1596); here each strip is standardized in f32 and multiplied
+        by torch.matmul.  Padded rows are inert (never read)."""
+        w = np.asarray(w, dtype=np.float32)
+        if w.ndim != 2 or w.shape[0] != self.n_rows:
+            raise ValueError(f"left_apply expects ({self.n_rows}, k), got {w.shape}")
+        w_t = torch.as_tensor(w, device=self.device)
+        out = torch.zeros((self.n_pad, w.shape[1]), dtype=torch.float32,
+                          device=self.device)
+        step = self._strip_rows()
+        for lo in range(0, self.n_rows, step):
+            hi = min(lo + step, self.n_rows)
+            out += self._standardized(slice(lo, hi)).T @ w_t[lo:hi]
+        return out[: self.n_samples].cpu().numpy()
 
     def _power_loop(self, bp: torch.Tensor, n_iter: int, tol: Optional[float]):
         """Subspace iteration on the padded basis; returns (basis,
@@ -382,8 +528,9 @@ class ShardedMatrix:
         matrix row starts[b] + i for i < lens[b], and 0 beyond; missing
         genotypes are 0; C = n_pad, or len(col_idx).
 
-        The reference's `fetch_blocks_device` / `_slice_blocks_packed_impl`
-        (genomic_pca_tpu/parallel/sharded.py:345-376, 1447-1479), with one
+        The reference's `fetch_blocks_device` with `_slice_blocks_impl`
+        (dense) and `_slice_blocks_packed_impl` (packed)
+        (genomic_pca_tpu/parallel/sharded.py:305-376, 1447-1479), with one
         difference of layout: where a bucket would pass the last row the
         reference reads a window moved back to end there, so the run sits
         lower in its bucket; here every run starts at row 0 of its
@@ -396,12 +543,7 @@ class ShardedMatrix:
                                    device=self.device)
         offs = torch.arange(bucket, device=self.device)
         rows = torch.clamp(starts_t[:, None] + offs, max=self.d_pad - 1).reshape(-1)
-        codes = kernels.packed_codes(self.geno[rows])  # (B bucket, n_pad)
-        iv = self.inv_std[rows]
-        m = self.mean[rows]
-        x = ((4 - codes) >> 1).to(torch.float32) * iv + (-m * iv)
-        x = torch.where(codes != 1, x, torch.zeros((), device=self.device))
-        x = x.reshape(len(starts_t), bucket, self.n_pad)
+        x = self._standardized(rows).reshape(len(starts_t), bucket, self.n_pad)
         if col_idx is not None:
             x = x[:, :, col_idx]
         in_run = offs[None, :] < lens_t[:, None]
@@ -412,7 +554,9 @@ class ShardedMatrix:
         `missing_policy="error"`), counted in int64."""
         valid = torch.arange(self.n_pad, device=self.device) < self.n_samples
         miss = 0
-        for lo in range(0, self.n_rows, 16384):
-            codes = kernels.packed_codes(self.geno[lo:min(lo + 16384, self.n_rows)])
-            miss += int(((codes == 1) & valid).sum(dtype=torch.int64))
+        step = self._strip_rows()
+        for lo in range(0, self.n_rows, step):
+            g = self.geno[lo:min(lo + step, self.n_rows)]
+            hit = kernels.packed_codes(g) == 1 if self.packed else g == MISSING
+            miss += int((hit & valid).sum(dtype=torch.int64))
         return miss

@@ -1,11 +1,12 @@
-"""The port's workflows: VCF -> randomized PCA, and BED -> QC -> EigenSNP.
+"""The port's workflows: VCF -> randomized PCA, BED -> QC -> EigenSNP, and
+the projection of new samples through a fitted model.
 
-Counterparts of `genomic_pca_tpu/workflows.py` `run_vcf_workflow` and
-`run_eigensnp_workflow`, single process, on an explicit `device`.  VCF
-parsing reuses the JAX package's jax-free per-file functions
-(`genomic_pca_tpu.io.vcf`) with this module's own spawn pool; outputs go
-through the shared `genomic_pca_tpu.io.writers` and are the reference's
-files.  The projection workflow is not ported yet.
+Counterparts of `genomic_pca_tpu/workflows.py` `run_vcf_workflow`,
+`run_eigensnp_workflow` and `run_projection_workflow`, single process, on
+an explicit `device`.  VCF parsing reuses the JAX package's jax-free
+per-file functions (`genomic_pca_tpu.io.vcf`) with this module's own spawn
+pool; outputs go through the shared `genomic_pca_tpu.io.writers` and are
+the reference's files.
 """
 
 from __future__ import annotations
@@ -13,21 +14,25 @@ from __future__ import annotations
 import json
 import logging
 import multiprocessing as mp
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from genomic_pca_tpu.config import DataPrepConfig, EigenSnpConfig, RsvdConfig
-from genomic_pca_tpu.errors import VcfParseError
+from genomic_pca_tpu.errors import DataPrepError, VcfParseError
+from genomic_pca_tpu.io.bed import BedReader
 from genomic_pca_tpu.io.vcf import (
     discover_vcf_files, process_single_vcf, read_vcf_sample_names,
 )
 from genomic_pca_tpu.io.writers import (
-    write_eigenvalues, write_loadings, write_principal_components,
+    read_loadings, read_moments, write_eigenvalues, write_loadings,
+    write_principal_components,
 )
 from genomic_pca_tpu.io.writers import write_moments as write_moments_tsv
 from genomic_pca_tpu_torch.models.eigensnp import compute_eigensnp_pca
-from genomic_pca_tpu_torch.models.pca import streamed_pca
+from genomic_pca_tpu_torch.models.pca import StripProjector, streamed_pca
 from genomic_pca_tpu_torch.models.prepare import prepare_data
 from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.qc import (
@@ -200,3 +205,99 @@ def run_eigensnp_workflow(
         ss["refinement_finalize"] + st["Output writing"],
     )
     log.info("Kernel launches: %s", json.dumps(kernels.LAUNCHES))
+
+
+def _model_rows(bed: BedReader, bed_path: str, l_ids: List[str],
+                m_a1: List[str], m_a2: List[str]) -> np.ndarray:
+    """BIM rows of the model's SNPs, matched by VariantID; raises
+    DataPrepError for duplicated, absent or allele-swapped SNPs."""
+    counts = Counter(bed.bim.sid)
+    dups = [vid for vid in l_ids if counts.get(vid, 0) > 1]
+    if dups:
+        raise DataPrepError(
+            f"{len(dups)} model SNPs appear more than once in "
+            f"{bed_path}'s BIM (first: {dups[:3]}); VariantID matching "
+            "is ambiguous — deduplicate the new fileset first."
+        )
+    pos_of = {sid: i for i, sid in enumerate(bed.bim.sid)}
+    missing = [vid for vid in l_ids if vid not in pos_of]
+    if missing:
+        raise DataPrepError(
+            f"{len(missing)} / {len(l_ids)} model SNPs absent from "
+            f"{bed_path} (first: {missing[:3]}); projection requires "
+            "every fitted SNP in the new fileset."
+        )
+    rows = np.asarray([pos_of[vid] for vid in l_ids], dtype=np.int64)
+    # A swapped A1/A2 encodes dosage' = 2 - dosage: projecting through it
+    # would silently flip the SNP's contribution.
+    new_a1, new_a2 = bed.bim.a1[rows], bed.bim.a2[rows]
+    bad = [l_ids[j] for j in range(len(l_ids))
+           if str(new_a1[j]) != m_a1[j] or str(new_a2[j]) != m_a2[j]]
+    if bad:
+        raise DataPrepError(
+            f"{len(bad)} model SNPs have a different A1/A2 "
+            f"orientation in {bed_path} (first: {bad[:3]}); harmonize "
+            "alleles (swap/flip) before projecting — a swapped "
+            "orientation encodes dosage' = 2 - dosage and would "
+            "corrupt the scores silently."
+        )
+    return rows
+
+
+def run_projection_workflow(
+    bed_path: str,
+    loadings_path: str,
+    moments_path: str,
+    output_prefix: str,
+    projection_strip_rows: int = 262_144,
+    projection_strip_bytes: int = 1 << 29,
+    device="cuda",
+) -> None:
+    """Project the samples of a PLINK fileset into a fitted PC space.
+
+    Loads the fitted loadings and training moments TSVs, matches the
+    model's SNPs in the new fileset by VariantID (duplicated, absent and
+    allele-swapped SNPs raise DataPrepError), and sums per-strip
+    projections (`StripProjector`) over strips bounded by
+    `projection_strip_rows` and by `projection_strip_bytes` of decoded
+    int8, the next strip decoding on a background thread.  Missing
+    genotypes impute to the training mean.  Writes
+    `{prefix}.projected.pca.tsv`."""
+    timer = StageTimer()
+    with timer.stage("Model loading (loadings + moments)"):
+        l_ids, loadings = read_loadings(loadings_path)
+        m_ids, m_a1, m_a2, means, stds = read_moments(moments_path)
+        if l_ids != m_ids:
+            raise DataPrepError(
+                "Loadings and moments TSVs disagree on the SNP set "
+                f"({len(l_ids)} vs {len(m_ids)} variants or different "
+                "order); both must come from the same fit."
+            )
+
+    with timer.stage("New-sample genotype matching"):
+        bed = BedReader(bed_path)
+        rows = _model_rows(bed, bed_path, l_ids, m_a1, m_a2)
+
+    with timer.stage("Device projection (strip-chunked)"):
+        n_new = bed.n_samples
+        all_samples = np.arange(n_new, dtype=np.int64)
+        scores = np.zeros((n_new, loadings.shape[1]), dtype=np.float32)
+        strip = max(1024, min(projection_strip_rows,
+                              projection_strip_bytes // max(n_new, 1)))
+        bounds = [(lo, min(lo + strip, len(rows)))
+                  for lo in range(0, len(rows), strip)]
+        project = StripProjector(strip, n_new, loadings.shape[1], device=device)
+        with ThreadPoolExecutor(1) as ex:
+            nxt = ex.submit(bed.read, rows[bounds[0][0]:bounds[0][1]], all_samples)
+            for i, (lo, hi) in enumerate(bounds):
+                g_strip = nxt.result()
+                if i + 1 < len(bounds):
+                    lo2, hi2 = bounds[i + 1]
+                    nxt = ex.submit(bed.read, rows[lo2:hi2], all_samples)
+                scores += project(g_strip, loadings[lo:hi], means[lo:hi],
+                                  stds[lo:hi])
+
+    with timer.stage("Output writing"):
+        write_principal_components(output_prefix, list(bed.fam.iid), scores,
+                                   suffix="projected.pca.tsv")
+    timer.log_summary("Projection workflow stage timings")

@@ -15,7 +15,7 @@ import torch
 from genomic_pca_tpu_torch.ops import kernels as tk
 from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix, pack_int8_rows
 from tests.torch_cases import (
-    abs_corr, balding_nichols, exact_case, q8_case, quant_model,
+    abs_corr, balding_nichols, dense_case, exact_case, q8_case, quant_model,
 )
 
 # Kernel vs plain, both on the card.  f32: the same products summed in
@@ -26,6 +26,7 @@ TOL = {
     "f32": (1e-4, 1e-4),
     "bf16": (1e-2, 1e-3),
 }
+ZERO = dict.fromkeys(tk.LAUNCHES, 0)
 
 
 @pytest.fixture
@@ -91,12 +92,9 @@ def test_pca_core_on_cuda_matches_cpu(cuda_device):
         v, s, e, load = sm.pca_core(b0.to(dev), 4, 5)
         outs[str(dev)] = (v.cpu().numpy(), s.cpu().numpy(), load)
         if dev != "cpu":
-            assert tk.LAUNCHES == {
-                "fused_gram_q8_packed": 3, "fused_gram_apply_packed": 1,
-                "fused_tsq_packed": 1, "fused_right_apply_packed": 1,
-                "fused_right_apply_2d_packed": 0, "fused_left_apply_2d_packed": 0,
-                "right_apply_2d_q8": 0, "left_apply_2d_q8": 0,
-            }
+            assert tk.LAUNCHES == dict(
+                ZERO, fused_gram_q8_packed=3, fused_gram_apply_packed=1,
+                fused_tsq_packed=1, fused_right_apply_packed=1)
     (vc, sc, lc), (vg, sg, lg) = outs["cpu"], outs["cuda"]
     np.testing.assert_allclose(sg, sc, rtol=1e-3)
     for j in range(5):
@@ -181,12 +179,95 @@ def test_pca_core_2d_on_cuda_matches_cpu(cuda_device):
         v, s, e, load = sm.pca_core(b0.to(dev), 4, 5)
         outs[str(dev)] = (v.cpu().numpy(), s.cpu().numpy(), load)
         if dev != "cpu":
-            assert tk.LAUNCHES == {
-                "fused_gram_q8_packed": 0, "fused_gram_apply_packed": 0,
-                "fused_tsq_packed": 0, "fused_right_apply_packed": 0,
-                "fused_right_apply_2d_packed": 3, "fused_left_apply_2d_packed": 1,
-                "right_apply_2d_q8": 3, "left_apply_2d_q8": 3,
-            }
+            assert tk.LAUNCHES == dict(
+                ZERO, fused_right_apply_2d_packed=3, fused_left_apply_2d_packed=1,
+                right_apply_2d_q8=3, left_apply_2d_q8=3)
+    (vc, sc, lc), (vg, sg, lg) = outs["cpu"], outs["cuda"]
+    np.testing.assert_allclose(sg, sc, rtol=1e-3)
+    for j in range(5):
+        assert abs_corr(vc[:, j], vg[:, j]) > 0.9999, j
+        assert abs_corr(lc[:, j], lg[:, j]) > 0.9999, j
+
+
+# ---------------------------------------------------------------------------
+# The dense int8 kernels of the 1-D mode.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("name", [
+    "fused_gram_apply", "fused_right_apply", "fused_tsq",
+])
+def test_dense_exact_kernel_matches_plain(cuda_device, name, precision):
+    """5% missing (-127) and an inert row; 512 SNPs x 256 samples.  In
+    bf16 a W entry whose f32 sum lands on a rounding boundary rounds one
+    bf16 ulp the other way and moves the gram entries of its row by
+    |x| * 2^-8 |W|: on an H100 2 of 32,768 entries by 5.8e-3, so gram and
+    tsq take the reference test's tsq bar."""
+    geno, mu, inv, b = _on(cuda_device, *dense_case(np.random.default_rng(7)))
+    tk.reset_launch_counts()
+    got = getattr(tk, name)(geno, mu, inv, b, precision=precision)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == dict(ZERO, **{name: 1})
+    ref = tk.PLAIN[name](geno, mu, inv, b, precision)
+    rtol, atol = TOL[precision]
+    if name != "fused_right_apply" and precision == "bf16":
+        atol = 2e-2
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,tile_d", [(300, 252, 64), (2048, 512, 1024)])
+def test_dense_q8_kernel_matches_plain_and_quant_model(cuda_device, d, n, tile_d):
+    """5% missing: the sentinel enters the integer products as raw 0.
+    Against the plain pass on the card (same integers, f32 sums in another
+    order) and the float64 replay (a z at an 8-bit rounding boundary can
+    round the other way: 1e-3 of max|T|, as for the 2-D pass)."""
+    g, iv, u, bq, sb, csum = q8_case(np.random.default_rng(8), d, n, 128,
+                                     missing_rate=0.05)
+    args = _on(cuda_device, g, iv, u, bq, sb, csum)
+    tk.reset_launch_counts()
+    out, ru = tk.fused_gram_q8(*args, tile_d=tile_d)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == dict(ZERO, fused_gram_q8=1)
+    t = (out - ru).cpu().numpy()
+    out_p, ru_p = tk.fused_gram_q8_plain(*args, tile_d=tile_d)
+    t_p = (out_p - ru_p).cpu().numpy()
+    np.testing.assert_allclose(t, t_p, rtol=1e-5, atol=1e-5 * np.abs(t_p).max())
+    t_ref = quant_model(g, iv, u, bq, float(sb[0, 0]), tile_d)
+    assert np.abs(t - t_ref).max() <= 1e-3 * np.abs(t_ref).max()
+
+
+@pytest.mark.cuda
+def test_dense_kernels_refuse_a_ragged_width(cuda_device):
+    geno, mu, inv, b = _on(cuda_device, *dense_case(np.random.default_rng(9),
+                                                    d=64, n=30, ell=8))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tk.fused_right_apply(geno, mu, inv, b)
+
+
+@pytest.mark.cuda
+def test_pca_core_dense_on_cuda_matches_cpu(cuda_device):
+    """The dense container's core on the card (kernels 9-12) against the
+    CPU (plain versions), same bytes, same sketch; 300 samples pad to
+    384 columns of -127."""
+    rng = np.random.default_rng(10)
+    g = balding_nichols(rng, 3000, 300, missing_rate=0.01, n_pops=6, fst=0.15)
+    valid = g != -127
+    mean = (np.where(valid, g, 0).sum(1) / valid.sum(1)).astype(np.float32)
+    std = np.ones_like(mean)
+    b0 = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        sm = ShardedMatrix.from_arrays(iter([g]), means=[mean], stds=[std],
+                                       device=dev)
+        tk.reset_launch_counts()
+        v, s, e, load = sm.pca_core(b0.to(dev), 4, 5)
+        outs[str(dev)] = (v.cpu().numpy(), s.cpu().numpy(), load)
+        if dev != "cpu":
+            assert tk.LAUNCHES == dict(ZERO, fused_gram_q8=3, fused_gram_apply=1,
+                                       fused_tsq=1, fused_right_apply=1)
     (vc, sc, lc), (vg, sg, lg) = outs["cpu"], outs["cuda"]
     np.testing.assert_allclose(sg, sc, rtol=1e-3)
     for j in range(5):

@@ -162,9 +162,8 @@ def test_prepare_data_bit_identical_to_reference(tmp_path, rng, keep_list):
 
 def test_prepare_refuses_what_is_not_ported(tmp_path, rng, monkeypatch):
     _, _, cfg = _setup(tmp_path, rng, n_snps=200, n_samples=30)
-    for bad in (dict(qc_mode="device"), dict(packed_pipeline=False)):
-        with pytest.raises(DataPrepError, match="not yet ported"):
-            tprep.prepare_data(dataclasses.replace(cfg, **bad))
+    with pytest.raises(DataPrepError, match="not yet ported"):
+        tprep.prepare_data(dataclasses.replace(cfg, qc_mode="device"))
     prep = tprep.prepare_data(cfg)
     monkeypatch.setattr(tprep, "device_memory_budget", lambda device: 1024)
     with pytest.raises(ComputeError, match="host-streamed container.*not yet ported"):
@@ -215,7 +214,7 @@ def test_eigensnp_with_a_subset_in_both_modes(tmp_path, rng, monkeypatch, mode):
     algo = EigenSnpConfig(k_global=3, subset_factor=0.5, min_subset_size=10,
                           max_subset_size=30, refine_passes=2, snp_strip_size=128)
     pt = tprep.prepare_data(cfg)
-    monkeypatch.setattr(ts, "default_mode", lambda n_pad, precision: mode)
+    monkeypatch.setattr(ts, "default_mode", lambda n_pad, precision, packed: mode)
     subset = tes._choose_sample_subset(algo, 60)
     assert len(subset) == 30 and np.all(np.diff(subset) > 0)
     res = tes.compute_eigensnp_pca(pt, algo, device="cpu")

@@ -6,6 +6,7 @@ that raises ImportError first on PYTHONPATH, so spawned worker processes
 are blocked as well.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -69,6 +70,7 @@ def test_port_modules_and_help_import_no_jax(blocked_env):
         import genomic_pca_tpu_torch.parallel.sharded
         import genomic_pca_tpu_torch.ops.kernels
         import genomic_pca_tpu_torch.ops.build
+        import genomic_pca_tpu_torch.ops.standardize
         import genomic_pca_tpu_torch.eval.profile_core
     """) + CHECK
     proc = _run(["-c", code], blocked_env)
@@ -119,8 +121,22 @@ def test_gpu_scripts_without_cuda_exit_nonzero(blocked_env, args):
     assert '"ok"' not in proc.stdout
 
 
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    """chip_smoke.py reaches the JAX package's jax-free modules only
+    through the port, so a fault there cannot pass on both sides of its
+    checks."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "genomic_pca_tpu_torch" in roots
+    assert not roots & {"genomic_pca_tpu", "jax", "jaxlib"}, roots
+
+
 @pytest.mark.parametrize("flags", [
-    ["--project", "--bed-file", "x"],
     ["-d", "x", "-k", "2", "--profile-dir", "p"],
     ["--eigensnp", "--bed-file", "x", "--ld-block-file", "y",
      "--eigensnp-qc-mode", "device"],
@@ -130,6 +146,28 @@ def test_cli_unported_modes_exit_1(blocked_env, tmp_path, flags):
                  *flags], blocked_env)
     assert proc.returncode == 1
     assert "not yet ported in genomic_pca_tpu_torch" in proc.stderr
+
+
+def test_cli_project_without_cuda_exits_1_naming_cuda(blocked_env, tmp_path):
+    blocked_env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = _run(["-m", "genomic_pca_tpu_torch", "-o", str(tmp_path / "out"),
+                 "--project", "--bed-file", "x", "--project-loadings", "l",
+                 "--project-moments", "m"], blocked_env)
+    assert proc.returncode == 1
+    assert "CUDA" in proc.stderr
+    assert not list(tmp_path.glob("out*"))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--project", "--bed-file", "x"],
+    ["--project", "--eigensnp", "--bed-file", "x", "--project-loadings", "l",
+     "--project-moments", "m"],
+])
+def test_cli_project_flag_errors_exit_2(blocked_env, tmp_path, flags):
+    proc = _run(["-m", "genomic_pca_tpu_torch", "-o", str(tmp_path / "o"),
+                 *flags], blocked_env)
+    assert proc.returncode == 2
+    assert "--project" in proc.stderr
 
 
 def _plink_fileset(tmp_path):

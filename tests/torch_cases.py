@@ -53,9 +53,23 @@ def exact_case(rng, d=96, n=250, ell=128):
     return packed, mu[:, None], inv[:, None], b
 
 
-def q8_case(rng, d, n, ell):
+def dense_case(rng, d=512, n=256, ell=128):
+    """(geno int8 (d, n), mean (d,1), inv_std (d,1), b (n, L)) with 5%
+    missing genotypes (-127) and an inert row: the exact dense kernels'
+    inputs."""
+    geno = balding_nichols(rng, d, n, missing_rate=0.05)
+    valid = geno != -127
+    g0 = np.where(valid, geno, 0).astype(np.float64)
+    mu = (g0.sum(1) / valid.sum(1)).astype(np.float32)
+    inv = (1.0 / (g0.std(1) + 0.1)).astype(np.float32)
+    inv[5] = 0.0
+    b = (rng.standard_normal((n, ell)) / np.sqrt(n)).astype(np.float32)
+    return geno, mu[:, None], inv[:, None], b
+
+
+def q8_case(rng, d, n, ell, missing_rate=0.02):
     """Inputs of one q8 pass: (geno, inv_std, u, bq, sb (1,1), csum (1,L))."""
-    g = balding_nichols(rng, d, n, missing_rate=0.02)
+    g = balding_nichols(rng, d, n, missing_rate=missing_rate)
     iv = rng.uniform(0.5, 2.0, (d, 1)).astype(np.float32)
     u = rng.uniform(0.0, 2.0, (d, 1)).astype(np.float32)
     b = rng.standard_normal((n, ell)).astype(np.float32)
