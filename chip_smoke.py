@@ -44,11 +44,34 @@ no result line):
    TSVs against a float64 PCA; then `python -m genomic_pca_tpu_torch
    --project` of the same fileset through the fitted model: its scores
    against the fit's (self-projection) and against a float64 host
-   `transform` of the genotypes made on the card.
+   `transform` of the genotypes made on the card;
+12. the four dense 2-D kernels (13 `fused_right_apply_2d`, 14
+   `fused_left_apply_2d`, 7i and 8i, the int8 branches of
+   `right_apply_2d_q8` / `left_apply_2d_q8`) against their plain versions
+   at 65,536 x 16,384 (1 GiB of int8), L = 128, and at 70,001 x 16,389
+   (container width 16,512);
+13. the dense 2-D main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
+   on the genotypes of phase 6 unpacked to int8 on the card (131,072 x
+   16,384, 2 GiB): launch counts 3 / 3 / 3 / 1 for 7i / 8i / 13 / 14 and
+   none of any other kernel, phase 6's float64 gate, and per-PC agreement
+   with the packed 2-D run;
+14. the host-streamed container (ops/streaming.py): (a) `streamed_pca`
+   over a packed `StreamingMatrix` of phase 5's genotypes in strips of
+   2,048 rows against the resident run; (b) `run_eigensnp_workflow(...,
+   force_streaming=True)` on phase 8's fileset (packed strips, 2-D mode,
+   stages 1-2 through the host accessor) and (c) the same with
+   `packed_pipeline=False` (dense int8 strips: kernels 13 and 14 per
+   strip), each against phase 8's TSVs and its float64 oracle; each run's
+   stage split, launch counts and the upload telemetry of every pass.
 
 The CLI phases hold the separated PCs to a float64 oracle.  The line
-before the last is the `nvidia-smi` name and power limit; the last line
-is {"ok": true, "device": {...}}.  Needs one CUDA device.
+before the last two is one JSON object with a row per kernel (its launches
+on the main path, its error against its plain version, CUDA-event times
+of the kernel, its plain version and the one PyTorch call that computes
+the same product where there is one, and the bound: the least time of
+the card for the same bytes and operations).  The line before the last
+is the `nvidia-smi` name and power limit; the last line is {"ok": true,
+"device": {...}}.  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -63,6 +86,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+FILESET = ROOT / "build" / "chip_smoke_eigensnp"  # phase 8's, kept for 14
 SEED = 20260
 
 # Kernel vs plain, both on the card, as max|kernel - plain| / max|plain|.
@@ -87,6 +111,10 @@ TOL = {
     "fused_gram_apply": 1e-5,
     "fused_tsq": 1e-5,
     "fused_right_apply": 1e-5,
+    "fused_right_apply_2d": 1e-5,
+    "fused_left_apply_2d": 1e-5,
+    "right_apply_2d_q8_i8": 0.0,
+    "left_apply_2d_q8_i8": 1e-5,
 }
 KERNELS_1D = ("fused_gram_q8_packed", "fused_gram_apply_packed",
               "fused_tsq_packed", "fused_right_apply_packed")
@@ -94,6 +122,12 @@ KERNELS_2D = ("fused_right_apply_2d_packed", "fused_left_apply_2d_packed",
               "right_apply_2d_q8", "left_apply_2d_q8")
 KERNELS_DENSE = ("fused_gram_q8", "fused_gram_apply", "fused_tsq",
                  "fused_right_apply")
+KERNELS_DENSE_2D = ("fused_right_apply_2d", "fused_left_apply_2d",
+                    "right_apply_2d_q8_i8", "left_apply_2d_q8_i8")
+# The wrapper of each kernel whose launch count has another name: the
+# 2-D q8 products dispatch on the genotype dtype.
+WRAPPER = {"right_apply_2d_q8_i8": "right_apply_2d_q8",
+           "left_apply_2d_q8_i8": "left_apply_2d_q8"}
 CSRC = "genomic_pca_tpu_torch/csrc/"
 PK = "genomic_pca_tpu/ops/pallas_kernels.py:"
 SOURCES = {
@@ -109,8 +143,23 @@ SOURCES = {
     "fused_gram_apply": (CSRC + "dense_kernels.cu", PK + "144"),
     "fused_tsq": (CSRC + "dense_kernels.cu", PK + "215"),
     "fused_right_apply": (CSRC + "dense_kernels.cu", PK + "181"),
+    "fused_right_apply_2d": (CSRC + "dense_kernels.cu", PK + "296"),
+    "fused_left_apply_2d": (CSRC + "wide_kernels.cu", PK + "346"),
+    "right_apply_2d_q8_i8": (CSRC + "wide_kernels.cu", PK + "1096"),
+    "left_apply_2d_q8_i8": (CSRC + "wide_kernels.cu", PK + "1139"),
 }
-ZERO_LAUNCHES = dict.fromkeys(KERNELS_1D + KERNELS_2D + KERNELS_DENSE, 0)
+ZERO_LAUNCHES = dict.fromkeys(
+    KERNELS_1D + KERNELS_2D + KERNELS_DENSE + KERNELS_DENSE_2D, 0)
+
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
+# device memory rate, and tensor-core rates for the operand type of each
+# product (bf16 for the exact kernels, int8 for the q8 ones).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+Q8_KERNELS = ("fused_gram_q8_packed", "fused_gram_q8", "right_apply_2d_q8",
+              "left_apply_2d_q8", "right_apply_2d_q8_i8", "left_apply_2d_q8_i8")
+TWO_PRODUCTS = ("fused_gram_q8_packed", "fused_gram_q8", "fused_gram_apply_packed",
+                "fused_gram_apply")
 
 
 def log(msg: str) -> None:
@@ -293,7 +342,7 @@ def kernel_cases(torch, d, n, seed, device, names):
     # z8 / sz of a 2-D q8 pass, quantized per row tile of 1,024.
     z8, sz = quantize_rows(torch.randn((d, 128), generator=gen, device=device), 1024)
     geno = (dense_from_packed(torch, packed[:, : n_d // 4])
-            if set(names) & set(KERNELS_DENSE) else None)
+            if set(names) & set(KERNELS_DENSE + KERNELS_DENSE_2D) else None)
     b_d = b128[:n_d]
     cases = {
         "fused_gram_q8_packed": lambda: ((packed, inv, mean * inv, bq, sb, csum),
@@ -318,8 +367,67 @@ def kernel_cases(torch, d, n, seed, device, names):
         "fused_tsq": lambda: ((geno, mean, inv, b_d), {"precision": "bf16"}),
         "fused_right_apply": lambda: ((geno, mean, inv, basis(10)[:n_d]),
                                       {"precision": "bf16"}),
+        "fused_right_apply_2d": lambda: ((geno, mean, inv, b_d), {"precision": "bf16"}),
+        "fused_left_apply_2d": lambda: (
+            (geno, mean, inv, fused_right_apply_2d_packed_plain(geno, mean, inv, b_d)),
+            {"precision": "bf16"}),
+        "right_apply_2d_q8_i8": lambda: ((geno, quantize_basis(b_d)[0]), {}),
+        "left_apply_2d_q8_i8": lambda: ((geno, z8, sz), {"tile_d": 1024}),
     }
     return {name: cases[name]() for name in names}
+
+
+def bound_of(torch, name, args, out):
+    """(bound ms, "bytes" or "operations"): the least time the card could
+    take for a kernel's work on these inputs, the larger of its bytes
+    (each input read once, each output written once) over the memory rate
+    and its operations (2 D N L per product, N the padded sample count
+    the kernel runs over, plus 2 D L^2 for tsq's W^T W) over the
+    tensor-core peak of its operand type."""
+    from genomic_pca_tpu_torch.ops import kernels as tk
+
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
+                 if torch.is_tensor(t))
+    geno = args[0]
+    d, n, ell = geno.shape[0], tk._samples(geno), outs[0].shape[-1]
+    ops = (2 if name in TWO_PRODUCTS else 1) * 2 * d * n * ell
+    if name in ("fused_tsq_packed", "fused_tsq"):
+        ell = args[3].shape[1]
+        ops = 2 * d * n * ell + 2 * d * ell * ell
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S["int8" if name in Q8_KERNELS else "bf16"]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_call(torch, name, args):
+    """(label, fn) of the one PyTorch call that computes a kernel's
+    product on the same inputs already decoded (and standardized in bf16),
+    or None where no single call does (the q8 passes and the per-tile
+    scaled left q8 products).  A yardstick only: the port never calls it."""
+    from genomic_pca_tpu_torch.ops import kernels as tk
+
+    geno = args[0]
+    if name in ("right_apply_2d_q8", "right_apply_2d_q8_i8"):
+        g0 = tk.dosages_g0(geno).contiguous()
+        bq = args[1].t().contiguous().t()  # column-major, as cuBLASLt takes it
+        return "torch._int_mm(G0, bq)", lambda: torch._int_mm(g0, bq)
+    if name in Q8_KERNELS:
+        return None
+    a = tk.standardize(geno, args[1], args[2], "bf16").to(torch.bfloat16)
+    b = args[3].to(torch.bfloat16)
+    if name in ("fused_left_apply_2d_packed", "fused_left_apply_2d"):
+        at = a.t()
+        return "torch.matmul(A^T, W)", lambda: torch.matmul(at, b)
+    if name in ("fused_gram_apply_packed", "fused_gram_apply"):
+        at = a.t()
+        return "torch.linalg.multi_dot([A^T, A, B])", (
+            lambda: torch.linalg.multi_dot([at, a, b]))
+    if name in ("fused_tsq_packed", "fused_tsq"):
+        at, bt = a.t(), b.t()
+        return "torch.linalg.multi_dot([B^T, A^T, A, B])", (
+            lambda: torch.linalg.multi_dot([bt, at, a, b]))
+    return "torch.matmul(A, B)", lambda: torch.matmul(a, b)
 
 
 def check_kernels(torch, d, n, seed, device, reps, names):
@@ -327,7 +435,7 @@ def check_kernels(torch, d, n, seed, device, reps, names):
 
     results = {}
     for name, (args, kw) in kernel_cases(torch, d, n, seed, device, names).items():
-        kern = getattr(tk, name)
+        kern = getattr(tk, WRAPPER.get(name, name))
         plain = tk.PLAIN[name]
 
         def run_k():
@@ -338,6 +446,8 @@ def check_kernels(torch, d, n, seed, device, reps, names):
 
         got, ref = run_k(), run_p()
         torch.cuda.synchronize()
+        bound_ms, bound_by = bound_of(torch, name, args, got)
+        ell = (got[0] if isinstance(got, tuple) else got).shape[-1]
         if isinstance(got, tuple):  # a q8 pass: T = out - ru
             got, ref = got[0] - got[1], ref[0] - ref[1]
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
@@ -345,21 +455,32 @@ def check_kernels(torch, d, n, seed, device, reps, names):
                                  f"{tuple(ref.shape)} or non-finite output")
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
+        del got, ref
         # Timed in turns: plain, kernel, kernel, plain.
         p1 = median_ms(torch, run_p, reps)
         k1 = median_ms(torch, run_k, reps)
         k2 = median_ms(torch, run_k, reps)
         p2 = median_ms(torch, run_p, reps)
         ms, plain_ms = min(k1, k2), min(p1, p2)
+        lib = library_call(torch, name, args)
+        lib_ms = None
+        if lib is not None:
+            lib[1]()
+            lib_ms = min(median_ms(torch, lib[1], reps),
+                         median_ms(torch, lib[1], reps))
+        del lib
         ok = err <= TOL[name] * scale
-        log(f"[kernel] {name} D={d} N={n} L={got.shape[-1]}: max abs err "
-            f"{err:.4e} (max|plain| {scale:.4e}, rel {err / scale:.3e}, tol "
-            f"{TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"{'OK' if ok else 'FAIL'}")
+        log(f"[kernel] {name} D={d} N={n} L={ell}: max abs err {err:.4e} "
+            f"(max|plain| {scale:.4e}, rel {err / scale:.3e}, "
+            f"tol {TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}) {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        del got, ref
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": lib_ms}
+        torch.cuda.empty_cache()
     return results
 
 
@@ -587,20 +708,21 @@ def check_eigensnp_cli(torch, np, device, d, n, n_blocks, k, seed):
     that most SNPs pass the default HWE filter at 16,384 samples), 0.5%
     missing.  Gate: its TSVs against a float64 PCA of the PCA SNPs its
     loadings list, with the QC moments (mean, sample std over valid
-    genotypes)."""
+    genotypes).  The fileset stays in FILESET for phase 14; returns
+    (prefix, the CLI's scores, the float64 oracle, its separated prefix)."""
     from genomic_pca_tpu_torch.parallel.sharded import inv_std_of
 
     label = "eigensnp cli"
-    if WORK.exists():
-        shutil.rmtree(WORK)
-    WORK.mkdir(parents=True)
+    if FILESET.exists():
+        shutil.rmtree(FILESET)
+    FILESET.mkdir(parents=True)
     t0 = time.perf_counter()
     packed, mean, std = structured_packed(torch, d, n, 5, 0.03, 0.005, seed, device)
-    prefix = WORK / "cohort"
+    prefix = FILESET / "cohort"
     write_plink_fileset(np, prefix, packed, n_blocks)
     log(f"[{label}] wrote {d} SNPs x {n} samples ({d * n // 4 / 2**20:.0f} MiB BED) "
         f"in {n_blocks} LD blocks in {time.perf_counter() - t0:.1f} s")
-    out = WORK / "out"
+    out = FILESET / "out"
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
     t0 = time.perf_counter()
@@ -647,9 +769,33 @@ def check_eigensnp_cli(torch, np, device, d, n, n_blocks, k, seed):
     t0 = time.perf_counter()
     v_true, ev_true = exact_pca_f64(torch, packed[sel], mean[sel], inv.to(device), k)
     log(f"[{label}] float64 oracle in {time.perf_counter() - t0:.1f} s")
-    check_pcs(np, pcs, v_true.cpu().numpy(), ev_true.cpu().numpy(),
-              evs * (n - 1), k, label)
-    shutil.rmtree(WORK)
+    oracle = (v_true.cpu().numpy(), ev_true.cpu().numpy())
+    sep, _, _ = check_pcs(np, pcs, *oracle, evs * (n - 1), k, label)
+    return prefix, pcs, oracle, sep
+
+
+def log_messages(label, messages, prefixes):
+    for msg in messages:
+        if msg.startswith(prefixes):
+            log(f"[{label}] {msg}")
+
+
+class Captured:
+    """Messages of the port's loggers while the block runs."""
+
+    def __enter__(self):
+        import logging
+
+        self.messages = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+        self.logger = logging.getLogger("genomic_pca_tpu_torch")
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+        return self.messages
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
 
 
 def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
@@ -663,8 +809,6 @@ def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
     over the separated prefix (self-projection, tests/test_project.py)
     and against the float64 host `transform` of the genotypes made on the
     card (not read back from the BED), summed over SNP strips."""
-    import logging
-
     from genomic_pca_tpu_torch.models.pca import transform
     from genomic_pca_tpu_torch.ops import kernels as tk
     from genomic_pca_tpu_torch.parallel.sharded import inv_std_of
@@ -683,26 +827,18 @@ def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
     log(f"[{label}] wrote {d} SNPs x {n} samples ({d * n // 4 / 1e6:.0f} MB BED) "
         f"in {n_blocks} LD blocks in {time.perf_counter() - t0:.1f} s")
     fit = WORK / "fit"
-    messages = []
-    handler = logging.Handler()
-    handler.emit = lambda record: messages.append(record.getMessage())
-    port_log = logging.getLogger("genomic_pca_tpu_torch")
-    port_log.addHandler(handler)
-    port_log.setLevel(logging.INFO)
-    tk.reset_launch_counts()
-    t0 = time.perf_counter()
-    run_eigensnp_workflow(
-        DataPrepConfig(bed_path=str(prefix), ld_block_path=f"{prefix}.blocks.tsv",
-                       packed_pipeline=False),
-        EigenSnpConfig(), str(fit), write_moments=True, device=device)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with Captured() as messages:
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        run_eigensnp_workflow(
+            DataPrepConfig(bed_path=str(prefix), ld_block_path=f"{prefix}.blocks.tsv",
+                           packed_pipeline=False),
+            EigenSnpConfig(), str(fit), write_moments=True, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = dict(tk.LAUNCHES)
-    port_log.removeHandler(handler)
-    for msg in messages:
-        if msg.startswith(("SNP QC:", "LD mapping:", "EigenSNP matrix loaded",
-                           "EigenSNP stage split:")):
-            log(f"[{label}] {msg}")
+    log_messages(label, messages, ("SNP QC:", "LD mapping:", "EigenSNP matrix loaded",
+                                   "EigenSNP stage split:"))
     log(f"[{label}] run_eigensnp_workflow(packed_pipeline=False) in {wall:.2f} s; "
         f"launches {launches}")
     want = dict(ZERO_LAUNCHES, fused_gram_apply=1, fused_tsq=1, fused_right_apply=1)
@@ -777,6 +913,110 @@ def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
     shutil.rmtree(WORK)
 
 
+def check_streamed_main(torch, np, device, d, n, k, seed, strip, resident):
+    """Phase 14a: `streamed_pca` over a packed StreamingMatrix of the
+    genotypes of the resident 1-D run (the same seed makes the same
+    genotypes), strips of `strip` rows held on the host; launch counts,
+    upload telemetry, the float64 gate and per-PC agreement with the
+    resident run.  `resident` is (scores, oracle, separated prefix)."""
+    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.ops import kernels as tk
+    from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
+
+    label = "streamed main 1-D"
+    packed, mean, std = structured_packed(torch, d, n, 11, 0.1, 0.01, seed, device)
+    packed_np, mean_np, std_np = (x.cpu().numpy() for x in (packed, mean, std))
+    del packed, mean, std
+
+    def source(i):
+        lo, hi = i * strip, min((i + 1) * strip, d)
+        return packed_np[lo:hi], mean_np[lo:hi], std_np[lo:hi]
+
+    n_strips = -(-d // strip)
+    with Captured() as messages:
+        sm = StreamingMatrix(source, n_strips, d, n, strip, packed=True, device=device)
+        tk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = streamed_pca(sm, k=k, n_power_iter=4, seed=7, compute_loadings=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    log_messages(label, messages, ("Host-streamed container", "Streamed pass"))
+    log(f"[{label}] streamed_pca {d} x {n} ({sm.mode} mode, {n_strips} strips of "
+        f"{strip} rows), k={k}: wall {wall:.3f} s; launches {launches}")
+    want = dict(ZERO_LAUNCHES, fused_gram_q8_packed=3 * n_strips,
+                fused_gram_apply_packed=n_strips, fused_right_apply_packed=n_strips)
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    if (res.scores.shape != (n, k) or res.loadings.shape != (d, k)
+            or not np.isfinite(res.scores).all()):
+        raise AssertionError(f"{label}: output has the wrong shape or non-finite values")
+    scores, oracle, sep = resident
+    check_pcs(np, res.scores, *oracle, res.singular_values.astype(np.float64) ** 2,
+              k, label)
+    rs = [abs(float(np.corrcoef(res.scores[:, j], scores[:, j])[0, 1]))
+          for j in range(sep)]
+    log(f"[{label}] per-PC |r| against the resident run over the separated "
+        f"prefix: min {min(rs):.7f}")
+    if min(rs) <= 0.999:
+        raise AssertionError(f"{label}: streamed and resident runs disagree: {rs}")
+    return launches
+
+
+def check_streamed_eigensnp(torch, np, device, fileset, k, packed_pipeline):
+    """Phase 14b/c: `run_eigensnp_workflow(force_streaming=True)` on phase
+    8's fileset, in-process: the host-streamed container (packed strips,
+    or dense int8 strips with `packed_pipeline=False`) in 2-D mode, stages
+    1-2 through the host accessor; stage split, launches (the right and
+    left 2-D kernels of the layout, per strip: one gram pass and one
+    tsq_and_project pass), upload telemetry of every pass, and its TSVs
+    against phase 8's TSVs and float64 oracle."""
+    from genomic_pca_tpu_torch.ops import kernels as tk
+    from genomic_pca_tpu_torch.workflows import (
+        DataPrepConfig, EigenSnpConfig, run_eigensnp_workflow,
+    )
+
+    prefix, ref_pcs, oracle, sep = fileset
+    label = f"streamed eigensnp {'packed' if packed_pipeline else 'dense'}"
+    out = FILESET / ("streamed_packed" if packed_pipeline else "streamed_dense")
+    cfg = EigenSnpConfig()
+    with Captured() as messages:
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        run_eigensnp_workflow(
+            DataPrepConfig(bed_path=str(prefix), ld_block_path=f"{prefix}.blocks.tsv",
+                           packed_pipeline=packed_pipeline),
+            cfg, str(out), device=device, force_streaming=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(tk.LAUNCHES)
+    log_messages(label, messages, ("Host-streamed container", "EigenSNP matrix",
+                                   "EigenSNP stage split:", "Streamed pass"))
+    pcs = np.loadtxt(f"{out}.eigensnp.pca.tsv", skiprows=1, usecols=range(1, k + 1),
+                     delimiter="\t")
+    evs = np.loadtxt(f"{out}.eigenvalues.tsv", skiprows=1, usecols=1, delimiter="\t")
+    n_snps = sum(1 for _ in open(f"{out}.eigensnp.loadings.tsv")) - 1
+    strips = -(-n_snps // cfg.snp_strip_size)
+    log(f"[{label}] run_eigensnp_workflow(force_streaming=True) in {wall:.2f} s; "
+        f"{n_snps} PCA SNPs in {strips} strips; launches {launches}")
+    right, left = (("fused_right_apply_2d_packed", "fused_left_apply_2d_packed")
+                   if packed_pipeline else
+                   ("fused_right_apply_2d", "fused_left_apply_2d"))
+    want = dict(ZERO_LAUNCHES, **{right: 2 * strips, left: strips})
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    n = ref_pcs.shape[0]
+    if pcs.shape != ref_pcs.shape or not np.isfinite(pcs).all():
+        raise AssertionError(f"{label}: scores {pcs.shape} or non-finite")
+    check_pcs(np, pcs, *oracle, evs * (n - 1), k, label)
+    rs = [abs(float(np.corrcoef(pcs[:, j], ref_pcs[:, j])[0, 1])) for j in range(sep)]
+    log(f"[{label}] per-PC |r| against the resident CLI run over the separated "
+        f"prefix: min {min(rs):.7f}")
+    if min(rs) <= 0.999:
+        raise AssertionError(f"{label}: streamed and resident runs disagree: {rs}")
+
+
 def main() -> int:
     import torch
 
@@ -828,7 +1068,7 @@ def main() -> int:
 
     # 5-6. The main path in each mode.
     launches = {}
-    main_1d = None
+    main = {}
     for label, d, n, seed, want in (
         ("main 1-D", 262_144, 2048, SEED + 2,
          {"fused_gram_q8_packed": 3, "fused_gram_apply_packed": 1,
@@ -842,7 +1082,7 @@ def main() -> int:
         if got != dict(ZERO_LAUNCHES, **want):
             raise AssertionError(f"{label}: launch counts {got} != {want}")
         launches.update({name: got[name] for name in want})
-        main_1d = main_1d or (scores, oracle, sep)
+        main[label] = (scores, oracle, sep)
         torch.cuda.empty_cache()
 
     # 7. The VCF CLI on VCF directories of 1000 Genomes phase 3 width:
@@ -852,8 +1092,9 @@ def main() -> int:
     check_cli(torch, np, device, 32_768, 8, 5, SEED + 3, 10)
     check_cli(torch, np, device, 65_536, 16, 11, SEED + 3, 10)
 
-    # 8. The EigenSNP CLI at 16,384 samples.
-    check_eigensnp_cli(torch, np, device, 65_536, 16_384, 64, 10, SEED + 5)
+    # 8. The EigenSNP CLI at 16,384 samples; its fileset stays for 14.
+    fileset = check_eigensnp_cli(torch, np, device, 65_536, 16_384, 64, 10,
+                                 SEED + 5)
 
     # 9. The dense int8 kernels at the 1-D main shape, a ragged one, and
     # the exact three at the width of the dense EigenSNP run (10,000
@@ -867,7 +1108,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 10. The dense main path on the genotypes of the packed one.
-    packed_scores, oracle, sep = main_1d
+    packed_scores, oracle, sep = main["main 1-D"]
     got, scores, _, _ = check_main(torch, np, device, "main dense 1-D", 262_144,
                                    2048, 10, SEED + 2, dense=True, oracle=oracle)
     want = {"fused_gram_q8": 3, "fused_gram_apply": 1, "fused_tsq": 1,
@@ -887,13 +1128,51 @@ def main() -> int:
     check_dense_eigensnp_and_projection(torch, np, device, 65_536, 10_000, 64, 10,
                                         SEED + 8)
 
+    # 12. The dense 2-D kernels at the 2-D kernel shape and a ragged one.
+    results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
+                                 KERNELS_DENSE_2D))
+    check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_DENSE_2D)
+    torch.cuda.empty_cache()
+
+    # 13. The dense 2-D main path on the genotypes of the packed 2-D one.
+    packed_scores, oracle, sep = main["main 2-D"]
+    got, scores, _, _ = check_main(torch, np, device, "main dense 2-D", 131_072,
+                                   16_384, 10, SEED + 4, dense=True, oracle=oracle)
+    want = {"right_apply_2d_q8_i8": 3, "left_apply_2d_q8_i8": 3,
+            "fused_right_apply_2d": 3, "fused_left_apply_2d": 1}
+    if got != dict(ZERO_LAUNCHES, **want):
+        raise AssertionError(f"main dense 2-D: launch counts {got} != {want}")
+    launches.update(want)
+    rs = [abs(float(np.corrcoef(scores[:, j], packed_scores[:, j])[0, 1]))
+          for j in range(sep)]
+    log(f"[main dense 2-D] per-PC |r| against the packed 2-D run over the "
+        f"separated prefix: min {min(rs):.7f}")
+    if min(rs) <= 0.999:
+        raise AssertionError(f"dense and packed 2-D main paths disagree: {rs}")
+    del scores, packed_scores
+    torch.cuda.empty_cache()
+
+    # 14. The host-streamed container: the 1-D main path in strips of
+    # 2,048 rows, then EigenSNP on phase 8's fileset with packed and
+    # dense strips.
+    check_streamed_main(torch, np, device, 262_144, 2048, 10, SEED + 2, 2048,
+                        main["main 1-D"])
+    check_streamed_eigensnp(torch, np, device, fileset, 10, packed_pipeline=True)
+    check_streamed_eigensnp(torch, np, device, fileset, 10, packed_pipeline=False)
+    shutil.rmtree(FILESET)
+
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
          "max_abs_err": m["max_abs_err"], "ms": m["ms"],
-         "plain_ms": m["plain_ms"]}
+         "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+         "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
         for name, m in results.items()
     ]}
+    missing = [name for name in ZERO_LAUNCHES if not launches.get(name)]
+    if missing or len(results) != len(ZERO_LAUNCHES):
+        raise AssertionError(f"kernels without main-path launches or timings: "
+                             f"{missing}, {sorted(set(ZERO_LAUNCHES) - set(results))}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line))
     print(smi)

@@ -1,10 +1,12 @@
 """genomic_pca_tpu_torch - the PyTorch + CUDA port of genomic_pca_tpu.
 
-The JAX package beside it is the reference.  This package imports torch
-and never jax; its hot path is four hand-written CUDA kernels for Hopper
-(ops/kernels.py, sources in csrc/) over the PLINK 2-bit packed genotype
-matrix, driven by the randomized-PCA core of parallel/sharded.py.
-Ported so far: the VCF workflow (`python -m genomic_pca_tpu_torch`).
+The JAX package beside it is the reference.  This package imports torch,
+never jax and nothing of the JAX package (it keeps its own copies of the
+jax-free modules it needs).  Its hot path is hand-written CUDA kernels for
+Hopper (ops/kernels.py, sources in csrc/) over packed or dense genotypes,
+driven by the resident randomized-PCA core of parallel/sharded.py or the
+host-streamed container of ops/streaming.py.  Entry points: the VCF,
+EigenSNP and projection workflows (`python -m genomic_pca_tpu_torch`).
 """
 
 import torch

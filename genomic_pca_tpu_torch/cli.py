@@ -253,7 +253,7 @@ def _run_eigensnp(args) -> int:
         return 0
     if _no_cuda("EigenSNP"):
         return 1
-    from genomic_pca_tpu.config import DataPrepConfig, EigenSnpConfig
+    from genomic_pca_tpu_torch.config import DataPrepConfig, EigenSnpConfig
     from genomic_pca_tpu_torch.workflows import run_eigensnp_workflow
 
     prep_cfg = DataPrepConfig(
@@ -303,7 +303,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         log.error("--profile-dir is %s.", NOT_PORTED)
         return 1
 
-    from genomic_pca_tpu.io.native import set_default_threads
+    from genomic_pca_tpu_torch.io.native import set_default_threads
 
     set_default_threads(args.threads)
     if args.project or args.eigensnp:

@@ -1,17 +1,23 @@
 """EigenSNP two-stage PCA on one device: per-LD-block local bases ->
-condensed global eigensolve -> refinement through the container's
-`pca_core`.
+condensed global eigensolve -> refinement through the matrix container.
 
 Counterpart of `genomic_pca_tpu/models/eigensnp.py` on the resident
-container (parallel/sharded.py), packed or dense int8:
+container (parallel/sharded.py, packed or dense int8) and on the
+host-streamed one (ops/streaming.py):
 
   Stage 1 - for each LD block, a randomized SVD of the standardized block
   restricted to a sample subset (`cfg.subset_size`), with
-  `components_per_block` components.  Blocks are sliced from the resident
-  matrix (`fetch_blocks_device`), zero-padded to row buckets and run as
-  one batched rSVD per (bucket, c_b) chunk, the batch dimension standing
-  where the reference uses `vmap`; each block's sketch comes from
-  `generator_for_stage(seed, "eigensnp_local_sketch", unit=block + 1)`.
+  `components_per_block` components.  Blocks come zero-padded to row
+  buckets and run as one batched rSVD per (bucket, c_b) chunk, the batch
+  dimension standing where the reference uses `vmap`; each block's sketch
+  comes from `generator_for_stage(seed, "eigensnp_local_sketch",
+  unit=block + 1)`.  They are sliced from the resident matrix
+  (`fetch_blocks_device`) when every block is a contiguous run of PCA
+  SNPs; otherwise (a streamed container, or a nested or overlapping block
+  file) the host accessor reads each chunk's blocks from the BED - raw
+  PLINK bytes standardized on the device under the packed pipeline with
+  the full sample set, standardized f32 blocks else - on worker threads
+  two chunks ahead of the device.
 
   Stage 2 - every sample projected through every block basis, stacked in
   block order into the condensed (C, N) matrix; its randomized SVD gives
@@ -20,18 +26,20 @@ container (parallel/sharded.py), packed or dense int8:
 
   Refinement - `refine_passes` exact passes of subspace iteration over
   the full matrix, the Rayleigh-Ritz eigensolve and the loadings, all in
-  one `pca_core`; runs with checkpoints or diagnostics take the per-pass
-  path, so that each pass is saved and its convergence observable.
+  one `pca_core` of a resident container; runs with checkpoints or
+  diagnostics, and streamed containers, take the per-pass path, so that
+  each pass is saved and its convergence observable.  A streamed
+  container ends with `tsq_and_project` (the A B products kept on the
+  device), else `tsq_and_capture`, so the loadings need no extra pass.
 
 Random draws come from the port's seeded generators (utils/rng.py), so
 the sample subset and the sketches differ from the reference's jax
 threefry draws: results agree with the reference to the accuracy of the
 algorithm, not bit for bit.
 
-Not ported yet: the host-accessor stages (block files whose blocks are
-not contiguous PcaSnpId runs; they come with the host-streamed
-container), and the ahead-of-time compile threads of the reference
-(`compile_only`), which have no counterpart in eager PyTorch.
+Not ported: the ahead-of-time compile threads of the reference
+(`compile_only`), which have no counterpart in eager PyTorch, and the
+memory preflight (`utils/system.py`).
 """
 
 from __future__ import annotations
@@ -39,15 +47,17 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from genomic_pca_tpu.config import EigenSnpConfig
-from genomic_pca_tpu.errors import ComputeError
+from genomic_pca_tpu_torch.config import EigenSnpConfig
+from genomic_pca_tpu_torch.errors import ComputeError
 from genomic_pca_tpu_torch.models.pca import lane_fill_width
-from genomic_pca_tpu_torch.models.prepare import NOT_PORTED, PreparedData
+from genomic_pca_tpu_torch.models.prepare import PreparedData
+from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.rsvd import rsvd, sketch_width
 from genomic_pca_tpu_torch.utils.checkpoint import StageCheckpointer, fingerprint
 from genomic_pca_tpu_torch.utils.rng import generator_for_stage, normal
@@ -67,6 +77,8 @@ class EigenSnpResult:
     # Stage wall-clocks: matrix_load / stages_1_2 / global_pca /
     # refinement_finalize.
     stage_seconds: Optional[Dict[str, float]] = None
+    # The matrix container that ran: "device-resident" or "host-streamed".
+    container: Optional[str] = None
 
 
 def _bucket_rows(d: int, bucket: int = 512) -> int:
@@ -85,21 +97,38 @@ def _c_of(cfg: EigenSnpConfig, n_snps: int, n_subset: int) -> int:
     return min(cfg.components_per_block, n_snps, n_subset)
 
 
-def _device_group_plan(a, prep: PreparedData, cfg: EigenSnpConfig,
-                       subset: np.ndarray):
+def _group_plan(prep: PreparedData, cfg: EigenSnpConfig, subset: np.ndarray,
+                width: int, max_bucket: Optional[int] = None):
     """Ordered [((bucket, c_b), block indices, chunk_b)]: blocks grouped by
-    row bucket and component count, each group run in chunks of chunk_b
-    blocks (a power of two whose full-width batch fits the budget)."""
+    row bucket (capped at `max_bucket`) and component count, each group
+    run in chunks of chunk_b blocks (a power of two whose (chunk_b,
+    bucket, width) f32 batch fits the budget)."""
     groups: Dict[tuple, List[int]] = {}
     for b_idx, block in enumerate(prep.blocks):
         d_b = len(block.pca_snp_ids)
-        bucket = min(_bucket_rows(d_b), a.d_pad)
+        bucket = _bucket_rows(d_b)
+        if max_bucket is not None:
+            bucket = min(bucket, max_bucket)
         groups.setdefault((bucket, _c_of(cfg, d_b, len(subset))), []).append(b_idx)
     plan = []
     for (bucket, c_b), idxs in sorted(groups.items()):
-        b_cap = max(1, _STAGE12_BUDGET_ELEMS // (bucket * a.n_pad))
+        b_cap = max(1, _STAGE12_BUDGET_ELEMS // (bucket * max(width, 1)))
         plan.append(((bucket, c_b), idxs, _pow2_at_most(min(b_cap, len(idxs)))))
     return plan
+
+
+def _device_group_plan(a, prep: PreparedData, cfg: EigenSnpConfig,
+                       subset: np.ndarray):
+    """The plan of the resident path: buckets capped at the matrix's rows,
+    batches of full container width."""
+    return _group_plan(prep, cfg, subset, a.n_pad, max_bucket=a.d_pad)
+
+
+def _chunks(plan):
+    """(bucket, c_b, chunk, chunk_b) work items of a plan, in order."""
+    for (bucket, c_b), idxs, chunk_b in plan:
+        for pos in range(0, len(idxs), chunk_b):
+            yield bucket, c_b, idxs[pos:pos + chunk_b], chunk_b
 
 
 def _choose_sample_subset(cfg: EigenSnpConfig, n_samples: int) -> np.ndarray:
@@ -137,49 +166,125 @@ def _local_sketches(seed: int, chunk: List[int], chunk_b: int, n_cols: int,
     ]).to(device)
 
 
-def _stages12_device(a, prep: PreparedData, cfg: EigenSnpConfig,
-                     subset: np.ndarray, runs: np.ndarray,
-                     saved_bases: Optional[List[np.ndarray]]):
-    """Stages 1+2 sliced from the resident matrix, one batched program of
-    torch ops per chunk: slice the blocks, restrict to the subset, batched
-    local rSVD (CholQR2 stabilizer), project all samples.  With
-    `saved_bases` (a stage-1 checkpoint) only the projection runs.
+def _stages12(batches, prep: PreparedData, cfg: EigenSnpConfig,
+              subset: np.ndarray, saved_bases: Optional[List[np.ndarray]],
+              device):
+    """Stages 1+2 over (bucket, c_b, chunk, chunk_b, xs_full) batches,
+    xs_full the (chunk_b, bucket, >= N) f32 standardized blocks of the
+    chunk on `device` (batch padding: zero blocks): restrict to the
+    subset, batched local rSVD (CholQR2 stabilizer), project all samples.
+    With `saved_bases` (a stage-1 checkpoint) only the projection runs.
 
     Returns (local_bases [np arrays], svals dict or None, y (C, N) on the
     device)."""
     n = prep.n_samples
     full_cols = len(subset) >= n
-    subset_dev = torch.as_tensor(subset, device=a.device)
+    subset_dev = torch.as_tensor(subset, device=device)
     parts = []  # (chunk, c_b, u batch, s batch or None, out batch)
-    for (bucket, c_b), idxs, chunk_b in _device_group_plan(a, prep, cfg, subset):
-        for pos in range(0, len(idxs), chunk_b):
-            chunk = idxs[pos:pos + chunk_b]
+    for bucket, c_b, chunk, chunk_b, xs_full in batches:
+        if saved_bases is not None:
+            us = [saved_bases[i] for i in chunk]
+            us += [np.zeros_like(us[0])] * (chunk_b - len(chunk))
+            u_b = torch.as_tensor(np.stack(us), device=device)
+            s_b = None
+        else:
+            xs_sub = (xs_full[:, :, :n] if full_cols
+                      else xs_full[:, :, subset_dev])
+            ell = sketch_width(c_b, cfg.local_oversampling, bucket, len(subset))
+            omega = _local_sketches(cfg.seed, chunk, chunk_b, len(subset), ell,
+                                    device)
+            u_b, s_b, _ = rsvd(xs_sub, omega, k=c_b,
+                               n_oversamples=cfg.local_oversampling,
+                               n_power_iter=cfg.local_power_iter, orth="cholqr2")
+            del xs_sub
+        out = u_b.mT @ xs_full  # (chunk_b, c_b, width)
+        del xs_full
+        parts.append((list(chunk), c_b, u_b, s_b, out))
+    return _assemble_condensed(parts, n, len(prep.blocks))
+
+
+def _stages12_device(a, prep: PreparedData, cfg: EigenSnpConfig,
+                     subset: np.ndarray, runs: np.ndarray,
+                     saved_bases: Optional[List[np.ndarray]]):
+    """Stages 1+2 with every chunk's blocks sliced from the resident
+    matrix (`fetch_blocks_device`)."""
+
+    def batches():
+        for bucket, c_b, chunk, chunk_b in _chunks(
+                _device_group_plan(a, prep, cfg, subset)):
             starts = np.zeros(chunk_b, dtype=np.int64)
             lens = np.zeros(chunk_b, dtype=np.int64)
             starts[:len(chunk)] = runs[chunk, 0]
             lens[:len(chunk)] = runs[chunk, 1]
-            xs_full = a.fetch_blocks_device(starts, lens, bucket)
-            if saved_bases is not None:
-                us = [saved_bases[i] for i in chunk]
-                us += [np.zeros_like(us[0])] * (chunk_b - len(chunk))
-                u_b = torch.as_tensor(np.stack(us), device=a.device)
-                s_b = None
-            else:
-                xs_sub = (xs_full[:, :, :n] if full_cols
-                          else xs_full[:, :, subset_dev])
-                ell = sketch_width(c_b, cfg.local_oversampling, bucket,
-                                   len(subset))
-                omega = _local_sketches(cfg.seed, chunk, chunk_b, len(subset),
-                                        ell, a.device)
-                u_b, s_b, _ = rsvd(xs_sub, omega, k=c_b,
-                                   n_oversamples=cfg.local_oversampling,
-                                   n_power_iter=cfg.local_power_iter,
-                                   orth="cholqr2")
-                del xs_sub
-            out = u_b.mT @ xs_full  # (chunk_b, c_b, n_pad)
-            del xs_full
-            parts.append((list(chunk), c_b, u_b, s_b, out))
-    return _assemble_condensed(parts, n, len(prep.blocks))
+            yield bucket, c_b, chunk, chunk_b, a.fetch_blocks_device(starts, lens,
+                                                                     bucket)
+
+    return _stages12(batches(), prep, cfg, subset, saved_bases, a.device)
+
+
+def _stages12_host(prep: PreparedData, cfg: EigenSnpConfig, subset: np.ndarray,
+                   saved_bases: Optional[List[np.ndarray]], device):
+    """Stages 1+2 through the host block accessor, for streamed containers
+    and block files whose blocks are not contiguous runs (the reference's
+    `_stages12_host`).  With the packed pipeline and the full sample set
+    each chunk's blocks come as raw PLINK bytes (`fetch_block_packed`,
+    16x fewer bytes to upload than f32) and standardize on the device in
+    f32; otherwise as standardized f32 blocks (`fetch_block_standardized`).
+    The host gathers run on two worker threads, two chunks ahead of the
+    device; each block's bytes upload once for both the subset rSVD and
+    the all-sample projection.  A checkpoint resume groups blocks by the
+    shapes of the saved bases."""
+    n = prep.n_samples
+    packed = prep.supports_packed_blocks
+    if saved_bases is None:
+        plan = _group_plan(prep, cfg, subset, n)
+    else:
+        groups: Dict[tuple, List[int]] = {}
+        for b_idx, u_b in enumerate(saved_bases):
+            groups.setdefault(tuple(u_b.shape), []).append(b_idx)
+        plan = [(key, idxs, _pow2_at_most(min(
+                    max(1, _STAGE12_BUDGET_ELEMS // (key[0] * n)), len(idxs))))
+                for key, idxs in sorted(groups.items())]
+    tasks = list(_chunks(plan))
+
+    def gather(task):
+        """Host arrays of one chunk (on a worker thread)."""
+        bucket, _c_b, chunk, chunk_b = task
+        if packed:
+            raws, ms, ivs = zip(*(prep.fetch_block_packed(
+                prep.blocks[i].pca_snp_ids, pad_rows_to=bucket) for i in chunk))
+            pad = chunk_b - len(chunk)  # batch padding: inert all-missing blocks
+            return (np.stack(list(raws) + [np.full_like(raws[0], 0x55)] * pad),
+                    np.stack(list(ms) + [np.zeros_like(ms[0])] * pad),
+                    np.stack(list(ivs) + [np.zeros_like(ivs[0])] * pad))
+        xs = [prep.fetch_block_standardized(prep.blocks[i].pca_snp_ids,
+                                            pad_rows_to=bucket) for i in chunk]
+        xs += [np.zeros_like(xs[0])] * (chunk_b - len(chunk))
+        return np.stack(xs)
+
+    def upload(fetched) -> torch.Tensor:
+        """(chunk_b, bucket, N) f32 standardized blocks on the device."""
+        if not packed:
+            return torch.as_tensor(fetched, device=device)
+        pk8, mean, inv = (torch.as_tensor(x, device=device) for x in fetched)
+        b, r, n4 = pk8.shape
+        x = kernels.standardize_packed(pk8.reshape(b * r, n4),
+                                       mean.reshape(-1, 1), inv.reshape(-1, 1),
+                                       "f32")
+        return x.reshape(b, r, 4 * n4)[:, :, :n]
+
+    def batches():
+        depth = 2  # chunks gathered ahead of the one on the device
+        with ThreadPoolExecutor(depth) as ex:
+            futs = [ex.submit(gather, t) for t in tasks[:depth]]
+            for i, task in enumerate(tasks):
+                fetched = futs[i].result()
+                futs[i] = None  # drop the host arrays with the future
+                if i + depth < len(tasks):
+                    futs.append(ex.submit(gather, tasks[i + depth]))
+                yield (*task, upload(fetched))
+
+    return _stages12(batches(), prep, cfg, subset, saved_bases, torch.device(device))
 
 
 def _assemble_condensed(parts, n: int, n_blocks: int):
@@ -237,13 +342,17 @@ def compute_eigensnp_pca(
     device="cuda",
     checkpoint_dir: Optional[str] = None,
     stop_after_checkpoint: Optional[str] = None,
+    force_streaming: bool = False,
 ) -> Optional[EigenSnpResult]:
     """The two-stage pipeline on prepared data, on `device`.
 
     `checkpoint_dir` saves stage checkpoints and resumes from them;
     `stop_after_checkpoint` (needs `checkpoint_dir`) returns None right
     after the named checkpoint (stage1_bases, stage2_basis,
-    refine_pass_<p>) is saved, and a later run resumes there."""
+    refine_pass_<p>) is saved, and a later run resumes there.
+    `force_streaming` takes the host-streamed container whatever the
+    memory budget (what `load_matrix` does on its own past 60% of the
+    device's memory)."""
     n = prep.n_samples
     d = prep.n_pca_snps
     if d == 0 or not prep.blocks:
@@ -290,26 +399,29 @@ def compute_eigensnp_pca(
     stage_seconds: Dict[str, float] = {}
     t_stage = time.perf_counter()
 
-    # ---- Matrix container; stages 1-2 slice their blocks from it ------
+    # ---- Matrix container; stages 1-2 slice their blocks from it, or
+    # read them through the host accessor ------------------------------
+    if force_streaming:
+        a = prep.load_streaming_matrix(device, strip_size=cfg.snp_strip_size)
+    else:
+        a = prep.load_matrix(device, strip_size=cfg.snp_strip_size)
+    container = "device-resident" if hasattr(a, "pca_core") else "host-streamed"
     runs = _blocks_as_runs(prep.blocks)
-    if runs is None:
-        raise ComputeError(
-            "The LD blocks are not contiguous runs of PCA SNPs (nested or "
-            "overlapping block file): stages 1-2 then need the host-accessor "
-            f"path, which comes with the host-streamed container and is {NOT_PORTED}."
-        )
-    a = prep.load_matrix(device)
+    use_device = runs is not None and hasattr(a, "fetch_blocks_device")
     _sync(a.device)
     stage_seconds["matrix_load"] = time.perf_counter() - t_stage
-    log.info("EigenSNP matrix loaded (device-resident path, %s mode) in %.1fs.",
-             a.mode, stage_seconds["matrix_load"])
+    log.info("EigenSNP matrix loaded (%s container, %s mode; stages 1-2 through "
+             "the %s path) in %.1fs.", container, a.mode,
+             "device-resident" if use_device else "host-accessor",
+             stage_seconds["matrix_load"])
     t_stage = time.perf_counter()
 
     # Refinement width: fill the 128 columns the kernels' sketch width is
     # tuned for (models/pca.lane_fill_width); `refine_width` overrides.
     ell_ref = (lane_fill_width(k, n, d) if cfg.refine_width is None
                else max(k, min(cfg.refine_width, n, d)))
-    use_pca_core = not ckpt.enabled and diag is None and cfg.refine_passes >= 1
+    use_pca_core = (hasattr(a, "pca_core") and not ckpt.enabled and diag is None
+                    and cfg.refine_passes >= 1)
 
     # ---- Stages 1+2 ---------------------------------------------------
     subset = _choose_sample_subset(cfg, n)
@@ -327,8 +439,12 @@ def compute_eigensnp_pca(
         else:
             log.info("EigenSNP stage 1: %d blocks, sample subset %d / %d.",
                      len(prep.blocks), len(subset), n)
-        local_bases, svals, y = _stages12_device(a, prep, cfg, subset, runs,
-                                                 saved_bases)
+        if use_device:
+            local_bases, svals, y = _stages12_device(a, prep, cfg, subset, runs,
+                                                     saved_bases)
+        else:
+            local_bases, svals, y = _stages12_host(prep, cfg, subset, saved_bases,
+                                                   a.device)
         if saved_bases is None:
             if diag is not None:
                 for b_idx, block in enumerate(prep.blocks):
@@ -434,7 +550,20 @@ def compute_eigensnp_pca(
                      cfg.refine_passes)
             if _ckpt_stop(f"refine_pass_{p}", stop_after_checkpoint):
                 return None
-        evals, w = torch.linalg.eigh(a.tsq_accumulate(s_basis))
+        # A streamed container fuses the Rayleigh-Ritz Gram with the A B
+        # products: loadings = (A B) W / sigma without another pass over
+        # the matrix, the products kept on the device within its budget
+        # (tsq_and_project), else brought to the host (tsq_and_capture).
+        project = ab = None
+        got = (a.tsq_and_project(s_basis) if hasattr(a, "tsq_and_project")
+               else None)
+        if got is not None:
+            g, project = got
+        elif hasattr(a, "tsq_and_capture"):
+            g, ab = a.tsq_and_capture(s_basis)
+        else:
+            g = a.tsq_accumulate(s_basis)
+        evals, w = torch.linalg.eigh(g)
         order = torch.argsort(evals, descending=True)
         evals = torch.clamp(evals[order][:k], min=0.0)
         w = w[:, order][:, :k]
@@ -443,8 +572,13 @@ def compute_eigensnp_pca(
         inv_sigma = torch.where(sigma_t > 0, 1.0 / torch.where(
             sigma_t > 0, sigma_t, torch.ones_like(sigma_t)), torch.zeros_like(sigma_t))
         scores = (v * sigma_t[None, :]).cpu().numpy().astype(np.float32)
-        loadings = (a.right_apply(v) * inv_sigma.cpu().numpy()[None, :]).astype(
-            np.float32)
+        if project is not None:
+            c = project(w.cpu().numpy())
+        elif ab is not None:
+            c = ab @ w.cpu().numpy()
+        else:
+            c = a.right_apply(v)
+        loadings = (c * inv_sigma.cpu().numpy()[None, :]).astype(np.float32)
         sigma = sigma_t.cpu().numpy()
         eigenvalues = evals.cpu().numpy().astype(np.float64) / max(n - 1, 1)
 
@@ -472,7 +606,7 @@ def compute_eigensnp_pca(
         diag["num_pca_snps"] = int(d)
         diag["num_qc_samples"] = int(n)
         diag["num_ld_blocks"] = int(len(prep.blocks))
-        diag["matrix_path"] = "device-resident"
+        diag["matrix_path"] = "device-resident" if use_device else "host-accessor"
 
     return EigenSnpResult(
         scores=scores,
@@ -480,6 +614,7 @@ def compute_eigensnp_pca(
         loadings=loadings,
         diagnostics=diag,
         stage_seconds={s: round(t, 3) for s, t in stage_seconds.items()},
+        container=container,
     )
 
 

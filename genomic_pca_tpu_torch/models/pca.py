@@ -3,11 +3,12 @@ samples, on the port.
 
 Counterpart of `genomic_pca_tpu/models/pca.py`: validate k, widen the
 sketch to the 128-lane width the reference kernels pad to, draw the
-Gaussian sketch from a seeded generator (utils/rng.py), and run the whole
-PCA through the container's `pca_core`.  `transform` (float64 on the
-host), `transform_device` (a dense container over the new samples, then
-`left_apply`) and `StripProjector` (one projector reused across strips)
-project new samples through fitted loadings.
+Gaussian sketch from a seeded generator (utils/rng.py), and run the PCA
+through the resident container's `pca_core` or the host-streamed
+container's `power_iterate` and `tsq_and_capture`.  `transform` (float64
+on the host), `transform_device` (a dense container over the new
+samples, then `left_apply`) and `StripProjector` (one projector reused
+across strips) project new samples through fitted loadings.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from genomic_pca_tpu.errors import ComputeError
+from genomic_pca_tpu_torch.errors import ComputeError
 from genomic_pca_tpu_torch.ops.standardize import MISSING, standardize_rows
 from genomic_pca_tpu_torch.utils.rng import normal
 
@@ -76,12 +77,18 @@ def streamed_pca(
     lane_fill: bool = True,
     tolerance: Optional[float] = None,
 ) -> PcaResult:
-    """Randomized PCA of the implicit standardized matrix A (D x N)
-    through `matrix.pca_core` (parallel.sharded.ShardedMatrix)."""
-    if not hasattr(matrix, "pca_core"):
+    """Randomized PCA of the implicit standardized matrix A (D x N).
+
+    A resident container (parallel.sharded.ShardedMatrix) runs the whole
+    PCA in its `pca_core`.  A host-streamed one (ops.streaming
+    .StreamingMatrix) runs `power_iterate`, one streaming pass per
+    iteration, then the Rayleigh-Ritz Gram; with `compute_loadings` that
+    pass also captures A B (`tsq_and_capture`), so the loadings (A B) W /
+    sigma need no further pass over the matrix."""
+    if not (hasattr(matrix, "pca_core") or hasattr(matrix, "power_iterate")):
         raise TypeError(
-            "streamed_pca in genomic_pca_tpu_torch runs through a "
-            "container's pca_core; other containers are not ported yet."
+            "streamed_pca in genomic_pca_tpu_torch runs through a container's "
+            "pca_core (resident) or power_iterate (host-streamed)."
         )
     n = matrix.n_samples
     d = matrix.n_rows
@@ -93,17 +100,38 @@ def streamed_pca(
     b = normal((n, ell), seed if seed is not None else 0, "rfit_sketch",
                matrix.device)
     n_iter = max(n_power_iter, 1)
-    out = matrix.pca_core(b, n_iter, k, tolerance=tolerance)
     n_done = n_iter
-    if tolerance is None:
-        v_k, sigma_k, evals_k, loadings = out
+    if hasattr(matrix, "pca_core"):
+        out = matrix.pca_core(b, n_iter, k, tolerance=tolerance)
+        if tolerance is None:
+            v_k, sigma_k, evals_k, loadings = out
+        else:
+            v_k, sigma_k, evals_k, loadings, n_done = out
     else:
-        v_k, sigma_k, evals_k, loadings, n_done = out
-        if n_done < n_iter:
-            log.info(
-                "rfit tolerance %.3g reached after %d / %d power "
-                "iterations.", tolerance, n_done, n_iter,
-            )
+        out = matrix.power_iterate(b, n_iter, tolerance=tolerance)
+        b, n_done = (out, n_iter) if tolerance is None else out
+        fused = compute_loadings and hasattr(matrix, "tsq_and_capture")
+        if fused:
+            g, ab = matrix.tsq_and_capture(b)  # (l, l), (D, l) host
+        else:
+            g = matrix.tsq_accumulate(b)
+        evals, w = torch.linalg.eigh(g)
+        order = torch.argsort(evals, descending=True)
+        evals = torch.clamp(evals[order], min=0.0)
+        w = w[:, order]
+        sigma = torch.sqrt(evals)
+        v_k = (b @ w)[:, :k]
+        sigma_k, evals_k = sigma[:k], evals[:k]
+        loadings = None
+        if compute_loadings:
+            s_np = sigma_k.cpu().numpy()
+            inv_sigma = np.where(s_np > 0, 1.0 / np.where(s_np > 0, s_np, 1.0), 0.0)
+            c = (ab @ w[:, :k].cpu().numpy() if fused
+                 else matrix.right_apply(v_k))
+            loadings = (c * inv_sigma[None, :]).astype(np.float32)
+    if n_done < n_iter:
+        log.info("rfit tolerance %.3g reached after %d / %d power iterations.",
+                 tolerance, n_done, n_iter)
     sigma = sigma_k.cpu().numpy()
     return PcaResult(
         scores=v_k.cpu().numpy() * sigma[None, :],

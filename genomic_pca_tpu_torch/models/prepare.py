@@ -11,12 +11,17 @@ a keep-list; without it as the dense int8 container (`from_arrays` over
 decoded strips).  QC decisions and moments are bit-identical to the
 reference's (exact integer counts).
 
-Not ported yet, each refused with an error that says so: the device QC
-scan and its QC->matrix capture fusion (`qc_mode="device"`, multi-GPU
-work; for `packed_pipeline=False` the reference's "auto" takes them, and
-the port takes the host scan, with the same decisions), and the
-host-streamed container (chosen by the reference when the resident matrix
-exceeds 60% of device memory).
+`load_matrix` switches to the host-streamed container
+(`load_streaming_matrix`, ops/streaming.py) when the resident matrix
+would exceed 60% of the device's memory (`will_stream`), as the
+reference does; `fetch_block_standardized` and `fetch_block_packed` are
+the host block accessors of the EigenSNP stages 1-2 that run without a
+resident matrix.
+
+Not ported yet, refused with an error that says so: the device QC scan
+and its QC->matrix capture fusion (`qc_mode="device"`, multi-GPU work;
+for `packed_pipeline=False` the reference's "auto" takes them, and the
+port takes the host scan, with the same decisions).
 """
 
 from __future__ import annotations
@@ -28,10 +33,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from genomic_pca_tpu.config import DataPrepConfig
-from genomic_pca_tpu.errors import ComputeError, DataPrepError
-from genomic_pca_tpu.io.bed import BedReader
-from genomic_pca_tpu.io.ldblocks import (
+from genomic_pca_tpu_torch.config import DataPrepConfig
+from genomic_pca_tpu_torch.errors import ComputeError, DataPrepError
+from genomic_pca_tpu_torch.io.bed import BedReader
+from genomic_pca_tpu_torch.io.ldblocks import (
     LdBlockSpec, map_snps_to_blocks, parse_ld_block_file,
 )
 from genomic_pca_tpu_torch.ops.qc import (
@@ -39,9 +44,12 @@ from genomic_pca_tpu_torch.ops.qc import (
 )
 from genomic_pca_tpu_torch.ops.standardize import MISSING
 from genomic_pca_tpu_torch.parallel.sharded import (
-    ShardedMatrix, dense_cols, pack_int8_rows, packed_cols,
-    sanitize_partial_byte,
+    PACKED_MISSING_BYTE, ShardedMatrix, dense_cols, inv_std_of, pack_int8_rows,
+    packed_cols, sanitize_partial_byte,
 )
+
+# Share of the device's memory above which `load_matrix` streams.
+STREAMING_SHARE = 0.6
 
 log = logging.getLogger(__name__)
 
@@ -112,12 +120,143 @@ class PreparedData:
                 "prepare.rs:1906-1911)."
             )
 
+    def _check_missing_packed(self, raw: np.ndarray) -> None:
+        if self.config.missing_policy == "error":
+            counts = genotype_counts_packed_host(raw, self.n_samples)
+            if (counts[:, 3] < self.n_samples).any():
+                raise DataPrepError(
+                    "Missing genotype encountered post-QC with "
+                    "missing_policy='error' (reference accessor semantics, "
+                    "prepare.rs:1906-1911)."
+                )
+
+    def fetch_block_standardized(
+        self,
+        pca_snp_ids: np.ndarray,
+        sample_subset: Optional[np.ndarray] = None,
+        pad_rows_to: Optional[int] = None,
+    ) -> np.ndarray:
+        """(snps, samples) f32 standardized block on the host, missing ->
+        0, read from the BED: the reference's host block accessor.
+        `pad_rows_to` appends inert rows (missing, inv_std 0)."""
+        pca_snp_ids = np.asarray(pca_snp_ids, dtype=np.int64)
+        orig = self.pca_snp_orig_indices[pca_snp_ids]
+        samp = (self.qc_sample_indices if sample_subset is None
+                else self.qc_sample_indices[np.asarray(sample_subset)])
+        raw = self.bed.read(orig, samp)
+        self._check_missing_policy(raw)
+        mean = self.mean[pca_snp_ids]
+        std = self.std[pca_snp_ids]
+        if pad_rows_to is not None and raw.shape[0] < pad_rows_to:
+            pad = pad_rows_to - raw.shape[0]
+            raw = np.pad(raw, ((0, pad), (0, 0)), constant_values=MISSING)
+            mean = np.pad(mean, (0, pad))
+            std = np.pad(std, (0, pad))
+        inv = inv_std_of(std)
+        x = raw.astype(np.float32) * inv[:, None].astype(np.float32) + (
+            -mean * inv)[:, None].astype(np.float32)
+        return np.where(raw != MISSING, x, np.float32(0.0))
+
+    @property
+    def supports_packed_blocks(self) -> bool:
+        """True when blocks can be fetched as raw PLINK bytes (packed
+        pipeline, full sample set: packed bytes cannot express a column
+        subset)."""
+        return bool(self.config.packed_pipeline) and (
+            len(self.qc_sample_indices) == self.bed.n_samples)
+
+    def fetch_block_packed(self, pca_snp_ids: np.ndarray,
+                           pad_rows_to: Optional[int] = None):
+        """(packed uint8 (R, packed_cols(N)), mean f32 (R,), inv_std f32
+        (R,)) of the requested PcaSnpIds over all samples: raw BED bytes,
+        trailing fields sanitized, byte columns padded with 0x55 and rows
+        past the block inert (all missing, inv_std 0)."""
+        pca_snp_ids = np.asarray(pca_snp_ids, dtype=np.int64)
+        raw = sanitize_partial_byte(
+            self.bed.read_packed(self.pca_snp_orig_indices[pca_snp_ids]),
+            self.n_samples)
+        self._check_missing_packed(raw)
+        rows = pad_rows_to if pad_rows_to is not None else raw.shape[0]
+        out = np.full((rows, packed_cols(self.n_samples)), PACKED_MISSING_BYTE,
+                      dtype=np.uint8)
+        out[: raw.shape[0], : raw.shape[1]] = raw
+        mean = np.zeros(rows, dtype=np.float32)
+        inv = np.zeros(rows, dtype=np.float32)
+        mean[: raw.shape[0]] = self.mean[pca_snp_ids]
+        inv[: raw.shape[0]] = inv_std_of(self.std[pca_snp_ids])
+        return out, mean, inv
+
     def estimate_resident_bytes(self) -> int:
         """Device bytes of the resident matrix: 2-bit packed, or int8 with
         128-padded rows for `packed_pipeline=False`."""
         if self.config.packed_pipeline:
             return self.n_pca_snps * packed_cols(self.n_samples)
         return self.n_pca_snps * dense_cols(self.n_samples)
+
+    def estimate_streamed_pass_bytes(self) -> int:
+        """Genotype bytes the host-streamed container uploads per pass:
+        2-bit packed strips under `packed_pipeline` (a keep-list's columns
+        repack on the host), else 128-padded int8."""
+        return self.estimate_resident_bytes()
+
+    def will_stream(self, force_streaming: bool = False, device="cuda") -> bool:
+        """Whether `load_matrix` takes the host-streamed container: the
+        resident matrix would exceed 60% of `device`'s memory (the
+        reference's rule), or `force_streaming`."""
+        if force_streaming:
+            return True
+        return (self.estimate_resident_bytes()
+                > STREAMING_SHARE * device_memory_budget(device))
+
+    def load_streaming_matrix(self, device, strip_size: int = 2048, **kw):
+        """The host-streamed container (ops/streaming.py) on `device`:
+        strips of `strip_size` PCA rows read from the BED on every pass.
+
+        Packed pipeline, full sample set: the raw BED bytes of each strip
+        (no decode); keep-list: the kept columns decoded and repacked to
+        2-bit on the host.  `packed_pipeline=False`: int8 strips of the
+        kept samples."""
+        from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
+
+        if self.n_pca_snps == 0:
+            raise ComputeError("No PCA SNPs to load.")
+        kw.setdefault("missing_fraction", self.missing_fraction_bound)
+        n = self.n_pca_snps
+        idx = self.pca_snp_orig_indices
+        full = len(self.qc_sample_indices) == self.bed.n_samples
+        packed = bool(self.config.packed_pipeline)
+        decode_step = _decode_bounded_rows(self.bed.n_samples)
+
+        def rows_of(i: int):
+            start = i * strip_size
+            end = min(start + strip_size, n)
+            return start, end
+
+        def source(i: int):
+            start, end = rows_of(i)
+            if packed and full:
+                raw = sanitize_partial_byte(self.bed.read_packed(idx[start:end]),
+                                            self.n_samples)
+                self._check_missing_packed(raw)
+            elif packed:
+                parts = []
+                for s0 in range(start, end, decode_step):
+                    dec = self.bed.read(idx[s0:min(s0 + decode_step, end)],
+                                        self.qc_sample_indices)
+                    self._check_missing_policy(dec)
+                    parts.append(pack_int8_rows(dec))
+                raw = parts[0] if len(parts) == 1 else np.concatenate(parts)
+            else:
+                raw = self.bed.read(idx[start:end],
+                                    None if full else self.qc_sample_indices)
+                self._check_missing_policy(raw)
+            return raw, self.mean[start:end], self.std[start:end]
+
+        return StreamingMatrix(
+            source, n_strips=max(1, -(-n // strip_size)), n_rows=n,
+            n_samples=self.n_samples, strip_size=strip_size, packed=packed,
+            device=device, **kw,
+        )
 
     def _strip_gen(self, strip_size: int):
         """(strips, means, stds) of the PCA rows: decoded int8 strips of
@@ -138,27 +277,27 @@ class PreparedData:
         return (gen(), [self.mean[s:s + strip_size] for s in bounds],
                 [self.std[s:s + strip_size] for s in bounds])
 
-    def load_matrix(self, device, strip_size: int = 2048) -> ShardedMatrix:
-        """The resident container on `device`.
+    def load_matrix(self, device, strip_size: int = 2048):
+        """The matrix container on `device`: resident, or host-streamed
+        (`load_streaming_matrix`) when the resident matrix would exceed
+        60% of the device's memory (`will_stream`).
 
-        Packed pipeline, full sample set: the PCA rows' raw BED bytes,
-        strip by strip; keep-list: the kept columns decoded per strip and
-        repacked to 2-bit on the host.  Both upload into one preallocated
-        device block (`from_packed_strips`), so the device never holds a
-        second copy.  `packed_pipeline=False`: the dense int8 container
-        from decoded strips of `strip_size` rows (`from_arrays`).
-        Refuses what the reference would stream from the host."""
+        Resident, packed pipeline, full sample set: the PCA rows' raw BED
+        bytes, strip by strip; keep-list: the kept columns decoded per
+        strip and repacked to 2-bit on the host.  Both upload into one
+        preallocated device block (`from_packed_strips`), so the device
+        never holds a second copy.  `packed_pipeline=False`: the dense
+        int8 container from decoded strips of `strip_size` rows
+        (`from_arrays`)."""
         if self.n_pca_snps == 0:
             raise ComputeError("No PCA SNPs to load.")
-        resident = self.estimate_resident_bytes()
-        budget = device_memory_budget(device)
-        if resident > 0.6 * budget:
-            raise ComputeError(
-                f"The genotype matrix ({resident / 1e9:.1f} GB) exceeds "
-                f"60% of device memory ({budget / 1e9:.1f} GB): the JAX "
-                "package switches to its host-streamed container here, "
-                f"which is {NOT_PORTED}."
-            )
+        if self.will_stream(device=device):
+            log.warning(
+                "Genotype matrix (%.1f GB) exceeds 60%% of device memory "
+                "(%.1f GB); using the host-streamed container.",
+                self.estimate_resident_bytes() / 1e9,
+                device_memory_budget(device) / 1e9)
+            return self.load_streaming_matrix(device, strip_size=strip_size)
         if not self.config.packed_pipeline:
             gen, means, stds = self._strip_gen(strip_size)
             return ShardedMatrix.from_arrays(
@@ -228,7 +367,7 @@ def _qc_snp_range_hostscan(
     the kept columns, decoded per chunk.  Filtering runs per chunk, so
     temporaries stay chunk-sized; a chunk that fails to read is logged
     and its SNPs excluded, as in the reference tool's QC path."""
-    from genomic_pca_tpu.io.native import packed_qc_counts_native
+    from genomic_pca_tpu_torch.io.native import packed_qc_counts_native
 
     chunk_rows = 262_144
     if sample_sel is not None:

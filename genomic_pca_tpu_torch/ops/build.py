@@ -47,6 +47,9 @@ SIGNATURES = {
     "gp_left_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_w_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_left_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gp_left2d_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gp_q8_right2d_dense": [_P, _P, _P, _I, _I, _I, _P],
+    "gp_q8_left2d_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -2,8 +2,10 @@
 
 Eight serve the PLINK 2-bit packed layout - four the 1-D mode of the
 container (every sample tile of a row band in one pass), four the
-wide-sample 2-D mode, where the JAX package tiles both axes - and four the
-1-D mode of the dense int8 layout.  Each public function takes the
+wide-sample 2-D mode, where the JAX package tiles both axes - and eight
+the dense int8 layout: four of its 1-D mode, and its 2-D mode's two exact
+products plus the int8 branches of the two 2-D q8 products, which dispatch
+on the genotype dtype as the JAX functions do.  Each public function takes the
 genotypes in ORIGINAL sample order - packed as a (D, N4) uint8 tensor
 (byte j, bits 2p <-> sample 4j + p; no plane-major permutation), dense as
 a (D, N) int8 tensor with -127 missing - per-SNP (D, 1) f32 columns, and
@@ -43,6 +45,10 @@ LAUNCHES: Dict[str, int] = {
     "fused_gram_apply": 0,
     "fused_tsq": 0,
     "fused_right_apply": 0,
+    "fused_right_apply_2d": 0,
+    "fused_left_apply_2d": 0,
+    "right_apply_2d_q8_i8": 0,
+    "left_apply_2d_q8_i8": 0,
 }
 
 
@@ -156,9 +162,9 @@ def _exact_int_dtype(bound: int) -> torch.dtype:
     return torch.float32 if bound < 2**24 else torch.float64
 
 
-def fused_left_apply_2d_packed_plain(packed, mean, inv_std, w, precision="bf16"):
+def fused_left_apply_2d_packed_plain(geno, mean, inv_std, w, precision="bf16"):
     bf16 = _bf16(precision)
-    return standardize(packed, mean, inv_std, precision).T @ _operand(w, bf16)
+    return standardize(geno, mean, inv_std, precision).T @ _operand(w, bf16)
 
 
 # Integer products are computed exactly in f32 / f64: int8 matmul wraps
@@ -230,9 +236,13 @@ fused_right_apply_plain = fused_right_apply_packed_plain
 # C entry points of each pass, by genotype layout.
 _ENTRY = {
     torch.uint8: {"right": "gp_right_packed", "left": "gp_left_packed",
-                  "q8_w": "gp_q8_w", "q8_left": "gp_q8_left"},
+                  "q8_w": "gp_q8_w", "q8_left": "gp_q8_left",
+                  "left2d": "gp_left2d_packed", "q8_right2d": "gp_q8_right2d",
+                  "q8_left2d": "gp_q8_left2d"},
     torch.int8: {"right": "gp_right_dense", "left": "gp_left_dense",
-                 "q8_w": "gp_q8_w_dense", "q8_left": "gp_q8_left_dense"},
+                 "q8_w": "gp_q8_w_dense", "q8_left": "gp_q8_left_dense",
+                 "left2d": "gp_left2d_dense", "q8_right2d": "gp_q8_right2d_dense",
+                 "q8_left2d": "gp_q8_left2d_dense"},
 }
 
 
@@ -296,6 +306,15 @@ def _check_geno(geno: torch.Tensor, dtype) -> torch.Tensor:
     return geno
 
 
+def _layout(geno: torch.Tensor):
+    """The layout dtype of a 2-D kernel's genotypes: uint8 (packed) or
+    int8 (dense), the dispatch of the JAX 2-D q8 functions."""
+    if geno.dtype not in (torch.uint8, torch.int8):
+        raise TypeError(f"genotypes must be uint8 (packed) or int8 (dense), "
+                        f"got {geno.dtype}")
+    return geno.dtype
+
+
 def _samples(geno: torch.Tensor) -> int:
     return 4 * geno.shape[1] if geno.dtype == torch.uint8 else geno.shape[1]
 
@@ -346,7 +365,7 @@ def _launch_tsq(geno, mean, inv_std, b, bf16: bool):
 def _check_q8(geno, inv_std, u, bq, sb, csum, tile_d, dtype=torch.uint8):
     if tile_d <= 0 or tile_d % 64:
         raise ValueError(f"tile_d must be a positive multiple of 64, got {tile_d}")
-    geno = _check_geno(geno, dtype)
+    geno = _check_geno(geno, _layout(geno) if dtype is None else dtype)
     d, n = geno.shape[0], _samples(geno)
     dev = geno.device
     if bq.dim() != 2 or bq.shape[0] != n:
@@ -567,101 +586,161 @@ fused_right_apply_2d_packed_plain = fused_right_apply_packed_plain
 # atomics, a deterministic sum order, and no zeroing of the output.
 
 
-def fused_left_apply_2d_packed(packed, mean, inv_std, w, precision="bf16"):
-    """A^T W: (4 * N4, L) f32, original sample order."""
+def _left2d(geno, mean, inv_std, w, precision, dtype, name):
+    """A^T W through left2d_kernel of the layout `dtype`."""
     _bf16(precision)
-    if packed.dim() != 2:
-        raise ValueError(f"packed must be (D, N4), got {tuple(packed.shape)}")
-    d, n4 = packed.shape
-    dev = packed.device
-    packed = _require(packed, "packed", torch.uint8, (d, n4), dev)
+    geno = _check_geno(geno, dtype)
+    d, dev = geno.shape[0], geno.device
     mean = _require(mean, "mean", torch.float32, (d, 1), dev)
     inv_std = _require(inv_std, "inv_std", torch.float32, (d, 1), dev)
     if w.dim() != 2 or w.shape[0] != d:
         raise ValueError(f"w must be ({d}, L), got {tuple(w.shape)}")
     w = _require(w, "w", torch.float32, w.shape, dev)
-    if _route(packed) == "plain":
-        return fused_left_apply_2d_packed_plain(packed, mean, inv_std, w, precision)
-    LAUNCHES["fused_left_apply_2d_packed"] += 1
+    if _route(geno) == "plain":
+        return PLAIN[name](geno, mean, inv_std, w, precision)
+    LAUNCHES[name] += 1
     ell = w.shape[1]
-    out = torch.empty((4 * n4, ell), dtype=torch.float32, device=dev)
-    _launch(dev, "gp_left2d_packed", packed, mean, inv_std, w, out, d, n4, ell,
-            int(_bf16(precision)))
+    out = torch.empty((_samples(geno), ell), dtype=torch.float32, device=dev)
+    _launch(dev, _ENTRY[dtype]["left2d"], geno, mean, inv_std, w, out, d,
+            _samples(geno) // 4, ell, int(_bf16(precision)))
     return out
 
 
+def fused_left_apply_2d_packed(packed, mean, inv_std, w, precision="bf16"):
+    """A^T W: (4 * N4, L) f32, original sample order."""
+    return _left2d(packed, mean, inv_std, w, precision, torch.uint8,
+                   "fused_left_apply_2d_packed")
+
+
 # right_apply_2d_q8 replaces pallas_kernels.py right_apply_2d_q8 (:1096,
-# pallas_call :1112) for packed input: the raw integer products sum_j
-# G0 bq on __dp4a, summed in int32 over the whole row and converted to
-# f32 once (exact below 2^24, ~66k samples; the reference adds per-tile
-# int32 sums in f32).  Bound by the dp4a instruction rate.  One block
-# per 64 x 64 output tile; the main loop is the one of the 1-D q8 pass (q8_right_tile in
-# csrc/packed_common.cuh) without its fused corrections, which
-# q8_power_pass_2d does in torch.
+# pallas_call :1112), both branches: packed input (kernel 7) and int8
+# input (_clean_i8 :1048, kernel 7i), chosen by the genotype dtype as the
+# JAX function chooses.  The raw integer products sum_j G0 bq on __dp4a,
+# summed in int32 over the whole row and converted to f32 once (exact
+# below 2^24, ~66k samples; the reference adds per-tile int32 sums in
+# f32).  Bound by the dp4a instruction rate.  One block per 64 x 64
+# output tile; the main loop is the one of the 1-D q8 pass (q8_right_tile
+# in csrc/packed_common.cuh) without its fused corrections, which
+# q8_power_pass_2d does in torch.  The int8 branch takes G0 = max(g, 0)
+# of four samples at once with __vmaxs4 (DenseRows::lanes), so the -127
+# sentinel is raw 0, and reads D*N bytes where the packed one reads D*N/4.
+# Each branch has its own launch count: right_apply_2d_q8 (packed),
+# right_apply_2d_q8_i8 (int8).
+
+_Q8_2D_NAME = {torch.uint8: ("right_apply_2d_q8", "left_apply_2d_q8"),
+               torch.int8: ("right_apply_2d_q8_i8", "left_apply_2d_q8_i8")}
 
 
-def right_apply_2d_q8(packed, bq):
-    """G0 bq: (D, L) f32 of raw integer products."""
-    if packed.dim() != 2:
-        raise ValueError(f"packed must be (D, N4), got {tuple(packed.shape)}")
-    d, n4 = packed.shape
-    dev = packed.device
-    packed = _require(packed, "packed", torch.uint8, (d, n4), dev)
-    if bq.dim() != 2 or bq.shape[0] != 4 * n4:
-        raise ValueError(f"bq must be ({4 * n4}, L), got {tuple(bq.shape)}")
+def right_apply_2d_q8(geno, bq):
+    """G0 bq: (D, L) f32 of raw integer products; `geno` (D, N4) uint8
+    packed or (D, N) int8 dense."""
+    if geno.dim() != 2:
+        raise ValueError(f"geno must be 2-D, got shape {tuple(geno.shape)}")
+    dtype = _layout(geno)
+    geno = _check_geno(geno, dtype)
+    d, n, dev = geno.shape[0], _samples(geno), geno.device
+    if bq.dim() != 2 or bq.shape[0] != n:
+        raise ValueError(f"bq must be ({n}, L), got {tuple(bq.shape)}")
     bq = _require(bq, "bq", torch.int8, bq.shape, dev)
-    if _route(packed) == "plain":
-        return right_apply_2d_q8_plain(packed, bq)
-    LAUNCHES["right_apply_2d_q8"] += 1
+    if _route(geno) == "plain":
+        return right_apply_2d_q8_plain(geno, bq)
+    LAUNCHES[_Q8_2D_NAME[dtype][0]] += 1
     ell = bq.shape[1]
     out = torch.empty((d, ell), dtype=torch.float32, device=dev)
-    _launch(dev, "gp_q8_right2d", packed, bq, out, d, n4, ell)
+    _launch(dev, _ENTRY[dtype]["q8_right2d"], geno, bq, out, d, n // 4, ell)
     return out
 
 
 # left_apply_2d_q8 replaces pallas_kernels.py left_apply_2d_q8 (:1139,
-# pallas_call :1158) for packed input: sum_t sz[t] (G0_t^T z8_t) with z8
-# quantized per row tile of `tile_d`.  Bound by the dp4a instruction
-# rate.  One block per (64 samples x 64 columns) output tile loops over
-# all row tiles: the
-# int32 sum of a tile is exact, and is scaled by that tile's sz and added
-# to the f32 accumulator at every tile boundary (sums under different
-# scales cannot be added as integers).  No atomics, fixed sum order.
+# pallas_call :1158), both branches (kernel 8 packed, 8i int8, counted
+# apart): sum_t sz[t] (G0_t^T z8_t) with z8 quantized per row tile of
+# `tile_d`.  Bound by the dp4a instruction rate.  One block per (64
+# samples x 64 columns) output tile loops over all row tiles: the int32
+# sum of a tile is exact, and is scaled by that tile's sz and added to
+# the f32 accumulator at every tile boundary (sums under different scales
+# cannot be added as integers).  No atomics, fixed sum order.
 
 
-def left_apply_2d_q8(packed, z8, sz, tile_d):
-    """sum_t sz[t] G0_t^T z8_t: (4 * N4, L) f32, original sample order."""
-    if packed.dim() != 2:
-        raise ValueError(f"packed must be (D, N4), got {tuple(packed.shape)}")
+def left_apply_2d_q8(geno, z8, sz, tile_d):
+    """sum_t sz[t] G0_t^T z8_t: (N, L) f32, original sample order; `geno`
+    (D, N4) uint8 packed or (D, N) int8 dense."""
+    if geno.dim() != 2:
+        raise ValueError(f"geno must be 2-D, got shape {tuple(geno.shape)}")
     if tile_d <= 0:
         raise ValueError(f"tile_d must be positive, got {tile_d}")
-    d, n4 = packed.shape
-    dev = packed.device
-    packed = _require(packed, "packed", torch.uint8, (d, n4), dev)
+    dtype = _layout(geno)
+    geno = _check_geno(geno, dtype)
+    d, n, dev = geno.shape[0], _samples(geno), geno.device
     if z8.dim() != 2 or z8.shape[0] != d:
         raise ValueError(f"z8 must be ({d}, L), got {tuple(z8.shape)}")
     z8 = _require(z8, "z8", torch.int8, z8.shape, dev)
     sz = _require(sz, "sz", torch.float32, (-(-d // tile_d),), dev)
-    if _route(packed) == "plain":
-        return left_apply_2d_q8_plain(packed, z8, sz, tile_d)
-    LAUNCHES["left_apply_2d_q8"] += 1
+    if _route(geno) == "plain":
+        return left_apply_2d_q8_plain(geno, z8, sz, tile_d)
+    LAUNCHES[_Q8_2D_NAME[dtype][1]] += 1
     ell = z8.shape[1]
-    out = torch.empty((4 * n4, ell), dtype=torch.float32, device=dev)
-    _launch(dev, "gp_q8_left2d", packed, z8, sz, out, d, n4, ell, tile_d)
+    out = torch.empty((n, ell), dtype=torch.float32, device=dev)
+    _launch(dev, _ENTRY[dtype]["q8_left2d"], geno, z8, sz, out, d, n // 4, ell,
+            tile_d)
     return out
 
 
-def q8_power_pass_2d(packed, inv_std, u, bq, sb, csum, tile_d=1024):
+def q8_power_pass_2d(geno, inv_std, u, bq, sb, csum, tile_d=1024):
     """The quantized power pass of the 2-D mode, as the reference's
-    `q8_power_pass_2d` (pallas_kernels.py:1183-1222): kernels 7 and 8 for
-    the integer products, and between them the corrections and the
-    per-row-tile requantization in torch on the small (D, L)
-    intermediate, where the reference leaves them to XLA.  Same argument
-    contract and result as `fused_gram_q8_packed`."""
-    packed, inv_std, u, bq, sb, csum = _check_q8(packed, inv_std, u, bq, sb,
-                                                 csum, tile_d)
-    return _q8_pass(right_apply_2d_q8, left_apply_2d_q8, packed, inv_std, u,
+    `q8_power_pass_2d` (pallas_kernels.py:1183-1222): kernels 7 and 8
+    (packed) or 7i and 8i (int8) for the integer products, and between
+    them the corrections and the per-row-tile requantization in torch on
+    the small (D, L) intermediate, where the reference leaves them to XLA.
+    Same argument contract and result as `fused_gram_q8_packed`."""
+    geno, inv_std, u, bq, sb, csum = _check_q8(geno, inv_std, u, bq, sb,
+                                               csum, tile_d, None)
+    return _q8_pass(right_apply_2d_q8, left_apply_2d_q8, geno, inv_std, u,
                     bq, sb, csum, tile_d)
+
+
+# ---------------------------------------------------------------------------
+# The two exact kernels of the dense int8 2-D mode.
+#
+# fused_right_apply_2d replaces pallas_kernels.py fused_right_apply_2d
+# (:296, pallas_call :313; body _right2d_kernel :263): A B with both axes
+# tiled over (D, N) int8 dosages, bf16 operands and f32 sums, W NOT
+# rounded (the reference accumulates it in f32).  As kernel 5 reuses the
+# packed right kernel, this wrapper launches gp_right_dense
+# (csrc/dense_kernels.cu, one block per 64 x 64 output tile looping over
+# all samples) with round_out = 0 - the same computation - and keeps its
+# own launch count and plain version.  FMA bound: 2*D*N*L operations
+# against D*N bytes.
+
+
+def fused_right_apply_2d(geno, mean, inv_std, b, precision="bf16"):
+    """A B over (D, N) int8 dosages: (D, L) f32, W not rounded."""
+    geno, mean, inv_std, b = _check_common(geno, mean, inv_std, b, precision,
+                                           torch.int8)
+    if _route(geno) == "plain":
+        return fused_right_apply_2d_plain(geno, mean, inv_std, b, precision)
+    LAUNCHES["fused_right_apply_2d"] += 1
+    return _launch_right(geno, mean, inv_std, b, _bf16(precision), False)
+
+
+# fused_left_apply_2d replaces pallas_kernels.py fused_left_apply_2d
+# (:346, pallas_call :363; body _left2d_kernel :278): A^T W over (D, N)
+# int8 dosages with W rounded to bf16 on load in bf16 mode.  Kernel 6's
+# design (left2d_kernel of csrc/wide_kernels.cu, instantiated for
+# DenseRows): one block per (64 samples x 64 columns) output tile looping
+# over all rows in partials of 1,024, no atomics, a fixed sum order; the
+# loader reads one aligned 32-bit word (four samples) per thread.  FMA
+# bound: 2*D*N*L operations against D*N bytes.
+
+
+def fused_left_apply_2d(geno, mean, inv_std, w, precision="bf16"):
+    """A^T W over (D, N) int8 dosages: (N, L) f32."""
+    return _left2d(geno, mean, inv_std, w, precision, torch.int8,
+                   "fused_left_apply_2d")
+
+
+# The dense 2-D products are the same functions of A as the packed ones.
+fused_right_apply_2d_plain = fused_right_apply_packed_plain
+fused_left_apply_2d_plain = fused_left_apply_2d_packed_plain
 
 
 PLAIN = {
@@ -677,4 +756,8 @@ PLAIN = {
     "fused_gram_apply": fused_gram_apply_plain,
     "fused_tsq": fused_tsq_plain,
     "fused_right_apply": fused_right_apply_plain,
+    "fused_right_apply_2d": fused_right_apply_2d_plain,
+    "fused_left_apply_2d": fused_left_apply_2d_plain,
+    "right_apply_2d_q8_i8": right_apply_2d_q8_plain,
+    "left_apply_2d_q8_i8": left_apply_2d_q8_plain,
 }

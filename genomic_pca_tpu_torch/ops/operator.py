@@ -1,9 +1,11 @@
 """The standardized-genotype operator contract of the port.
 
 Counterpart of `genomic_pca_tpu/ops/operator.py`: A = diag(1/std)
-(G - mean) applied implicitly.  `parallel.sharded.ShardedMatrix` is the
-one implementation so far; `models.pca.streamed_pca` drives it through
-the `pca_core` fast path.
+(G - mean) applied implicitly.  Two implementations: the resident
+`parallel.sharded.ShardedMatrix`, which `models.pca.streamed_pca` drives
+through its `pca_core` fast path, and the host-streamed
+`ops.streaming.StreamingMatrix`, driven through `power_iterate` and
+`tsq_and_capture`.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ import dataclasses
 
 import numpy as np
 
-from genomic_pca_tpu.config import DataPrepConfig
+from genomic_pca_tpu_torch.config import DataPrepConfig
 from genomic_pca_tpu_torch.ops.hwe import hwe_chi2_p
 
 # counts-per-byte of each 2-bit code: _PACKED_CODE_COUNT[code][byte]

@@ -1,0 +1,371 @@
+"""Host-streamed standardized matrix, for genotype matrices larger than
+the card's memory.
+
+Counterpart of `genomic_pca_tpu/ops/streaming.py` on one device.  The
+genotype strips live on the host (decoded from the BED per pass, or held
+in RAM) and every pass streams all of them through the card: the
+prefetcher's worker threads make each strip's host payload
+(`io/prefetch.py` `StripPrefetcher`), the consumer thread copies it into
+one of two pinned staging buffers and uploads it on a side CUDA stream
+into one of two device buffers, and the compute stream waits on an event
+of that copy before it runs the strip's kernels.  Strip i + 1's copy thus
+overlaps strip i's kernels, and the host holds at most PREFETCH_DEPTH
+strips ready.
+
+Strips are PLINK 2-bit bytes (`packed=True`, a quarter of the bytes per
+pass over the host-device link, which bounds this container) or int8
+dosages with -127 missing, both in ORIGINAL sample order.  The mode ("1d"
+or "2d") follows the resident container's rule (`default_mode`), and each
+strip runs the kernels of its layout and mode:
+
+  mode "1d": gram = fused_gram_apply(_packed), q8 = fused_gram_q8(_packed),
+             right = fused_right_apply(_packed);
+  mode "2d": gram = fused_right_apply_2d(_packed) then
+             fused_left_apply_2d(_packed), q8 = q8_power_pass_2d,
+             right = fused_right_apply_2d(_packed);
+
+and tsq is W^T W of the f32 W = right(B) in both modes, as in the
+reference.  Partial sums over strips are added on the device.
+
+`last_telemetry` describes the last pass and `pass_log` every pass of
+the container: strips, bytes uploaded, host wall seconds, the
+seconds the copies took on the copy stream and their GB/s, and the
+seconds the compute stream waited on copies (CUDA events; None on the
+CPU).
+
+Not ported: the multi-device round-robin of strips (multi-GPU work), the
+reference's plane-major sample permutation and VMEM tile sizing (the
+kernels here take any row count and original sample order), and its
+relayed backend's rule on which thread may upload (uploads here run on
+the consumer thread because the staging buffers are its own).
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from genomic_pca_tpu_torch.io.prefetch import StripPrefetcher
+from genomic_pca_tpu_torch.ops import kernels
+from genomic_pca_tpu_torch.ops.rsvd import quantize_basis, subspace_residual
+from genomic_pca_tpu_torch.ops.standardize import MISSING
+from genomic_pca_tpu_torch.parallel.sharded import (
+    PACKED_MISSING_BYTE, default_mode, dense_cols, inv_std_of, packed_cols,
+    resolve_q8_polish,
+)
+
+log = logging.getLogger(__name__)
+
+# Strips the prefetcher holds ready ahead of the consumer, and its most
+# worker threads (the reference container's defaults).
+PREFETCH_DEPTH = 3
+PREFETCH_WORKERS = 4
+
+# Kernels of each (packed, mode): (right, left or None, gram 1-D or None, q8).
+_STRIP_KERNELS = {
+    (True, "1d"): (kernels.fused_right_apply_packed, None,
+                   kernels.fused_gram_apply_packed, kernels.fused_gram_q8_packed),
+    (False, "1d"): (kernels.fused_right_apply, None, kernels.fused_gram_apply,
+                    kernels.fused_gram_q8),
+    (True, "2d"): (kernels.fused_right_apply_2d_packed,
+                   kernels.fused_left_apply_2d_packed, None,
+                   kernels.q8_power_pass_2d),
+    (False, "2d"): (kernels.fused_right_apply_2d, kernels.fused_left_apply_2d,
+                    None, kernels.q8_power_pass_2d),
+}
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+class StreamingMatrix:
+    """Standardized genotype operator streamed from the host per pass.
+
+    `strip_source(i)` returns host arrays for strip i:
+      dense  - (geno int8 (S, N), mean (S,), std (S,)), -127 missing;
+      packed - (PLINK bytes uint8 (S, ceil(N/4)), mean (S,), std (S,)),
+               trailing fields sanitized (`sanitize_partial_byte`);
+    with S <= `strip_size` rows (strip i holds matrix rows
+    [i * strip_size, ...)).  Rows and columns pad here with inert values
+    (missing genotypes, inv_std 0).
+    """
+
+    # Device bytes that `tsq_and_project` may keep of per-strip A B
+    # products; past it callers take `tsq_and_capture`.
+    _CAPTURE_DEVICE_BUDGET = 6 << 30
+
+    def __init__(
+        self,
+        strip_source: Callable[[int], Tuple[np.ndarray, np.ndarray, np.ndarray]],
+        n_strips: int,
+        n_rows: int,
+        n_samples: int,
+        strip_size: int,
+        mode: Optional[str] = None,
+        tile_d: int = 1024,
+        kernel_precision: str = "q8",
+        packed: bool = False,
+        device="cuda",
+        q8_polish: Optional[int] = None,
+        missing_fraction: Optional[float] = None,
+    ):
+        if kernel_precision not in ("q8", "bf16", "f32"):
+            raise ValueError(f"unknown kernel_precision {kernel_precision!r}")
+        if mode not in (None, "1d", "2d"):
+            raise ValueError(f"mode must be None, '1d' or '2d', got {mode!r}")
+        self.device = torch.device(device)
+        self._source = strip_source
+        self.n_strips = n_strips
+        self.n_rows = n_rows
+        self.n_samples = n_samples
+        self.strip_size = strip_size
+        self.packed = packed
+        self.n_cols = packed_cols(n_samples) if packed else dense_cols(n_samples)
+        self.n_pad = 4 * self.n_cols if packed else self.n_cols
+        self.kernel_precision = kernel_precision
+        self.exact_precision = "bf16" if kernel_precision == "q8" else kernel_precision
+        self.mode = mode or default_mode(self.n_pad, kernel_precision, packed)
+        # The q8 quantization tile: a multiple of 64 no longer than a strip.
+        self.tile_d = min(tile_d, _round_up(strip_size, 64))
+        self.q8_polish = resolve_q8_polish(q8_polish, missing_fraction)
+        self._right, self._left, self._gram1d, self._q8 = _STRIP_KERNELS[
+            (packed, self.mode)]
+        self._staging = None  # (pinned host, device) buffer pairs, 2 slots
+        self._copy_stream = None
+        self.pass_log: List[Dict] = []
+        self.last_telemetry: Optional[Dict] = None
+        log.info("Host-streamed container: %d strips of %d rows, %s, mode %s, "
+                 "%s on %s.", n_strips, strip_size,
+                 "packed" if packed else "dense int8", self.mode,
+                 kernel_precision, self.device)
+
+    # ------------------------------------------------------------------
+    def _fetch(self, i: int):
+        """Host payload of strip i, padded to (strip_size, n_cols): runs on
+        a prefetch worker thread."""
+        g, m, s = self._source(i)
+        dtype = np.uint8 if self.packed else np.int8
+        fill = PACKED_MISSING_BYTE if self.packed else MISSING
+        g = np.asarray(g, dtype=dtype)
+        rows = g.shape[0]
+        out = np.full((self.strip_size, self.n_cols), fill, dtype=dtype)
+        out[:rows, : g.shape[1]] = g
+        mean = np.zeros((self.strip_size, 1), dtype=np.float32)
+        inv = np.zeros((self.strip_size, 1), dtype=np.float32)
+        mean[:rows, 0] = np.asarray(m, dtype=np.float32)
+        inv[:rows, 0] = inv_std_of(np.asarray(s, dtype=np.float32))
+        return (out, mean, inv), out.nbytes + mean.nbytes + inv.nbytes
+
+    def _buffers(self):
+        """Two slots of (pinned host, device) buffers for (geno, mean,
+        inv_std), made at the first pass on a CUDA device and reused."""
+        if self._staging is None:
+            dt = torch.uint8 if self.packed else torch.int8
+            shapes = ((self.strip_size, self.n_cols, dt),
+                      (self.strip_size, 1, torch.float32),
+                      (self.strip_size, 1, torch.float32))
+            self._staging = [
+                [(torch.empty(r, c, dtype=t, pin_memory=True),
+                  torch.empty(r, c, dtype=t, device=self.device))
+                 for r, c, t in shapes]
+                for _ in range(2)
+            ]
+            self._copy_stream = torch.cuda.Stream(self.device)
+        return self._staging
+
+    def _strips(self, name: str):
+        """Yield (i, geno, mean, inv_std) device tensors strip by strip.
+        A yielded strip stays valid until the consumer asks for the next
+        but one; telemetry of the pass is taken when it ends."""
+        t0 = time.perf_counter()
+        p = StripPrefetcher(self._fetch, self.n_strips, depth=PREFETCH_DEPTH,
+                            max_workers=PREFETCH_WORKERS)
+        cuda = self.device.type == "cuda"
+        timed = []  # per strip: (copy start, copy end, stall start, stall end)
+        n_bytes = 0
+        try:
+            if not cuda:
+                for i, payload in enumerate(p):
+                    n_bytes += sum(x.nbytes for x in payload)
+                    yield (i, *(torch.from_numpy(x) for x in payload))
+            else:
+                slots = self._buffers()
+                compute = torch.cuda.current_stream(self.device)
+                done = [None, None]  # per slot: the compute event of its last strip
+                for i, payload in enumerate(p):
+                    slot = slots[i % 2]
+                    if done[i % 2] is not None:
+                        # The pinned buffer's last copy has finished once the
+                        # kernels that read its device twin were enqueued
+                        # after it; wait for that copy on the host.
+                        timed[i - 2][1].synchronize()
+                    for (host, _), x in zip(slot, payload):
+                        host.numpy()[...] = x
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                    with torch.cuda.stream(self._copy_stream):
+                        if done[i % 2] is not None:
+                            self._copy_stream.wait_event(done[i % 2])
+                        ev[0].record(self._copy_stream)
+                        for host, dev in slot:
+                            dev.copy_(host, non_blocking=True)
+                        ev[1].record(self._copy_stream)
+                    ev[2].record(compute)
+                    compute.wait_event(ev[1])
+                    ev[3].record(compute)
+                    timed.append(ev)
+                    n_bytes += sum(host.nbytes for host, _ in slot)
+                    yield (i, *(dev for _, dev in slot))
+                    done[i % 2] = torch.cuda.Event()
+                    done[i % 2].record(compute)
+                torch.cuda.synchronize(self.device)
+        finally:
+            p.close()
+        secs = time.perf_counter() - t0
+        copy_s = sum(a.elapsed_time(b) for a, b, _, _ in timed) / 1e3 if cuda else None
+        wait_s = sum(c.elapsed_time(d) for _, _, c, d in timed) / 1e3 if cuda else None
+        self.last_telemetry = {
+            "pass": name, "strips": self.n_strips, "bytes": n_bytes,
+            "seconds": secs, "copy_seconds": copy_s,
+            "copy_gbps": (n_bytes / copy_s / 1e9) if copy_s else None,
+            "compute_wait_seconds": wait_s,
+            "prefetch_consumer_waits": p.telemetry.consumer_waits,
+        }
+        self.pass_log.append(self.last_telemetry)
+        if cuda:
+            log.info("Streamed pass %s: %d strips, %.1f MiB uploaded in %.3f s "
+                     "(copies %.4f s, %.2f GB/s; compute stream waited %.4f s).",
+                     name, self.n_strips, n_bytes / 2**20, secs, copy_s,
+                     self.last_telemetry["copy_gbps"] or 0.0, wait_s)
+
+    def _real_rows(self, i: int) -> int:
+        return min(self.strip_size, self.n_rows - i * self.strip_size)
+
+    def _pad_b(self, b) -> torch.Tensor:
+        b = torch.as_tensor(b, dtype=torch.float32, device=self.device)
+        out = torch.zeros((self.n_pad, b.shape[1]), dtype=torch.float32,
+                          device=self.device)
+        out[: b.shape[0]] = b
+        return out
+
+    # ---- one strip ----------------------------------------------------
+    def _strip_right(self, g, m, iv, bp):
+        return self._right(g, m, iv, bp, self.exact_precision)
+
+    def _strip_gram(self, g, m, iv, bp):
+        if self._gram1d is not None:
+            return self._gram1d(g, m, iv, bp, self.exact_precision)
+        w = self._right(g, m, iv, bp, self.exact_precision)
+        return self._left(g, m, iv, w, self.exact_precision)
+
+    def _strip_gram_q8(self, g, m, iv, bq, sb, csum):
+        """One strip's partial of T = A^T A b with the rank-1 term already
+        folded (linear, so the fold commutes with the strip sum)."""
+        out, ru = self._q8(g, iv, m * iv, bq, sb, csum, tile_d=self.tile_d)
+        return out - ru
+
+    # ---- public passes ------------------------------------------------
+    def gram_apply(self, b) -> torch.Tensor:
+        """A^T (A B): (n_samples, l) on the device."""
+        bp = self._pad_b(b)
+        acc = None
+        for _, g, m, iv in self._strips("gram"):
+            part = self._strip_gram(g, m, iv, bp)
+            acc = part if acc is None else acc + part
+        return acc[: self.n_samples]
+
+    def _gram_apply_q8(self, b) -> torch.Tensor:
+        """Quantized steering pass, used only inside `power_iterate`."""
+        bq, sb, csum = quantize_basis(self._pad_b(b))
+        acc = None
+        for _, g, m, iv in self._strips("q8"):
+            part = self._strip_gram_q8(g, m, iv, bq, sb, csum)
+            acc = part if acc is None else acc + part
+        return acc[: self.n_samples]
+
+    def power_iterate(self, b0, n_iter: int, tolerance: Optional[float] = None):
+        """n_iter x (B <- qr(A^T A B)), one streaming pass each: the
+        (n_samples, l) orthonormal basis.  With kernel_precision "q8" the
+        first n_iter - q8_polish passes steer through the q8 kernels and
+        the last q8_polish run exact; with `tolerance` the steering passes
+        exit early on the subspace residual (the exact polish always
+        runs) and the return is (basis, passes run)."""
+        b = torch.as_tensor(b0, dtype=torch.float32, device=self.device)
+        use_q8 = self.kernel_precision == "q8"
+        n_q8 = max(n_iter - self.q8_polish, 0) if use_q8 else 0
+        n_done = 0
+        converged = False
+        for t in range(n_iter):
+            is_polish = use_q8 and t >= n_q8
+            if converged and not is_polish:
+                continue
+            tmat = self._gram_apply_q8(b) if t < n_q8 else self.gram_apply(b)
+            res = None
+            if tolerance is not None and t > 0 and not converged:
+                res = float(subspace_residual(b, tmat))
+            b = torch.linalg.qr(tmat)[0]
+            n_done += 1
+            if res is not None and res < tolerance:
+                if not use_q8:
+                    break
+                converged = True  # skip the remaining steering; polish runs
+        return b if tolerance is None else (b, n_done)
+
+    def tsq_accumulate(self, b) -> torch.Tensor:
+        """(A B)^T (A B): (l, l) on the device, W^T W of the f32 W."""
+        bp = self._pad_b(b)
+        acc = None
+        for _, g, m, iv in self._strips("tsq"):
+            w = self._strip_right(g, m, iv, bp)
+            acc = w.T @ w if acc is None else acc + w.T @ w
+        return acc
+
+    def right_apply(self, b) -> np.ndarray:
+        """A B on the host with padding removed: (n_rows, l)."""
+        bp = self._pad_b(b)
+        outs = []
+        for i, g, m, iv in self._strips("right"):
+            outs.append(self._strip_right(g, m, iv, bp)[: self._real_rows(i)].cpu().numpy())
+        return np.concatenate(outs, axis=0)
+
+    def tsq_and_project(self, b):
+        """One pass giving `tsq_accumulate(b)` and a `project(w) -> (n_rows,
+        k)` host closure over the per-strip A B products, which stay on the
+        device, so that the loadings (A B) W download as (n_rows, k).
+        None when the products would pass `_CAPTURE_DEVICE_BUDGET` (callers
+        then take `tsq_and_capture`)."""
+        if self.n_strips * self.strip_size * b.shape[1] * 4 > self._CAPTURE_DEVICE_BUDGET:
+            return None
+        bp = self._pad_b(b)
+        acc = None
+        ws = []
+        for i, g, m, iv in self._strips("tsq_capture"):
+            w = self._strip_right(g, m, iv, bp)
+            acc = w.T @ w if acc is None else acc + w.T @ w
+            ws.append(w[: self._real_rows(i)])
+
+        def project(w_small) -> np.ndarray:
+            w_dev = torch.as_tensor(np.asarray(w_small, dtype=np.float32),
+                                    device=self.device)
+            out = torch.cat([w @ w_dev for w in ws]).cpu().numpy()
+            ws.clear()  # release the captured products
+            return out
+
+        return acc, project
+
+    def tsq_and_capture(self, b):
+        """One pass giving `tsq_accumulate(b)` ((l, l), device) and A B
+        ((n_rows, l), host): the loadings are (A B) W / sigma without a
+        further pass over the matrix."""
+        bp = self._pad_b(b)
+        acc = None
+        outs = []
+        for i, g, m, iv in self._strips("tsq_capture"):
+            w = self._strip_right(g, m, iv, bp)
+            acc = w.T @ w if acc is None else acc + w.T @ w
+            outs.append(w[: self._real_rows(i)].cpu().numpy())
+        return acc, np.concatenate(outs, axis=0)

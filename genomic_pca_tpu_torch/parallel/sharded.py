@@ -16,13 +16,12 @@ padding of its own; `from_reference_arrays` keeps the reference's.
 
 Two modes, as in the JAX container: "1d" runs the four 1-D kernels of the
 layout; "2d", the wide-sample mode, runs every exact pass as the right
-product then the left product over both tiled axes, and every q8
-steering pass through `q8_power_pass_2d`.  The modes differ numerically
-(the 2-D tsq takes W in f32, the 1-D one W rounded to bf16), so the port
-switches at the sample count where the JAX container does.  The dense
-2-D kernels are not ported yet: a dense container in 2-D mode builds, and
-`left_apply`, `fetch_blocks_device` and `count_missing` work, but its PCA
-passes raise `ComputeError`.
+product then the left product over both tiled axes (kernels 5 and 6
+packed, 13 and 14 dense), and every q8 steering pass through
+`q8_power_pass_2d` (kernels 7 and 8, or their int8 branches 7i and 8i).
+The modes differ numerically (the 2-D tsq takes W in f32, the 1-D one W
+rounded to bf16), so the port switches at the sample count where the JAX
+container does.
 
 Not ported here: the from_local_rows / from_owned_units constructors, row
 segments (the one-device layout is a single segment) and the TPU tile
@@ -36,7 +35,6 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from genomic_pca_tpu.errors import ComputeError
 from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.rsvd import (
     cholqr2_q, quantize_basis, subspace_residual,
@@ -143,7 +141,7 @@ def sanitize_partial_byte(packed: np.ndarray, n_samples: int) -> np.ndarray:
 def pack_int8_rows(geno: np.ndarray) -> np.ndarray:
     """(D, N) int8 dosages (-127 missing) -> (D, ceil(N/4)) PLINK bytes
     with inert trailing fields."""
-    from genomic_pca_tpu.io.bed import pack_bed_rows
+    from genomic_pca_tpu_torch.io.bed import pack_bed_rows
 
     geno = np.asarray(geno)
     return sanitize_partial_byte(pack_bed_rows(geno), geno.shape[1])
@@ -159,6 +157,11 @@ _KERNELS_1D = {
            kernels.fused_right_apply_packed, kernels.fused_gram_q8_packed),
     False: (kernels.fused_gram_apply, kernels.fused_tsq,
             kernels.fused_right_apply, kernels.fused_gram_q8),
+}
+# The exact 2-D products of each layout: right (A B), left (A^T W).
+_KERNELS_2D = {
+    True: (kernels.fused_right_apply_2d_packed, kernels.fused_left_apply_2d_packed),
+    False: (kernels.fused_right_apply_2d, kernels.fused_left_apply_2d),
 }
 
 
@@ -209,6 +212,7 @@ class ShardedMatrix:
         self.n_pad = geno.shape[1] * 4 if self.packed else geno.shape[1]
         self.mode = mode or default_mode(self.n_pad, kernel_precision, self.packed)
         self._k1d = _KERNELS_1D[self.packed]
+        self._k2d = _KERNELS_2D[self.packed]
         self._u = mean * inv_std
         self._pmask = (
             torch.arange(self.n_pad, device=self.device) < n_samples
@@ -354,44 +358,27 @@ class ShardedMatrix:
     # (genomic_pca_tpu/parallel/sharded.py:948-1061).  In 2-D mode gram
     # is W = A B then A^T W, tsq is W^T W on the f32 W (a plain f32
     # product, TF32 off, as the reference's jnp.dot at HIGHEST outside
-    # any kernel), and the q8 pass is q8_power_pass_2d.
-    def _wide(self) -> bool:
-        """True in 2-D mode; raises for the dense layout, whose 2-D
-        kernels are not ported yet."""
-        if self.mode != "2d":
-            return False
-        if not self.packed:
-            raise ComputeError(
-                f"The dense int8 container at n_pad {self.n_pad} runs in 2-D "
-                f"mode (from {DENSE_WIDE_N_PAD:,} samples; {DENSE_WIDE_N_PAD_F32:,}"
-                " in f32), whose kernels - fused_right_apply_2d, "
-                "fused_left_apply_2d and the int8 branch of right_apply_2d_q8 "
-                "/ left_apply_2d_q8 - are not yet ported in "
-                "genomic_pca_tpu_torch; use the packed layout "
-                "(packed_pipeline=True)."
-            )
-        return True
-
+    # any kernel), and the q8 pass is q8_power_pass_2d; both layouts.
     def _gram(self, bp: torch.Tensor) -> torch.Tensor:
         args = (self.geno, self.mean, self.inv_std)
-        if self._wide():
-            w = kernels.fused_right_apply_2d_packed(*args, bp, self.exact_precision)
-            return kernels.fused_left_apply_2d_packed(*args, w, self.exact_precision)
+        if self.mode == "2d":
+            w = self._k2d[0](*args, bp, self.exact_precision)
+            return self._k2d[1](*args, w, self.exact_precision)
         return self._k1d[0](*args, bp, self.exact_precision)
 
     def _tsq(self, bp: torch.Tensor) -> torch.Tensor:
-        if self._wide():
+        if self.mode == "2d":
             w = self._right(bp)
             return w.T @ w
         return self._k1d[1](self.geno, self.mean, self.inv_std, bp,
                             self.exact_precision)
 
     def _right(self, bp: torch.Tensor) -> torch.Tensor:
-        fn = kernels.fused_right_apply_2d_packed if self._wide() else self._k1d[2]
+        fn = self._k2d[0] if self.mode == "2d" else self._k1d[2]
         return fn(self.geno, self.mean, self.inv_std, bp, self.exact_precision)
 
     def _gram_q8(self, bp: torch.Tensor) -> torch.Tensor:
-        fn = kernels.q8_power_pass_2d if self._wide() else self._k1d[3]
+        fn = kernels.q8_power_pass_2d if self.mode == "2d" else self._k1d[3]
         bq, sb, csum = quantize_basis(bp)
         out, ru = fn(self.geno, self.inv_std, self._u, bq, sb, csum,
                      tile_d=self.tile_d)

@@ -3,10 +3,9 @@ the projection of new samples through a fitted model.
 
 Counterparts of `genomic_pca_tpu/workflows.py` `run_vcf_workflow`,
 `run_eigensnp_workflow` and `run_projection_workflow`, single process, on
-an explicit `device`.  VCF parsing reuses the JAX package's jax-free
-per-file functions (`genomic_pca_tpu.io.vcf`) with this module's own spawn
-pool; outputs go through the shared `genomic_pca_tpu.io.writers` and are
-the reference's files.
+an explicit `device`.  VCF parsing runs the per-file functions of the
+port's `io/vcf.py` in this module's own spawn pool; outputs go through
+the port's `io/writers.py` and are the reference's files.
 """
 
 from __future__ import annotations
@@ -20,17 +19,17 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from genomic_pca_tpu.config import DataPrepConfig, EigenSnpConfig, RsvdConfig
-from genomic_pca_tpu.errors import DataPrepError, VcfParseError
-from genomic_pca_tpu.io.bed import BedReader
-from genomic_pca_tpu.io.vcf import (
+from genomic_pca_tpu_torch.config import DataPrepConfig, EigenSnpConfig, RsvdConfig
+from genomic_pca_tpu_torch.errors import DataPrepError, VcfParseError
+from genomic_pca_tpu_torch.io.bed import BedReader
+from genomic_pca_tpu_torch.io.vcf import (
     discover_vcf_files, process_single_vcf, read_vcf_sample_names,
 )
-from genomic_pca_tpu.io.writers import (
+from genomic_pca_tpu_torch.io.writers import (
     read_loadings, read_moments, write_eigenvalues, write_loadings,
     write_principal_components,
 )
-from genomic_pca_tpu.io.writers import write_moments as write_moments_tsv
+from genomic_pca_tpu_torch.io.writers import write_moments as write_moments_tsv
 from genomic_pca_tpu_torch.models.eigensnp import compute_eigensnp_pca
 from genomic_pca_tpu_torch.models.pca import StripProjector, streamed_pca
 from genomic_pca_tpu_torch.models.prepare import prepare_data
@@ -117,8 +116,10 @@ def run_vcf_workflow(
             device=device,
         )
     log.info(
-        "Assembled %d variants x %d samples (%d packed bytes per row) on %s.",
+        "Assembled %d variants x %d samples (%d packed bytes per row) on %s "
+        "(device-resident container, %s mode).",
         matrix.n_rows, matrix.n_samples, matrix.geno.shape[1], matrix.device,
+        matrix.mode,
     )
 
     with timer.stage("Randomized PCA (rfit)"):
@@ -152,6 +153,7 @@ def run_eigensnp_workflow(
     write_moments: bool = False,
     stop_after_checkpoint: Optional[str] = None,
     device="cuda",
+    force_streaming: bool = False,
 ) -> None:
     """BED + LD blocks -> QC -> two-stage EigenSNP PCA -> TSVs.
 
@@ -159,9 +161,11 @@ def run_eigensnp_workflow(
     `{prefix}.eigensnp.loadings.tsv`, with `write_moments`
     `{prefix}.eigensnp.moments.tsv`, and with diagnostics
     `{prefix}.eigensnp_diagnostics.json`.  A run stopped after a
-    checkpoint writes nothing.  Logs the stage split on one line at the
-    end: QC + LD mapping, matrix load, stages 1-2, global PCA,
-    refinement + write."""
+    checkpoint writes nothing.  `force_streaming` takes the host-streamed
+    container whatever the memory budget (no CLI flag, as in the JAX
+    CLI).  Logs the container that ran, the stage split on one line at
+    the end (QC + LD mapping, matrix load, stages 1-2, global PCA,
+    refinement + write) and the kernel launches."""
     timer = StageTimer()
     with timer.stage("Data preparation (QC + LD mapping)"):
         prep = prepare_data(prep_config)
@@ -170,6 +174,7 @@ def run_eigensnp_workflow(
         result = compute_eigensnp_pca(
             prep, algo_config, device=device, checkpoint_dir=checkpoint_dir,
             stop_after_checkpoint=stop_after_checkpoint,
+            force_streaming=force_streaming,
         )
     if result is None:
         timer.log_summary("EigenSNP partial-run stage timings (stopped after "
@@ -196,6 +201,7 @@ def run_eigensnp_workflow(
             log.info("Wrote diagnostics to %s", path)
 
     timer.log_summary("EigenSNP workflow stage timings")
+    log.info("EigenSNP matrix container: %s.", result.container)
     st, ss = timer.stages, result.stage_seconds
     log.info(
         "EigenSNP stage split: qc_ld %.3f s, matrix_load %.3f s, stages_1_2 "

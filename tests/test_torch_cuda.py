@@ -273,3 +273,123 @@ def test_pca_core_dense_on_cuda_matches_cpu(cuda_device):
     for j in range(5):
         assert abs_corr(vc[:, j], vg[:, j]) > 0.9999, j
         assert abs_corr(lc[:, j], lg[:, j]) > 0.9999, j
+
+
+# ---------------------------------------------------------------------------
+# The dense 2-D kernels 13, 14, 7i and 8i.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("name", ["fused_right_apply_2d", "fused_left_apply_2d"])
+def test_dense_2d_exact_kernel_matches_plain(cuda_device, name, precision):
+    """Kernels 13 and 14 on 5%-missing int8 with an inert row: the same
+    products in another f32 sum order (W unrounded in 13, rounded on load
+    in 14, as the plain versions): the bars of kernels 5 and 6."""
+    geno, mu, inv, b = _on(cuda_device, *dense_case(np.random.default_rng(11)))
+    arg = (b if name == "fused_right_apply_2d"
+           else torch.randn((geno.shape[0], 128), device=cuda_device) * 3.0)
+    tk.reset_launch_counts()
+    got = getattr(tk, name)(geno, mu, inv, arg, precision=precision)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == dict(ZERO, **{name: 1})
+    ref = tk.PLAIN[name](geno, mu, inv, arg, precision)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,tile_d", [(300, 252, 64), (2048, 512, 1024)])
+def test_dense_2d_q8_kernels_match_plain_and_quant_model(cuda_device, d, n, tile_d):
+    """Kernel 7i bit for bit (exact integer sums, the sentinel as raw 0),
+    8i to 1e-5 (f32 sum order over tiles), the whole dense 2-D pass
+    against the plain pass and the float64 replay (1e-3 of max|T|, as the
+    packed 2-D pass); each branch counts under its own key."""
+    g, iv, u, bq, sb, csum = q8_case(np.random.default_rng(12), d, n, 128,
+                                     missing_rate=0.05)
+    args = _on(cuda_device, g, iv, u, bq, sb, csum)
+    geno, bq_t = args[0], args[3]
+    tk.reset_launch_counts()
+    w = tk.right_apply_2d_q8(geno, bq_t)
+    assert torch.equal(w, tk.right_apply_2d_q8_plain(geno, bq_t))
+    z8 = torch.randint(-127, 128, (d, 128), dtype=torch.int8, device=cuda_device)
+    sz = torch.rand(-(-d // tile_d), device=cuda_device) + 0.01
+    got = tk.left_apply_2d_q8(geno, z8, sz, tile_d)
+    ref = tk.left_apply_2d_q8_plain(geno, z8, sz, tile_d)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    out, ru = tk.q8_power_pass_2d(*args, tile_d=tile_d)
+    assert tk.LAUNCHES == dict(ZERO, right_apply_2d_q8_i8=2, left_apply_2d_q8_i8=2)
+    t = (out - ru).cpu().numpy()
+    out_p, ru_p = tk.fused_gram_q8_plain(*args, tile_d=tile_d)
+    t_p = (out_p - ru_p).cpu().numpy()
+    np.testing.assert_allclose(t, t_p, rtol=1e-5, atol=1e-5 * np.abs(t_p).max())
+    t_ref = quant_model(g, iv, u, bq, float(sb[0, 0]), tile_d)
+    assert np.abs(t - t_ref).max() <= 1e-3 * np.abs(t_ref).max()
+
+
+@pytest.mark.cuda
+def test_pca_core_dense_2d_on_cuda_matches_cpu(cuda_device):
+    """The dense container's 2-D core on the card (13, 14, 7i, 8i and no
+    other kernel) against the CPU (plain versions)."""
+    rng = np.random.default_rng(13)
+    g = balding_nichols(rng, 3000, 300, missing_rate=0.01, n_pops=6, fst=0.15)
+    valid = g != -127
+    mean = (np.where(valid, g, 0).sum(1) / valid.sum(1)).astype(np.float32)
+    std = np.ones_like(mean)
+    b0 = torch.from_numpy(rng.standard_normal((300, 64)).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        sm = ShardedMatrix.from_arrays(iter([g]), means=[mean], stds=[std],
+                                       device=dev, mode="2d")
+        tk.reset_launch_counts()
+        v, s, e, load = sm.pca_core(b0.to(dev), 4, 5)
+        outs[str(dev)] = (v.cpu().numpy(), s.cpu().numpy(), load)
+        if dev != "cpu":
+            assert tk.LAUNCHES == dict(
+                ZERO, fused_right_apply_2d=3, fused_left_apply_2d=1,
+                right_apply_2d_q8_i8=3, left_apply_2d_q8_i8=3)
+    (vc, sc, lc), (vg, sg, lg) = outs["cpu"], outs["cuda"]
+    np.testing.assert_allclose(sg, sc, rtol=1e-3)
+    for j in range(5):
+        assert abs_corr(vc[:, j], vg[:, j]) > 0.9999, j
+        assert abs_corr(lc[:, j], lg[:, j]) > 0.9999, j
+
+
+# ---------------------------------------------------------------------------
+# The host-streamed container: pinned staging, a copy stream, events.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("mode", ["1d", "2d"])
+def test_streaming_on_cuda_matches_cpu(cuda_device, packed, mode):
+    """Five strips (a ragged last one) through the two staging slots:
+    every pass on the card against the CPU run of the same strips, and
+    the upload telemetry of each pass."""
+    from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
+    from genomic_pca_tpu_torch.parallel.sharded import host_moments
+
+    rng = np.random.default_rng(14)
+    g = balding_nichols(rng, 600, 300, missing_rate=0.02, n_pops=5, fst=0.15)
+    mean, std = host_moments(g)
+
+    def source(i):
+        lo, hi = 128 * i, min(128 * (i + 1), 600)
+        rows = pack_int8_rows(g[lo:hi]) if packed else g[lo:hi]
+        return rows, mean[lo:hi], std[lo:hi]
+
+    b = torch.from_numpy(rng.standard_normal((300, 16)).astype(np.float32))
+    got = {}
+    for dev in ("cpu", cuda_device):
+        sm = StreamingMatrix(source, 5, 600, 300, 128, mode=mode, packed=packed,
+                             kernel_precision="f32", device=dev)
+        got[str(dev)] = (sm.gram_apply(b.to(dev)).cpu().numpy(),
+                         sm.tsq_accumulate(b.to(dev)).cpu().numpy(),
+                         sm.right_apply(b.to(dev)))
+        if dev != "cpu":
+            for tel in sm.pass_log:
+                assert tel["strips"] == 5 and tel["bytes"] > 0
+                assert tel["copy_seconds"] > 0 and tel["compute_wait_seconds"] >= 0
+    for a, c in zip(got["cpu"], got["cuda"]):
+        np.testing.assert_allclose(c, a, rtol=1e-4, atol=1e-4 * np.abs(a).max())

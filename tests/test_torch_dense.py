@@ -1,11 +1,14 @@
 """The port's dense int8 layout against the JAX package, on the CPU.
 
 Kernels 9-12 (`fused_gram_q8`, `fused_gram_apply`, `fused_right_apply`,
-`fused_tsq`) run their plain versions here and are held against the JAX
-kernels in interpret mode at the reference tests' tolerances; the dense
-container (`from_arrays`, the passes, `left_apply`, `fetch_blocks_device`,
-`count_missing`, the mode switch), `prepare_data(packed_pipeline=False)`
-and EigenSNP on the dense container are held against the JAX package's.
+`fused_tsq`) and the dense 2-D kernels 13, 14, 7i and 8i
+(`fused_right_apply_2d`, `fused_left_apply_2d`, the int8 branches of
+`right_apply_2d_q8` / `left_apply_2d_q8`) run their plain versions here
+and are held against the JAX kernels in interpret mode at the reference
+tests' tolerances; the dense container in both modes (`from_arrays`, the
+passes, `left_apply`, `fetch_blocks_device`, `count_missing`, the mode
+switch), `prepare_data(packed_pipeline=False)` and EigenSNP on the dense
+container are held against the JAX package's.
 The CUDA kernels are held against these plain versions on the card in
 tests/test_torch_cuda.py.
 """
@@ -20,16 +23,18 @@ import pytest
 import torch
 
 from genomic_pca_tpu.config import EigenSnpConfig
-from genomic_pca_tpu.errors import ComputeError
 from genomic_pca_tpu.models import eigensnp as jes
+from genomic_pca_tpu.models import pca as jpca
 from genomic_pca_tpu.models import prepare as jprep
 from genomic_pca_tpu.ops import pallas_kernels as pk
 from genomic_pca_tpu.ops import standardize as jstd
 from genomic_pca_tpu.parallel import sharded as js
 from genomic_pca_tpu.parallel.mesh import make_mesh
 from genomic_pca_tpu_torch.models import eigensnp as tes
+from genomic_pca_tpu_torch.models import pca as tpca
 from genomic_pca_tpu_torch.models import prepare as tprep
 from genomic_pca_tpu_torch.ops import kernels as tk
+from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
 from genomic_pca_tpu_torch.ops import standardize as tstd
 from genomic_pca_tpu_torch.parallel import sharded as ts
 from tests.conftest import make_genotypes
@@ -128,6 +133,123 @@ def test_dense_wrappers_validate(rng):
     with pytest.raises(ValueError, match="tile_d"):
         tk.fused_gram_q8(_t(geno), _t(inv), _t(inv), _t(b).to(torch.int8),
                          torch.ones((1, 1)), torch.zeros((1, 4)), tile_d=100)
+
+
+# ---------------------------------------------------------------------------
+# The dense 2-D kernels 13, 14, 7i and 8i: plain versions against the JAX
+# kernels in interpret mode.  Dense 2-D arrays are in original sample
+# order on both sides (the plane-major permutation is packed only).
+
+# (rtol, atol) of tests/test_torch_wide.py for kernels 5-8, the reference's
+# own 2-D tests' bars (tests/test_packed_kernels.py:289-321) for bf16; f32
+# differs only in the order of f32 sums.
+TOL_2D = {"f32": (1e-4, 1e-4), "bf16": (1e-2, 1e-3)}
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_dense_right_2d_plain_matches_jax(rng, precision):
+    """Kernel 13 on 5%-missing int8 with an inert row, two sample tiles:
+    W in f32, not rounded."""
+    geno, mu, inv, b = dense_case(rng, d=64, n=512)
+    ref = np.asarray(pk.fused_right_apply_2d(
+        jnp.asarray(geno), jnp.asarray(mu), jnp.asarray(inv), jnp.asarray(b),
+        tile_d=32, tile_n=256, precision=precision, interpret=True,
+    ))
+    tk.reset_launch_counts()
+    got = tk.fused_right_apply_2d(_t(geno), _t(mu), _t(inv), _t(b),
+                                  precision=precision)
+    assert all(v == 0 for v in tk.LAUNCHES.values())
+    np.testing.assert_allclose(got.numpy(), ref, *TOL_2D[precision])
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_dense_left_2d_plain_matches_jax(rng, precision):
+    """Kernel 14: W (D, L) f32, not bf16-exact, rounded to bf16 on load in
+    bf16 mode on both sides."""
+    geno, mu, inv, b = dense_case(rng, d=64, n=512)
+    w = (b[:64] * 3.0).astype(np.float32)
+    ref = np.asarray(pk.fused_left_apply_2d(
+        jnp.asarray(geno), jnp.asarray(mu), jnp.asarray(inv), jnp.asarray(w),
+        tile_d=32, tile_n=256, precision=precision, interpret=True,
+    ))
+    got = tk.fused_left_apply_2d(_t(geno), _t(mu), _t(inv), _t(w),
+                                 precision=precision)
+    np.testing.assert_allclose(got.numpy(), ref, *TOL_2D[precision])
+
+
+def test_dense_right_2d_q8_plain_is_the_exact_integer_product(rng):
+    """Kernel 7i's plain version equals the JAX kernel's int8 branch and
+    the int64 product bit for bit (integer sums below 2^24): the -127
+    sentinel enters as raw 0."""
+    g, _, _, bq, _, _ = q8_case(rng, 64, 512, 128, missing_rate=0.05)
+    ref = np.asarray(pk.right_apply_2d_q8(
+        jnp.asarray(g), jnp.asarray(bq), tile_d=32, tile_n=256, interpret=True,
+    ))
+    tk.reset_launch_counts()
+    got = tk.right_apply_2d_q8(_t(g), _t(bq)).numpy()
+    assert all(v == 0 for v in tk.LAUNCHES.values())
+    exact = np.maximum(g, 0).astype(np.int64) @ bq.astype(np.int64)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, exact.astype(np.float32))
+
+
+def test_dense_left_2d_q8_plain_matches_jax_and_replay(rng):
+    """Kernel 8i's plain version against the JAX kernel's int8 branch on
+    the same z8 and scales, and against a float64 replay: only the f32 sum
+    over row tiles differs (rtol 1e-5, kernel 8's bar)."""
+    d, n, ell, tile_d = 128, 512, 128, 32
+    g = make_genotypes(rng, d, n, missing_rate=0.05)
+    z8 = rng.integers(-127, 128, size=(d, ell)).astype(np.int8)
+    sz = rng.uniform(0.01, 0.1, size=d // tile_d).astype(np.float32)
+    ref = np.asarray(pk.left_apply_2d_q8(
+        jnp.asarray(g), jnp.asarray(z8), jnp.asarray(sz), tile_d=tile_d,
+        tile_n=256, interpret=True,
+    ))
+    got = tk.left_apply_2d_q8(_t(g), _t(z8), _t(sz), tile_d).numpy()
+    g0 = np.maximum(g, 0).astype(np.float64)
+    replay = sum(g0[lo:lo + tile_d].T @ z8[lo:lo + tile_d].astype(np.float64)
+                 * float(sz[lo // tile_d]) for lo in range(0, d, tile_d))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, replay, rtol=1e-5, atol=1e-5)
+
+
+def test_dense_q8_power_pass_2d_matches_jax_and_quant_model(rng):
+    """The dense 2-D q8 pass (7i, torch glue, 8i) against the JAX pass at
+    an equal tile and against the float64 quantization model (the bar of
+    tests/test_q8.py:156-175); the dense 1-D plain pass is the same
+    model."""
+    d, n, ell, tile_d = 256, 512, 128, 128
+    g, iv, u, bq, sb, csum = q8_case(rng, d, n, ell, missing_rate=0.05)
+    out_j, ru_j = pk.q8_power_pass_2d(
+        jnp.asarray(g), jnp.asarray(iv), jnp.asarray(u), jnp.asarray(bq),
+        jnp.asarray(sb), jnp.asarray(csum), tile_d=tile_d, tile_n=256,
+        interpret=True,
+    )
+    ref = np.asarray(out_j) - np.asarray(ru_j)
+    out, ru = tk.q8_power_pass_2d(_t(g), _t(iv), _t(u), _t(bq), _t(sb),
+                                  _t(csum), tile_d=tile_d)
+    np.testing.assert_allclose((out - ru).numpy(), ref, rtol=1e-4, atol=1e-2)
+    model = quant_model(g, iv, u, bq, float(sb[0, 0]), tile_d)
+    np.testing.assert_allclose((out - ru).numpy(), model, rtol=1e-4, atol=1e-2)
+    out1, ru1 = tk.fused_gram_q8(_t(g), _t(iv), _t(u), _t(bq), _t(sb), _t(csum),
+                                 tile_d=tile_d)
+    np.testing.assert_array_equal((out1 - ru1).numpy(), (out - ru).numpy())
+
+
+def test_dense_2d_wrappers_validate_and_route(rng):
+    geno, mu, inv, b = dense_case(rng, d=16, n=32, ell=4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tk.fused_left_apply_2d(_t(geno[:, :30]), _t(mu), _t(inv), _t(b[:16]))
+    with pytest.raises(TypeError):
+        tk.fused_right_apply_2d(_t(geno.view(np.uint8)), _t(mu), _t(inv), _t(b))
+    with pytest.raises(TypeError, match="uint8 \\(packed\\) or int8"):
+        tk.right_apply_2d_q8(_t(geno).to(torch.int16), _t(b).to(torch.int8))
+    with pytest.raises(ValueError, match="bq must be"):
+        tk.right_apply_2d_q8(_t(geno), _t(b[:16]).to(torch.int8))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tk.left_apply_2d_q8(_t(geno).to("meta"),
+                            torch.zeros((16, 4), dtype=torch.int8, device="meta"),
+                            torch.ones(1, device="meta"), 16)
 
 
 def test_standardize_module_matches_jax(rng):
@@ -305,24 +427,87 @@ def test_dense_mode_switch_matches_auto_tile_d(precision, last_1d, first_2d):
 
 
 def test_dense_2d_container_refuses_passes_but_projects(rng):
-    """A dense container at the 2-D width builds and projects, and its
-    PCA passes name the kernels that are not ported."""
+    """A dense container at the 2-D width (11,100 samples, n_pad 11,136)
+    picks mode "2d" and runs every pass through the dense 2-D kernels'
+    plain versions: gram, tsq and right against the JAX dense container
+    in mode "pallas2d_interpret" holding the same arrays (f32; the bars of
+    tests/test_torch_wide.py's 2-D container test), the q8 pass against
+    the JAX 2-D q8 pass at the same tile, and the projection against a
+    float64 transform."""
     g = make_genotypes(rng, 24, 11_100, missing_rate=0.02)
     mean, std = ts.host_moments(g)
+    sm_j = js.ShardedMatrix.from_arrays(
+        iter([g]), means=[mean], stds=[std], mesh=_one_device(),
+        mode="pallas2d_interpret", tile_d=64, kernel_precision="f32")
     sm = ts.ShardedMatrix.from_arrays(iter([g]), means=[mean], stds=[std],
-                                      device="cpu")
-    assert sm.n_pad == 11_136 and sm.mode == "2d"
-    b = torch.zeros((11_100, 4))
-    for call in (lambda: sm.gram_apply(b), lambda: sm.tsq_accumulate(b),
-                 lambda: sm.right_apply(b), lambda: sm.power_iterate(b, 2)):
-        with pytest.raises(ComputeError, match="fused_left_apply_2d.*not yet ported"):
-            call()
+                                      device="cpu", kernel_precision="f32",
+                                      tile_d=64)
+    assert sm.n_pad == sm_j.n_pad == 11_136 and sm.mode == "2d"
+    assert ts.ShardedMatrix.from_arrays(iter([g]), device="cpu").mode == "2d"
+    b = np.random.default_rng(2).standard_normal((11_100, 4)).astype(np.float32)
+    b /= np.sqrt(11_100)
+    for name, atol in (("gram_apply", 1e-2), ("tsq_accumulate", 1e-1),
+                       ("right_apply", 1e-2)):
+        ref = np.asarray(getattr(sm_j, name)(jnp.asarray(b)))
+        got = getattr(sm, name)(torch.from_numpy(b))
+        got = got if isinstance(got, np.ndarray) else got.numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=atol, err_msg=name)
+    geno_j = np.asarray(sm_j.geno)
+    iv_j = np.asarray(sm_j.inv_std)
+    u_j = np.asarray(sm_j.mean) * iv_j
+    bq, sb, csum = (x.numpy() for x in quantize_basis(sm._pad_b(b)))
+    out_j, ru_j = pk.q8_power_pass_2d(
+        jnp.asarray(geno_j), jnp.asarray(iv_j), jnp.asarray(u_j), jnp.asarray(bq),
+        jnp.asarray(sb), jnp.asarray(csum), tile_d=64, tile_n=sm_j.tile_n,
+        interpret=True)
+    ref = (np.asarray(out_j) - np.asarray(ru_j))[:11_100]
+    tk.reset_launch_counts()
+    got = sm._gram_q8(sm._pad_b(b))[:11_100].numpy()
+    assert all(v == 0 for v in tk.LAUNCHES.values())
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-2)
     w = rng.standard_normal((24, 3)).astype(np.float32)
     valid = g != -127
     inv = ts.inv_std_of(std)
     a = np.where(valid, (g - mean[:, None].astype(np.float64)) * inv[:, None], 0.0)
     np.testing.assert_allclose(sm.left_apply(w), a.T @ w, rtol=2e-5, atol=2e-4)
     assert sm.count_missing() == int((~valid).sum())
+
+
+@pytest.mark.parametrize("precision", ["bf16", "q8"])
+def test_dense_2d_container_matches_reference(rng, precision):
+    """The dense 2-D container against the JAX dense container in mode
+    "pallas2d_interpret" on the same arrays: the exact passes in bf16 (the
+    kernels' bf16 bars), and in q8 `streamed_pca` per-PC |r| > 0.999
+    against the JAX run and the float64 oracle (tests/test_q8.py:178-193)."""
+    d, n, k = 1024, 192, 4
+    g = make_genotypes(np.random.default_rng(0), d, n, missing_rate=0.02,
+                       n_pops=5, fst=0.2)  # 4 PCs separated by 5% eigengaps
+    mean, std = ts.host_moments(g)
+    sm_j = js.ShardedMatrix.from_arrays(
+        iter([g]), means=[mean], stds=[std], mesh=_one_device(),
+        mode="pallas2d_interpret", tile_d=128, kernel_precision=precision)
+    sm_t = ts.ShardedMatrix.from_reference_arrays(
+        np.asarray(sm_j.geno), np.asarray(sm_j.mean), np.asarray(sm_j.inv_std),
+        d, n, "cpu", tile_d=sm_j.tile_d, kernel_precision=precision, mode="2d")
+    assert not sm_t.packed and sm_t.mode == "2d"
+    if precision == "bf16":
+        b = np.random.default_rng(5).standard_normal((n, 9)).astype(np.float32)
+        b /= np.sqrt(n)
+        for name, key in (("gram_apply", "gram"), ("tsq_accumulate", "tsq"),
+                          ("right_apply", "right")):
+            ref = np.asarray(getattr(sm_j, name)(jnp.asarray(b)))
+            got = getattr(sm_t, name)(torch.from_numpy(b))
+            got = got if isinstance(got, np.ndarray) else got.numpy()
+            np.testing.assert_allclose(got, ref, *BF16_TOL[key], err_msg=name)
+        return
+    v_true, evals, _, _ = exact_pcs(g, k + 1)
+    sep = next((j for j in range(k) if (evals[j] - evals[j + 1]) / evals[j] < 0.05), k)
+    assert sep >= 3
+    res_j = jpca.streamed_pca(sm_j, k=k, n_power_iter=6, seed=11)
+    res_t = tpca.streamed_pca(sm_t, k=k, n_power_iter=6, seed=11)
+    for j in range(sep):
+        assert abs_corr(res_t.scores[:, j], res_j.scores[:, j]) > 0.999, j
+        assert abs_corr(res_t.scores[:, j], v_true[:, j]) > 0.999, j
 
 
 # ---------------------------------------------------------------------------
@@ -381,7 +566,7 @@ def test_prepare_dense_bit_identical_to_reference(tmp_path, rng, caplog, keep_li
 
 
 def test_prepare_dense_missing_policy_error(tmp_path, rng):
-    from genomic_pca_tpu.errors import DataPrepError
+    from genomic_pca_tpu_torch.errors import DataPrepError
 
     _, _, cfg = _setup(tmp_path, rng, n_snps=200, n_samples=30, missing_rate=0.05)
     cfg = dataclasses.replace(cfg, packed_pipeline=False, missing_policy="error")

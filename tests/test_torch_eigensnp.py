@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from genomic_pca_tpu.config import DataPrepConfig, EigenSnpConfig
-from genomic_pca_tpu.errors import ComputeError, DataPrepError
+from genomic_pca_tpu_torch.errors import ComputeError, DataPrepError
 from genomic_pca_tpu.models import eigensnp as jes
 from genomic_pca_tpu.models import prepare as jprep
 from genomic_pca_tpu.models.exact import exact_pca_from_strips
@@ -161,13 +161,20 @@ def test_prepare_data_bit_identical_to_reference(tmp_path, rng, keep_list):
 
 
 def test_prepare_refuses_what_is_not_ported(tmp_path, rng, monkeypatch):
+    """The device QC scan is refused; past 60% of the device's memory
+    `load_matrix` takes the host-streamed container (it used to refuse
+    it) over the same rows and moments."""
+    from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
+
     _, _, cfg = _setup(tmp_path, rng, n_snps=200, n_samples=30)
     with pytest.raises(DataPrepError, match="not yet ported"):
         tprep.prepare_data(dataclasses.replace(cfg, qc_mode="device"))
     prep = tprep.prepare_data(cfg)
+    assert isinstance(prep.load_matrix("cpu"), ts.ShardedMatrix)
     monkeypatch.setattr(tprep, "device_memory_budget", lambda device: 1024)
-    with pytest.raises(ComputeError, match="host-streamed container.*not yet ported"):
-        prep.load_matrix("cpu")
+    sm = prep.load_matrix("cpu", strip_size=64)
+    assert isinstance(sm, StreamingMatrix) and sm.packed
+    assert (sm.n_rows, sm.n_samples) == (prep.n_pca_snps, 30)
 
 
 def test_missing_policy_error(tmp_path, rng):
@@ -364,8 +371,11 @@ def test_no_blocks_and_non_contiguous_blocks_raise(tmp_path, rng):
     nested.write_text("1 1001 1600\n1 1 3010\n")  # inner first: a hole in outer
     prep = tprep.prepare_data(dataclasses.replace(cfg, ld_block_path=str(nested)))
     assert tes._blocks_as_runs(prep.blocks) is None
-    with pytest.raises(ComputeError, match="host-accessor.*not yet ported"):
-        tes.compute_eigensnp_pca(prep, EigenSnpConfig(k_global=3), device="cpu")
+    # Such a block file now runs through the host-accessor stages 1-2
+    # (tests/test_torch_streaming.py holds them to the JAX package).
+    res = tes.compute_eigensnp_pca(prep, EigenSnpConfig(k_global=3), device="cpu")
+    assert res.scores.shape == (30, 3) and np.isfinite(res.scores).all()
+    assert res.container == "device-resident"
 
 
 # ---------------------------------------------------------------------------

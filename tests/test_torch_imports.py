@@ -1,4 +1,4 @@
-"""The port never imports jax, directly or through the JAX package.
+"""The port never imports jax, nor anything of the JAX package.
 
 Each case runs in a fresh interpreter with jax blocked twice over:
 `sys.modules["jax"] = None` in the process, and a stand-in `jax` package
@@ -28,10 +28,7 @@ PRELUDE = textwrap.dedent("""
 
 CHECK = textwrap.dedent("""
     loaded = [m for m, v in sys.modules.items() if v is not None and
-              (m.split(".")[0] in ("jax", "jaxlib") or
-               any(m == f"genomic_pca_tpu.{p}" or m.startswith(f"genomic_pca_tpu.{p}.")
-                   for p in ("utils", "ops", "models", "parallel", "cli",
-                             "workflows")))]
+              m.split(".")[0] in ("jax", "jaxlib", "genomic_pca_tpu")]
     assert not loaded, loaded
 """)
 
@@ -72,6 +69,16 @@ def test_port_modules_and_help_import_no_jax(blocked_env):
         import genomic_pca_tpu_torch.ops.build
         import genomic_pca_tpu_torch.ops.standardize
         import genomic_pca_tpu_torch.eval.profile_core
+        import genomic_pca_tpu_torch.errors
+        import genomic_pca_tpu_torch.config
+        import genomic_pca_tpu_torch.io.bed
+        import genomic_pca_tpu_torch.io.bgzf
+        import genomic_pca_tpu_torch.io.ldblocks
+        import genomic_pca_tpu_torch.io.native
+        import genomic_pca_tpu_torch.io.prefetch
+        import genomic_pca_tpu_torch.io.vcf
+        import genomic_pca_tpu_torch.io.writers
+        import genomic_pca_tpu_torch.ops.streaming
     """) + CHECK
     proc = _run(["-c", code], blocked_env)
     assert proc.returncode == 0, proc.stderr
@@ -121,17 +128,33 @@ def test_gpu_scripts_without_cuda_exit_nonzero(blocked_env, args):
     assert '"ok"' not in proc.stdout
 
 
+def _import_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("pkg", ["genomic_pca_tpu_torch"])
+def test_no_port_module_imports_the_jax_package(pkg):
+    """Every import statement of every module of the port, at any depth
+    (lazy imports inside functions included), names neither jax nor the
+    JAX package: the port keeps its own copies of what it needs."""
+    files = sorted((REPO / pkg).rglob("*.py"))
+    assert len(files) > 30
+    bad = {str(f.relative_to(REPO)): sorted(r) for f in files
+           if (r := _import_roots(f) & {"genomic_pca_tpu", "jax", "jaxlib"})}
+    assert not bad, bad
+
+
 def test_chip_smoke_imports_nothing_of_the_jax_package():
     """chip_smoke.py reaches the JAX package's jax-free modules only
     through the port, so a fault there cannot pass on both sides of its
     checks."""
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
-    roots = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            roots.update(a.name.split(".")[0] for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.module:
-            roots.add(node.module.split(".")[0])
+    roots = _import_roots(REPO / "chip_smoke.py")
     assert "genomic_pca_tpu_torch" in roots
     assert not roots & {"genomic_pca_tpu", "jax", "jaxlib"}, roots
 

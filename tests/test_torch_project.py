@@ -15,7 +15,7 @@ import jax
 import numpy as np
 import pytest
 
-from genomic_pca_tpu.errors import DataPrepError
+from genomic_pca_tpu_torch.errors import DataPrepError
 from genomic_pca_tpu.io.bed import write_plink
 from genomic_pca_tpu.io.writers import write_loadings, write_moments
 from genomic_pca_tpu.models import pca as jpca

@@ -73,7 +73,7 @@ def test_lane_fill_and_validate_k_match_reference():
         assert tpca.lane_fill_width(ell, n, d) == jpca.lane_fill_width(ell, n, d)
     for k, n, d in [(10, 100, 50), (80, 60, 70), (3, 2, 5)]:
         assert tpca.validate_k(k, n, d) == jpca.validate_k(k, n, d)
-    from genomic_pca_tpu.errors import ComputeError
+    from genomic_pca_tpu_torch.errors import ComputeError
 
     for bad in [(0, 10, 10), (2, 1, 10), (2, 10, 0)]:
         with pytest.raises(ComputeError):
