@@ -11,9 +11,11 @@ no result line):
    (70,001 x 2,504), with CUDA-event median times of kernel and plain
    version;
 4. the four 2-D (wide-sample) kernels the same way at 65,536 x 16,384,
-   L = 128, and at 70,001 x 16,389; the 1-D gram and q8 passes against
-   the 2-D ones at the wide shape; `q8_power_pass_2d` against a float64
-   replay of its quantization model;
+   L = 128, and at 70,001 x 16,389, and kernel 6 at 2,048 x 11,264 (a
+   streamed strip at the 2-D switch width: its thinnest grid), with its
+   tile and grid and a bit-identical second launch; the 1-D gram and q8
+   passes against the 2-D ones at the wide shape; `q8_power_pass_2d`
+   against a float64 replay of its quantization model;
 5. the 1-D main path, `streamed_pca(ShardedMatrix.from_packed_rows(...),
    k=10, n_power_iter=4, compute_loadings=True)` over structured
    genotypes of 262,144 x 2,048: launch counts 3 / 1 / 1 / 1 for q8 /
@@ -49,7 +51,8 @@ no result line):
    `fused_left_apply_2d`, 7i and 8i, the int8 branches of
    `right_apply_2d_q8` / `left_apply_2d_q8`) against their plain versions
    at 65,536 x 16,384 (1 GiB of int8), L = 128, and at 70,001 x 16,389
-   (container width 16,512);
+   (container width 16,512), and 14 at 2,048 x 11,264 with a
+   bit-identical second launch, as 6 in phase 4;
 13. the dense 2-D main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
    on the genotypes of phase 6 unpacked to int8 on the card (131,072 x
    16,384, 2 GiB): launch counts 3 / 3 / 3 / 1 for 7i / 8i / 13 / 14 and
@@ -150,6 +153,9 @@ SOURCES = {
 }
 ZERO_LAUNCHES = dict.fromkeys(
     KERNELS_1D + KERNELS_2D + KERNELS_DENSE + KERNELS_DENSE_2D, 0)
+# Kernels with a fixed sum order and no atomics: a second launch on the
+# same inputs must give the same bits.  The tensor-core left products.
+BITWISE_RERUN = ("fused_left_apply_2d_packed", "fused_left_apply_2d")
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
 # device memory rate, and tensor-core rates for the operand type of each
@@ -448,6 +454,13 @@ def check_kernels(torch, d, n, seed, device, reps, names):
         torch.cuda.synchronize()
         bound_ms, bound_by = bound_of(torch, name, args, got)
         ell = (got[0] if isinstance(got, tuple) else got).shape[-1]
+        if name in BITWISE_RERUN:
+            if not torch.equal(got, run_k()):
+                raise AssertionError(f"{name}: a second launch gave other bits")
+            tile, grid = tk.left2d_plan(got.shape[0], ell)
+            log(f"[kernel] {name} D={d} N={n} L={ell}: tile {tile} (samples x "
+                f"columns), grid {grid}, every row in each block; a second "
+                "launch repeats bit for bit")
         if isinstance(got, tuple):  # a q8 pass: T = out - ru
             got, ref = got[0] - got[1], ref[0] - ref[1]
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
@@ -1063,6 +1076,9 @@ def main() -> int:
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
                                  KERNELS_2D))
     check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_2D)
+    # The thinnest grid of kernel 6: a streamed strip at the switch width.
+    check_kernels(torch, 2_048, 11_264, SEED + 10, device, 5,
+                  ("fused_left_apply_2d_packed",))
     compare_modes(torch, np, 65_536, 16_384, SEED + 6, device, 5)
     torch.cuda.empty_cache()
 
@@ -1132,6 +1148,7 @@ def main() -> int:
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
                                  KERNELS_DENSE_2D))
     check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_DENSE_2D)
+    check_kernels(torch, 2_048, 11_264, SEED + 10, device, 5, ("fused_left_apply_2d",))
     torch.cuda.empty_cache()
 
     # 13. The dense 2-D main path on the genotypes of the packed 2-D one.

@@ -61,6 +61,7 @@ __device__ __forceinline__ int decode_word(uint32_t byte) {
 struct PackedRows {
   const uint8_t* p;
   int groups;  // bytes per row
+  static constexpr int kGroupBytes = 1;
   static constexpr uint32_t kMissing = 0x55u;
   __device__ __forceinline__ uint32_t group(int d, int j) const {
     return p[(size_t)d * groups + j];
@@ -83,6 +84,7 @@ struct PackedRows {
 struct DenseRows {
   const int8_t* p;
   int groups;  // 32-bit words per row (samples / 4)
+  static constexpr int kGroupBytes = 4;
   static constexpr uint32_t kMissing = 0x81818181u;  // four -127 bytes
   __device__ __forceinline__ uint32_t group(int d, int j) const {
     return reinterpret_cast<const uint32_t*>(p)[(size_t)d * groups + j];

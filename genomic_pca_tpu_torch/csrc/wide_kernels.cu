@@ -5,8 +5,10 @@
 // pallas_kernels.py, which the JAX container picks once no full-width
 // row tile fits VMEM (n_pad >= 11,264 packed samples, 11,136 dense):
 //
-//   fused_left_apply_2d_packed (:723, pallas_call :741) -> gp_left2d_packed
-//   fused_left_apply_2d        (:346, pallas_call :363) -> gp_left2d_dense
+//   fused_left_apply_2d_packed (:723, pallas_call :741; body
+//                        _left2d_packed_kernel :657) -> gp_left2d_packed
+//   fused_left_apply_2d        (:346, pallas_call :363; body
+//                        _left2d_kernel :278)        -> gp_left2d_dense
 //   right_apply_2d_q8  (:1096, pallas_call :1112), packed -> gp_q8_right2d
 //                                      int8 (_clean_i8) -> gp_q8_right2d_dense
 //   left_apply_2d_q8   (:1139, pallas_call :1158), packed -> gp_q8_left2d
@@ -23,38 +25,57 @@
 // The dense q8 kernels take G0 = max(g, 0) with __vmaxs4 (DenseRows::lanes)
 // or per byte (DenseRows::dosage), so the -127 sentinel is raw 0.
 //
-// In the wide regime the sample axis alone fills the card: at 16,384
-// samples there are 256 sample tiles of 64 x 2 column tiles of 64 = 512
-// blocks for 132 SMs.  So each block of the two left products owns one
-// (64 samples x 64 columns) output tile and loops over ALL variant rows
-// itself: no split of the variant axis, no atomics, and the sum order is
-// fixed (deterministic), unlike left_kernel / q8_left_kernel, which split
-// the rows across block layers because 2,048 samples give too few tiles.
-//
-// Bound on an H100: the FMA / dp4a instruction rate (2 D N L operations per
-// product against D N / 4 packed or D N dense bytes read), as in the 1-D
-// kernels; no tensor cores yet.
+// The left products A^T W (kernels 6 and 14), bf16 mode: left2d_mma_kernel.
+// On an H100 at 65,536 x 16,384 x 128 the packed one is bound by the bf16
+// tensor-core rate (2 D N L = 2.75e11 operations: 0.278 ms against 0.077 ms
+// for its 256 MiB of bytes), the dense one by its 1 GiB of int8 (0.333 ms).
+// So both products run on the tensor cores, and the genotypes never pass
+// through device memory as bf16:
+//   - one block per 128 samples x 128 columns of the output, looping over
+//     every row in chunks of 64 (no split of the variant axis, no atomics,
+//     a fixed sum order: the same inputs give the same bits);
+//   - one loader warp issues every TMA load as soon as its slot is free:
+//     each chunk's raw genotype rows and moments, and its W tile (bf16,
+//     rounded once by the wrapper; 128-byte swizzled), into shared-memory
+//     rings;
+//   - a producer warpgroup decodes the raw rows straight into the bf16 A
+//     tile of a third ring (decode_rows of hopper.cuh: a per-row table of
+//     nibble pairs packed, bf16x2 arithmetic dense), each warp a whole
+//     chunk, so that four chunks are in flight;
+//   - two consumer warpgroups, one per 64 samples, issue wgmma m64n128k16
+//     with both operands MN-major from the swizzled tiles; mbarriers hand
+//     every slot over and back, and setmaxnreg gives the consumers the
+//     registers the loader's warpgroup does not need;
+//   - every kRowBlock rows the accumulator is folded into a register total,
+//     so that f32 rounding grows with D / kRowBlock + kRowBlock terms, not
+//     with D (a million rows at biobank scale), whatever the tensor core's
+//     internal accumulation.
+// What holds it above its bound (PERF.md): the decode of each chunk, and
+// the shared-memory traffic of its operands (48 KB of wgmma reads, both
+// consumer warpgroups reading the whole W tile), take longer than the
+// chunk's MMAs.  The W stream from L2 (D L 2 bytes a block) costs little,
+// so the grid is a plain one of 128-sample blocks.
+// f32 mode ("HIGHEST" in the reference) keeps the f32 FMA loop
+// left2d_kernel: a dispatch on the precision, not a fallback.
 //
 // Every entry point launches on the given stream and returns
 // cudaGetLastError() so that a refused launch is never silent.
-#include "packed_common.cuh"
+#include <dlfcn.h>
+
+#include "hopper.cuh"
 
 namespace gp {
 
 constexpr int kRowBlock = 1024;  // rows summed in a partial of left2d
 
-// out (N, L) = A^T (N, D) . W (D, L), N = 4 * groups; one block per 64 x 64
-// output tile, looping over every row.  W arrives in f32 and is rounded
-// to the operand type on load (the reference rounds W to bf16 inside
-// _left2d_packed_kernel and _left2d_kernel).  The sum over D runs in
-// partials of kRowBlock rows added into a running total, so that its f32
-// rounding grows with D / kRowBlock + kRowBlock terms rather than with D
-// (a million rows at biobank scale).
+// out (N, L) = A^T (N, D) . W (D, L) in f32, N = 4 * groups; one block per
+// 64 x 64 output tile, looping over every row.  The sum over D runs in
+// partials of kRowBlock rows added into a running total.
 template <class Rows>
 __global__ void __launch_bounds__(kThreads)
 left2d_kernel(Rows g, const float* __restrict__ mean,
               const float* __restrict__ inv_std, const float* __restrict__ w,
-              float* __restrict__ out, int D, int L, int bf16) {
+              float* __restrict__ out, int D, int L) {
   __shared__ float As[kBK][kBM];
   __shared__ float Bs[kBK][kBN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -79,18 +100,17 @@ left2d_kernel(Rows g, const float* __restrict__ mean,
     const int d = dc + ak;
     float x[4] = {0.f, 0.f, 0.f, 0.f};
     if (d < D && jg < g.groups) {
-      const RowScale rs = row_scale(mean, inv_std, d, bf16);
+      const RowScale rs = row_scale(mean, inv_std, d, false);
       const uint32_t v = g.group(d, jg);
 #pragma unroll
-      for (int p = 0; p < 4; ++p) x[p] = standardized<Rows>(v, p, rs, bf16);
+      for (int p = 0; p < 4; ++p) x[p] = standardized<Rows>(v, p, rs, false);
     }
 #pragma unroll
     for (int p = 0; p < 4; ++p) As[ak][aq * 4 + p] = x[p];
     for (int e = tid; e < kBK * kBN; e += kThreads) {
       const int k = e / kBN, n = e % kBN;
       const int dd = dc + k, l = l0 + n;
-      const float v = (dd < D && l < L) ? w[(size_t)dd * L + l] : 0.f;
-      Bs[k][n] = bf16 ? round_bf16(v) : v;
+      Bs[k][n] = (dd < D && l < L) ? w[(size_t)dd * L + l] : 0.f;
     }
     __syncthreads();
     fma_tile(As, Bs, acc, tx, ty);
@@ -105,6 +125,208 @@ left2d_kernel(Rows g, const float* __restrict__ mean,
       const int c = l0 + tx + 16 * j;
       if (c < L) out[(size_t)s * L + c] = tot[i][j] + acc[i][j];
     }
+  }
+}
+
+// --- left2d_mma_kernel: the tensor-core left product (bf16 mode) ----------
+
+// The rings.  The loader runs as far ahead as their depths allow: chunk j's
+// raw rows (and moments) go out with the W tile of chunk j - (kRawStages -
+// kWStages); a producer warp decodes a raw slot into an A slot of a ring of
+// kAStages, deep enough for the four chunks the producer warps decode at
+// once and the two the consumers hold.  The packed rows are small (2 KB a
+// chunk), so that ring is deep; the dense ones take 8 KB.  The depths fill
+// most of the 227 KB a block may have (8 A slots, or 3 W slots dense, ran
+// slower).  The loader's warpgroup is whole for setmaxnreg; its other
+// three warps leave at once.
+constexpr int kMmaThreads = 512;  // consumers 0, 1; producer 2; loader 3
+constexpr int kLoaderWarp = 12;
+// Registers per thread after the hand-over (setmaxnreg): the consumers'
+// accumulator and total take 128, the producer's 16 rows in and out 48
+// (at 64 the packed decode spilled); 2 x 128 x 192 + 128 x (104 + 24) is
+// the SM's 65,536.
+constexpr int kConsumerRegs = 192, kProducerRegs = 104, kLoaderRegs = 24;
+static_assert(128 * (2 * kConsumerRegs + kProducerRegs + kLoaderRegs) <= 65536,
+              "the register file");
+constexpr int kProducerWarps = 4;
+constexpr int kWarpRows = 16;     // rows of one decode_rows call
+constexpr int kMmaCols = 128;     // columns of W per block
+static_assert(kRowBlock % kTileRows == 0, "a fold falls between chunks");
+
+// Ring depths and the shared-memory layout (byte offsets from a 1024-byte
+// aligned base).  A raw slot: 64 rows of the tile's groups, then 64 means
+// and 64 inv_stds.
+template <class Rows>
+struct LeftMmaSmem {
+  static constexpr bool kPacked = Rows::kGroupBytes == 1;
+  static constexpr int kAStages = 6;                // decoded A tiles
+  static constexpr int kWStages = kPacked ? 5 : 4;  // W tiles
+  static constexpr int kRawStages = kPacked ? 11 : 7;
+  static_assert(kRawStages >= kWStages, "the loader's raw lead");
+  // A producer waits for its A slot by parity alone, which is safe only
+  // while chunk it - 2 kAStages has been released.  The loader's W waits
+  // guarantee it: raw(it) goes out after the release of chunk it - 1 -
+  // kRawStages.
+  static_assert(kRawStages <= 2 * kAStages - 1, "the A ring's parity order");
+  static constexpr int kRowBytes = 32 * Rows::kGroupBytes;  // a raw tile row
+  static constexpr int kRawBytes = kTileRows * kRowBytes;
+  static constexpr int kRawSlot = kRawBytes + 2 * kTileRows * 4;
+  static constexpr int kA = 0;
+  static constexpr int kW = kA + kAStages * kTileBytes;
+  static constexpr int kRaw = kW + kWStages * kTileBytes;
+  static constexpr int kTbl = kRaw + kRawStages * kRawSlot;  // a table a warp
+  static constexpr int kBar = kTbl + kProducerWarps * kWarpRows * 16 * 4;
+  static constexpr int kBytes =
+      kBar + 2 * (kAStages + kWStages + kRawStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "shared memory of one block");
+};
+
+// The tensor maps of one launch (boxes past the matrix arrive as zeros):
+// W (D, ldw) bf16 in 64 x 64 boxes with the 128-byte swizzle; the genotype
+// rows (D, row bytes) in boxes of one tile's groups x 64 rows; mean and
+// inv_std (D) f32 in boxes of 64.
+struct LeftMmaMaps {
+  CUtensorMap w, rows, mean, inv_std;
+};
+
+// out (N, L) = A^T W, N = 4 * groups, with A in the reference's bf16
+// rounding and W bf16 (columns >= L zero); sums in f32.
+template <class Rows>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
+                  float* __restrict__ out, int D, int L) {
+  using Smem = LeftMmaSmem<Rows>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* a_full = reinterpret_cast<uint64_t*>(sm + Smem::kBar);
+  uint64_t* a_empty = a_full + Smem::kAStages;
+  uint64_t* w_full = a_empty + Smem::kAStages;
+  uint64_t* w_empty = w_full + Smem::kWStages;
+  uint64_t* raw_full = w_empty + Smem::kWStages;
+  uint64_t* raw_empty = raw_full + Smem::kRawStages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int s0 = blockIdx.x * kTileSamples, l0 = blockIdx.y * kMmaCols;
+  const int chunks = (D + kTileRows - 1) / kTileRows;
+  if (tid == 0) {
+    for (int s = 0; s < Smem::kAStages; ++s) {
+      mbar_init(&a_full[s], 1);   // the producer warp of the chunk
+      mbar_init(&a_empty[s], 2);  // one a consumer warpgroup
+    }
+    for (int s = 0; s < Smem::kWStages; ++s) {
+      mbar_init(&w_full[s], 1);   // the loader's arrival + the TMA bytes
+      mbar_init(&w_empty[s], 2);
+    }
+    for (int s = 0; s < Smem::kRawStages; ++s) {
+      mbar_init(&raw_full[s], 1);   // the loader's arrival + the TMA bytes
+      mbar_init(&raw_empty[s], 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kLoaderWarp) {
+    setmaxnreg_dec<kLoaderRegs>();
+    if (warp != kLoaderWarp) return;
+    // Loader: lane 0 issues every TMA load as soon as its slot is free, the
+    // raw rows and moments of chunk j and the W tile of chunk j - lead, so
+    // that both rings run as far ahead as their depths allow.
+    if (lane == 0) {
+      constexpr int lead = Smem::kRawStages - Smem::kWStages;
+      for (int j = 0; j < chunks + lead; ++j) {
+        if (j < chunks) {
+          const int st = j % Smem::kRawStages;
+          mbar_wait(&raw_empty[st], ((j / Smem::kRawStages) & 1) ^ 1);
+          uint8_t* slot = sm + Smem::kRaw + st * Smem::kRawSlot;
+          mbar_arrive_expect_tx(&raw_full[st], Smem::kRawSlot);
+          tma_load_2d(slot, &maps.rows, (s0 / 4) * Rows::kGroupBytes, j * kTileRows,
+                      &raw_full[st]);
+          tma_load_1d(slot + Smem::kRawBytes, &maps.mean, j * kTileRows, &raw_full[st]);
+          tma_load_1d(slot + Smem::kRawBytes + 4 * kTileRows, &maps.inv_std,
+                      j * kTileRows, &raw_full[st]);
+        }
+        const int jw = j - lead;
+        if (jw >= 0) {
+          const int st = jw % Smem::kWStages;
+          mbar_wait(&w_empty[st], ((jw / Smem::kWStages) & 1) ^ 1);
+          uint8_t* wt = sm + Smem::kW + st * kTileBytes;
+          mbar_arrive_expect_tx(&w_full[st], kTileBytes);
+          tma_load_2d(wt, &maps.w, l0, jw * kTileRows, &w_full[st]);
+          tma_load_2d(wt + kPanelBytes, &maps.w, l0 + 64, jw * kTileRows, &w_full[st]);
+        }
+      }
+    }
+  } else if (warp >= 8) {
+    setmaxnreg_dec<kProducerRegs>();
+    // Producer warpgroup: warp pw decodes all rows of chunks pw, pw + 4,
+    // ..., each once its raw rows have landed and its A slot is free, then
+    // hands the slot to the consumers and the raw slot back.  Four chunks
+    // in flight hide each warp's chain of waits, shared-memory latency and
+    // fence.
+    uint32_t* tbl = reinterpret_cast<uint32_t*>(sm + Smem::kTbl) + (warp - 8) * kWarpRows * 16;
+    for (int it = warp - 8; it < chunks; it += kProducerWarps) {
+      const int sr = it % Smem::kRawStages, st = it % Smem::kAStages;
+      mbar_wait(&raw_full[sr], (it / Smem::kRawStages) & 1);
+      mbar_wait(&a_empty[st], ((it / Smem::kAStages) & 1) ^ 1);
+      const uint8_t* slot = sm + Smem::kRaw + sr * Smem::kRawSlot;
+      const float* moments = reinterpret_cast<const float*>(slot + Smem::kRawBytes);
+#pragma unroll
+      for (int r0 = 0; r0 < kTileRows; r0 += kWarpRows)
+        decode_rows<Rows>(slot, moments, moments + kTileRows,
+                          sm + Smem::kA + st * kTileBytes, tbl, r0, lane);
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&raw_empty[sr]);
+        mbar_arrive(&a_full[st]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    // Consumers: warpgroup wg owns samples s0 + 64 wg .. + 63.
+    const int wg = warp / 4;
+    float acc[64], tot[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
+    for (int c = 0; c < chunks; ++c) {
+      const int sa = c % Smem::kAStages;
+      mbar_wait(&a_full[sa], (c / Smem::kAStages) & 1);
+      mbar_wait(&w_full[c % Smem::kWStages], (c / Smem::kWStages) & 1);
+      const bool first = c % (kRowBlock / kTileRows) == 0;
+      if (first && c > 0) {
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+      }
+      const uint32_t a = smem_u32(sm + Smem::kA + sa * kTileBytes + wg * kPanelBytes);
+      const uint32_t b = smem_u32(sm + Smem::kW + (c % Smem::kWStages) * kTileBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // 16 rows (2 swizzle atoms) per MMA
+        wgmma_m64n128k16_tt(acc, desc_b128(a + 2048 * kk, kPanelBytes, 1024),
+                            desc_b128(b + 2048 * kk, kPanelBytes, 1024),
+                            first && kk == 0 ? 0 : 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // chunk c - 1's MMAs are done: release its slots
+      if (c > 0 && tid % 128 == 0) {
+        mbar_arrive(&a_empty[(c - 1) % Smem::kAStages]);
+        mbar_arrive(&w_empty[(c - 1) % Smem::kWStages]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    const int N = 4 * groups;
+    const int row = s0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int s = row + 8 * h, col = l0 + 8 * j + 2 * (lane % 4) + e;
+          const int i = 4 * j + 2 * h + e;
+          if (s < N && col < L) out[(size_t)s * L + col] = tot[i] + acc[i];
+        }
   }
 }
 
@@ -208,14 +430,88 @@ q8_left2d_kernel(Rows g, const int8_t* __restrict__ z8,
   }
 }
 
+// cuTensorMapEncodeTiled from libcuda.so.1, which the process has loaded
+// (no link against libcuda).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_LAZY);
+    if (h != nullptr) fn = (EncodeTiledFn)dlsym(h, "cuTensorMapEncodeTiled");
+  }
+  return fn;
+}
+
+// A tensor map of a row-major (rows, cols) matrix of `esize`-byte
+// elements in boxes of box_x x box_y; rows = 0 makes it a vector (rank 1).
+// TMA needs 16-byte aligned bases and row strides.
+inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                      const void* base, int cols, int rows, int box_x,
+                      int box_y, CUtensorMapSwizzle swizzle) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)box_x, (cuuint32_t)box_y};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, type, rows > 0 ? 2 : 1, const_cast<void*>(base),
+                            dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // Launchers shared by the packed and dense entry points.
+
+// The grid of left2d_mma_kernel: one block per kTileSamples x kMmaCols
+// output tile, each over every row.
+inline dim3 left2d_mma_grid(int groups, int L) {
+  return dim3((4 * groups + kTileSamples - 1) / kTileSamples,
+              (L + kMmaCols - 1) / kMmaCols);
+}
+
+// The left product: the tensor-core kernel in bf16 mode (w bf16 (D, ldw)),
+// the f32 loop in f32 mode (w f32 (D, L)).
 template <class Rows>
 int launch_left2d(Rows g, const void* mean, const void* inv_std, const void* w,
-                  void* out, int D, int L, int bf16, void* stream) {
-  left2d_kernel<Rows><<<grid_of(4 * g.groups, L), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      g, (const float*)mean, (const float*)inv_std, (const float*)w,
-      (float*)out, D, L, bf16);
+                  void* out, int D, int L, int ldw, int bf16, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (!bf16) {
+    left2d_kernel<Rows><<<grid_of(4 * g.groups, L), kThreads, 0, st>>>(
+        g, (const float*)mean, (const float*)inv_std, (const float*)w,
+        (float*)out, D, L);
+    return (int)cudaGetLastError();
+  }
+  LeftMmaMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  if (D > 0) {
+    int rc = tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, ldw,
+                        D, 64, kTileRows, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (rc == 0)
+      rc = tensor_map(&maps.rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.p,
+                      g.groups * Rows::kGroupBytes, D, 32 * Rows::kGroupBytes,
+                      kTileRows, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (rc == 0)
+      rc = tensor_map(&maps.mean, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, mean, D,
+                      0, kTileRows, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (rc == 0)
+      rc = tensor_map(&maps.inv_std, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                      inv_std, D, 0, kTileRows, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (rc != 0) return rc;
+  }
+  constexpr int smem = LeftMmaSmem<Rows>::kBytes;
+  const cudaError_t e = cudaFuncSetAttribute(
+      left2d_mma_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  left2d_mma_kernel<Rows><<<left2d_mma_grid(g.groups, L), kMmaThreads, smem, st>>>(
+      maps, g.groups, (float*)out, D, L);
   return (int)cudaGetLastError();
 }
 
@@ -240,19 +536,32 @@ int launch_q8_left2d(Rows g, const void* z8, const void* sz, void* out, int D,
 
 extern "C" {
 
-// out (N, L) = A^T W over packed rows of n4 bytes / dense rows of n4 words.
+// out (N, L) = A^T W over packed rows of n4 bytes / dense rows of n4 words;
+// w is bf16 (D, ldw) when bf16, else f32 (D, L).
 int gp_left2d_packed(const void* packed, const void* mean, const void* inv_std,
-                     const void* w, void* out, int D, int n4, int L, int bf16,
-                     void* stream) {
+                     const void* w, void* out, int D, int n4, int L, int ldw,
+                     int bf16, void* stream) {
   return gp::launch_left2d(gp::PackedRows{(const uint8_t*)packed, n4}, mean,
-                           inv_std, w, out, D, L, bf16, stream);
+                           inv_std, w, out, D, L, ldw, bf16, stream);
 }
 
 int gp_left2d_dense(const void* geno, const void* mean, const void* inv_std,
-                    const void* w, void* out, int D, int n4, int L, int bf16,
-                    void* stream) {
+                    const void* w, void* out, int D, int n4, int L, int ldw,
+                    int bf16, void* stream) {
   return gp::launch_left2d(gp::DenseRows{(const int8_t*)geno, n4}, mean,
-                           inv_std, w, out, D, L, bf16, stream);
+                           inv_std, w, out, D, L, ldw, bf16, stream);
+}
+
+// The tile (samples, columns) and grid (x, y) of the bf16 left product
+// over rows of n4 groups and L columns, as launch_left2d launches it,
+// into plan[0..3].
+int gp_left2d_plan(int n4, int L, int* plan) {
+  const dim3 grid = gp::left2d_mma_grid(n4, L);
+  plan[0] = gp::kTileSamples;
+  plan[1] = gp::kMmaCols;
+  plan[2] = (int)grid.x;
+  plan[3] = (int)grid.y;
+  return 0;
 }
 
 // out (D, L) = G0 bq, the integer sums converted to f32 once.

@@ -33,21 +33,23 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types.  Every entry returns the
-# launch's cudaGetLastError() as an int.
+# launch's cudaGetLastError() as an int (gp_left2d_plan, which launches
+# nothing, 0).
 SIGNATURES = {
+    "gp_left2d_plan": [_I, _I, _P],
     "gp_right_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_wtw": [_P, _P, _I, _I, _I, _I, _P],
     "gp_q8_w": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_left": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gp_left2d_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gp_left2d_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_q8_right2d": [_P, _P, _P, _I, _I, _I, _P],
     "gp_q8_left2d": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_right_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_w_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_left_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gp_left2d_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gp_left2d_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_q8_right2d_dense": [_P, _P, _P, _I, _I, _I, _P],
     "gp_q8_left2d_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -107,7 +109,7 @@ def build(force: bool = False) -> tuple:
         ))
     logs = [p.communicate()[0] for p in procs]
     link = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs), "-ldl"],
         capture_output=True, text=True,
     ) if all(p.returncode == 0 for p in procs) else None
     secs = time.perf_counter() - t0

@@ -26,6 +26,7 @@ rounded to bf16 at the reference's points, f32 sums) or "f32".
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import torch
@@ -578,17 +579,69 @@ fused_right_apply_2d_packed_plain = fused_right_apply_packed_plain
 
 
 # fused_left_apply_2d_packed replaces pallas_kernels.py
-# fused_left_apply_2d_packed (:723, pallas_call :741): A^T W with W
-# (D, L) f32, rounded to bf16 on load in bf16 mode.  FMA bound (2*D*N*L
-# operations against D*N4 bytes).  Design (csrc/wide_kernels.cu): one
-# block per (64 samples x 64 columns) output tile looping over ALL rows -
-# at wide N the sample tiles alone fill the card - so no split-K, no
-# atomics, a deterministic sum order, and no zeroing of the output.
+# fused_left_apply_2d_packed (:723, pallas_call :741; body
+# _left2d_packed_kernel :657): A^T W with W (D, L) f32, rounded to bf16 in
+# bf16 mode.  Bound on an H100 by the bf16 tensor-core rate: 2*D*N*L
+# operations (0.278 ms at 65,536 x 16,384 x 128) against D*N4 bytes.
+# Design (left2d_mma_kernel, csrc/wide_kernels.cu): one block per 128
+# samples x 128 columns loops over every row in chunks of 64 - no split-K,
+# no atomics, a deterministic sum order.  A loader warp's TMA loads bring
+# the packed bytes, the moments and the bf16 W tiles (128-byte swizzled)
+# into shared-memory rings handed over by mbarriers; a producer warpgroup
+# decodes each byte into the bf16 A tile (a per-row table of nibble
+# pairs); two consumer warpgroups run wgmma on the swizzled tiles.  TMA
+# wants 16-byte aligned bases and row
+# strides (`aligned_rows`, `left2d_w_operand`, the moments' copies).  W
+# is rounded to bf16 once here (`left2d_w_operand`), as `_round_bf16`
+# rounds it in the plain version.  f32 mode keeps the f32 FMA loop
+# (left2d_kernel).
+
+def left2d_plan(n_samples: int, ell: int) -> tuple:
+    """(tile, grid) of the tensor-core left product over `n_samples` and
+    `ell` columns of W, as launch_left2d launches it: read from the built
+    library (`gp_left2d_plan`), so that a log shows what the launch uses.
+    The padded copy of `aligned_rows` (to 64 samples packed, 16 dense)
+    never changes the grid: both divide the tile."""
+    from genomic_pca_tpu_torch.ops.build import lib
+
+    plan = (ctypes.c_int * 4)()
+    lib().gp_left2d_plan(-(-n_samples // 4), ell, ctypes.addressof(plan))
+    return (plan[0], plan[1]), (plan[2], plan[3])
+
+
+def left2d_w_operand(w: torch.Tensor) -> torch.Tensor:
+    """W (D, L) f32 as the tensor-core left product reads it: bf16, rounded
+    to nearest even once (the rounding of `_round_bf16`), columns padded
+    with zeros to a multiple of 8 so that a row is whole 16-byte units."""
+    d, ell = w.shape
+    lw = -(-ell // 8) * 8
+    if lw == ell:
+        return w.to(torch.bfloat16)
+    out = torch.zeros((d, lw), dtype=torch.bfloat16, device=w.device)
+    out[:, :ell] = w
+    return out
+
+
+def aligned_rows(geno: torch.Tensor) -> torch.Tensor:
+    """The genotype rows as the tensor-core kernels load them (TMA):
+    `geno` itself when its rows are whole 16-byte units from a 16-byte
+    aligned base (every container's width is: 128 bytes packed, 128
+    samples dense), else a copy padded with missing codes (0x55 packed,
+    -127 dense), which standardize to 0."""
+    d, cols = geno.shape
+    if cols % 16 == 0 and geno.data_ptr() % 16 == 0:
+        return geno
+    pad = 0x55 if geno.dtype == torch.uint8 else MISSING
+    out = torch.full((d, -(-cols // 16) * 16), pad, dtype=geno.dtype,
+                     device=geno.device)
+    out[:, :cols] = geno
+    return out
 
 
 def _left2d(geno, mean, inv_std, w, precision, dtype, name):
-    """A^T W through left2d_kernel of the layout `dtype`."""
-    _bf16(precision)
+    """A^T W through the left product of the layout `dtype`: the tensor-core
+    kernel in bf16 mode, the f32 loop in f32 mode."""
+    bf16 = _bf16(precision)
     geno = _check_geno(geno, dtype)
     d, dev = geno.shape[0], geno.device
     mean = _require(mean, "mean", torch.float32, (d, 1), dev)
@@ -599,11 +652,16 @@ def _left2d(geno, mean, inv_std, w, precision, dtype, name):
     if _route(geno) == "plain":
         return PLAIN[name](geno, mean, inv_std, w, precision)
     LAUNCHES[name] += 1
-    ell = w.shape[1]
+    n, ell = _samples(geno), w.shape[1]
+    if bf16:  # TMA reads 16-byte aligned bases and row strides
+        geno, w = aligned_rows(geno), left2d_w_operand(w)
+        mean, inv_std = (t if t.data_ptr() % 16 == 0 else t.clone()
+                         for t in (mean, inv_std))
     out = torch.empty((_samples(geno), ell), dtype=torch.float32, device=dev)
-    _launch(dev, _ENTRY[dtype]["left2d"], geno, mean, inv_std, w, out, d,
-            _samples(geno) // 4, ell, int(_bf16(precision)))
-    return out
+    if out.numel():
+        _launch(dev, _ENTRY[dtype]["left2d"], geno, mean, inv_std, w, out, d,
+                _samples(geno) // 4, ell, w.shape[1], int(bf16))
+    return out[:n]
 
 
 def fused_left_apply_2d_packed(packed, mean, inv_std, w, precision="bf16"):
@@ -724,12 +782,13 @@ def fused_right_apply_2d(geno, mean, inv_std, b, precision="bf16"):
 
 # fused_left_apply_2d replaces pallas_kernels.py fused_left_apply_2d
 # (:346, pallas_call :363; body _left2d_kernel :278): A^T W over (D, N)
-# int8 dosages with W rounded to bf16 on load in bf16 mode.  Kernel 6's
-# design (left2d_kernel of csrc/wide_kernels.cu, instantiated for
-# DenseRows): one block per (64 samples x 64 columns) output tile looping
-# over all rows in partials of 1,024, no atomics, a fixed sum order; the
-# loader reads one aligned 32-bit word (four samples) per thread.  FMA
-# bound: 2*D*N*L operations against D*N bytes.
+# int8 dosages, W rounded to bf16 in bf16 mode.  Bound on an H100 by its
+# D*N bytes of int8 (0.333 ms at 65,536 x 16,384; the operations take
+# 0.278 ms).  Kernel 6's design (left2d_mma_kernel instantiated for
+# DenseRows): TMA brings 128-byte rows of int8, which the producer decodes
+# with bf16x2 arithmetic (any dosage, two bf16 roundings as the
+# reference's dense tile, -127 -> 0) into the tile the wgmma consumers
+# read; no atomics, a fixed sum order.  f32 mode keeps the f32 loop.
 
 
 def fused_left_apply_2d(geno, mean, inv_std, w, precision="bf16"):

@@ -108,21 +108,73 @@ def test_pca_core_on_cuda_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("name", [
-    "fused_right_apply_2d_packed", "fused_left_apply_2d_packed",
-])
-def test_wide_exact_kernel_matches_plain(cuda_device, name, precision):
-    """Same products, another f32 sum order; the left kernel rounds W to
-    bf16 on load exactly as its plain version does."""
+def test_wide_exact_kernel_matches_plain(cuda_device, precision):
+    """Kernel 5: the same products as its plain version in another f32
+    sum order."""
+    name = "fused_right_apply_2d_packed"
     packed, mu, inv, b = _on(cuda_device, *exact_case(np.random.default_rng(4)))
-    arg = b if name == "fused_right_apply_2d_packed" else b[: packed.shape[0]] * 3.0
     tk.reset_launch_counts()
-    got = getattr(tk, name)(packed, mu, inv, arg, precision=precision)
+    got = getattr(tk, name)(packed, mu, inv, b, precision=precision)
     torch.cuda.synchronize()
     assert tk.LAUNCHES[name] == 1
-    ref = tk.PLAIN[name](packed, mu, inv, arg, precision)
+    ref = tk.PLAIN[name](packed, mu, inv, b, precision)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [40, 1000, 2100])
+@pytest.mark.parametrize("ell", [4, 10, 128, 130, 256])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_left_2d_kernel_matches_plain_and_repeats(cuda_device, layout,
+                                                  precision, ell, d):
+    """Kernels 6 (packed) and 14 (dense) against their plain versions on
+    the card, to 1e-5 of max|plain| (the same bf16 operands, f32 sums in
+    another order), and two launches bit for bit (no atomics, a fixed sum
+    order).  D below one 64-row chunk, ragged past it, and past a 1,024-row
+    fold; 250 packed samples (63-byte rows: the wrapper pads a copy to
+    16-byte rows) and 252 dense ones (a partial 128-sample tile); L below,
+    at and past the 128-column tile.  5% missing, an inert row, and in the
+    dense layout some dosages outside {0, 1, 2}."""
+    rng = np.random.default_rng(1000 * d + ell)
+    n = 250 if layout == "packed" else 252
+    g = balding_nichols(rng, d, n, missing_rate=0.05)
+    if layout == "dense":
+        odd = rng.random(g.shape) < 0.02
+        g[odd] = rng.integers(-100, 100, size=int(odd.sum()))
+    valid = g != -127
+    g0 = np.where(valid, g, 0).astype(np.float64)
+    mu = (g0.sum(1) / np.maximum(valid.sum(1), 1)).astype(np.float32)[:, None]
+    inv = (1.0 / (g0.std(1) + 0.1)).astype(np.float32)[:, None]
+    inv[min(5, d - 1)] = 0.0
+    w = (3.0 * rng.standard_normal((d, ell))).astype(np.float32)
+    geno = pack_int8_rows(g) if layout == "packed" else g
+    name = ("fused_left_apply_2d_packed" if layout == "packed"
+            else "fused_left_apply_2d")
+    args = _on(cuda_device, geno, mu, inv, w)
+    tk.reset_launch_counts()
+    got = getattr(tk, name)(*args, precision=precision)
+    again = getattr(tk, name)(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == dict(ZERO, **{name: 2})
+    assert torch.equal(got, again)
+    ref = tk.PLAIN[name](*args, precision)
+    assert got.shape == ref.shape == (4 * -(-n // 4), ell)
+    err = float((got - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_left_2d_plan_is_one_block_per_output_tile(cuda_device):
+    """The tile and grid the library launches kernels 6 and 14 with: 128
+    samples x 128 columns a block, every row in each block (no split of
+    the rows).  16,384 samples give 128 blocks for 132 SMs, the 2-D switch
+    width 11,264 (a streamed strip) 88; ragged widths round up."""
+    assert tk.left2d_plan(16_384, 128) == ((128, 128), (128, 1))
+    assert tk.left2d_plan(11_264, 128) == ((128, 128), (88, 1))
+    assert tk.left2d_plan(250, 130) == ((128, 128), (2, 2))
+    assert tk.left2d_plan(256, 4) == ((128, 128), (2, 1))
 
 
 @pytest.mark.cuda
@@ -281,19 +333,17 @@ def test_pca_core_dense_on_cuda_matches_cpu(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("name", ["fused_right_apply_2d", "fused_left_apply_2d"])
-def test_dense_2d_exact_kernel_matches_plain(cuda_device, name, precision):
-    """Kernels 13 and 14 on 5%-missing int8 with an inert row: the same
-    products in another f32 sum order (W unrounded in 13, rounded on load
-    in 14, as the plain versions): the bars of kernels 5 and 6."""
+def test_dense_2d_exact_kernel_matches_plain(cuda_device, precision):
+    """Kernel 13 on 5%-missing int8 with an inert row: the same products
+    in another f32 sum order, W unrounded as in the plain version: the bar
+    of kernel 5.  Kernel 14 is held with kernel 6 above."""
+    name = "fused_right_apply_2d"
     geno, mu, inv, b = _on(cuda_device, *dense_case(np.random.default_rng(11)))
-    arg = (b if name == "fused_right_apply_2d"
-           else torch.randn((geno.shape[0], 128), device=cuda_device) * 3.0)
     tk.reset_launch_counts()
-    got = getattr(tk, name)(geno, mu, inv, arg, precision=precision)
+    got = getattr(tk, name)(geno, mu, inv, b, precision=precision)
     torch.cuda.synchronize()
     assert tk.LAUNCHES == dict(ZERO, **{name: 1})
-    ref = tk.PLAIN[name](geno, mu, inv, arg, precision)
+    ref = tk.PLAIN[name](geno, mu, inv, b, precision)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
 

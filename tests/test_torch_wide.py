@@ -327,3 +327,68 @@ def test_wide_wrappers_validate_and_route():
         tk.q8_power_pass_2d(packed, col, col, bq, sb, csum, tile_d=100)
     with pytest.raises(ValueError, match="mode"):
         ts.ShardedMatrix(packed, col, col, 8, 16, "cpu", mode="pallas2d")
+
+
+def test_left2d_w_operand_rounds_as_the_plain_version():
+    """W's one bf16 rounding in the wrapper is the plain version's
+    `_round_bf16`, bit for bit, ties to even included; ragged columns are
+    padded with zeros to whole 16-byte rows."""
+    ties = np.array([0x3F808000, 0x3F818000, 0xBF808000, 0xBF818000,
+                     0x3F807FFF, 0x3F808001, 0x7F7F8000, 0x00008000],
+                    dtype=np.uint32).view(np.float32)
+    rng = np.random.default_rng(0)
+    for ell in (8, 10, 128, 130):
+        w = rng.standard_normal((3, ell)).astype(np.float32) * 3.0
+        w.reshape(-1)[: len(ties)] = ties
+        w_t = _t(w)
+        op = tk.left2d_w_operand(w_t)
+        assert op.dtype == torch.bfloat16 and op.shape == (3, -(-ell // 8) * 8)
+        assert op.is_contiguous()
+        assert torch.equal(op[:, :ell].float().view(torch.int32),
+                           tk._round_bf16(w_t).view(torch.int32))
+        assert not op[:, ell:].float().any()
+    # Round to nearest, ties to even: 1 + 2^-8 -> 1, 1 + 3 * 2^-8 -> 1 + 2^-6.
+    got = tk.left2d_w_operand(_t(ties[:4].reshape(1, 4)))[:, :4].view(torch.int16)
+    assert got.numpy().view(np.uint16).tolist() == [[0x3F80, 0x3F82, 0xBF80, 0xBF82]]
+
+
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_aligned_rows_pads_with_inert_missing_codes(rng, layout):
+    """Rows that are not whole 16-byte copies (63 packed bytes, 252 dense
+    samples) or an unaligned base get a padded copy whose extra samples
+    standardize to 0, so A^T W of the copy is that of the input plus zero
+    rows; aligned rows pass through as they are."""
+    g = make_genotypes(rng, 20, 250 if layout == "packed" else 252,
+                       missing_rate=0.05)
+    geno = _t(js.pack_int8_rows(g) if layout == "packed" else g)
+    pad = 0x55 if layout == "packed" else -127
+    mu = _t(rng.uniform(0.1, 1.9, (20, 1)).astype(np.float32))
+    inv = _t(rng.uniform(0.5, 2.0, (20, 1)).astype(np.float32))
+    w = _t(rng.standard_normal((20, 10)).astype(np.float32))
+    a = tk.aligned_rows(geno)
+    assert a.shape == (20, 64 if layout == "packed" else 256)
+    assert torch.equal(a[:, : geno.shape[1]], geno)
+    assert bool((a[:, geno.shape[1]:] == pad).all())
+    n = tk._samples(geno)
+    plain = tk.fused_left_apply_2d_packed_plain
+    assert torch.equal(plain(a, mu, inv, w)[:n], plain(geno, mu, inv, w))
+    assert not plain(a, mu, inv, w)[n:].any()
+    assert tk.aligned_rows(a) is a
+    base = torch.zeros(20 * a.shape[1] + 1, dtype=a.dtype)
+    shifted = base[1:].view(20, a.shape[1])
+    shifted.copy_(a)
+    moved = tk.aligned_rows(shifted)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, a)
+
+
+def test_left2d_ab_checks_through_the_wrappers_and_needs_cuda(monkeypatch):
+    """The A/B timer of kernels 6 and 14 holds each layout to its plain
+    version through the wrappers before it times anything (on the CPU the
+    wrappers run the plain versions, so it agrees at a ragged shape), and
+    exits 1 without a CUDA device."""
+    from genomic_pca_tpu_torch.eval import left2d_ab
+
+    for layout in ("packed", "dense"):
+        assert left2d_ab.agrees(layout, 70, 256, 10, torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert left2d_ab.main(["tag"]) == 1
