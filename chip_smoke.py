@@ -11,11 +11,14 @@ no result line):
    (70,001 x 2,504), with CUDA-event median times of kernel and plain
    version;
 4. the four 2-D (wide-sample) kernels the same way at 65,536 x 16,384,
-   L = 128, and at 70,001 x 16,389, and kernel 6 at 2,048 x 11,264 (a
-   streamed strip at the 2-D switch width: its thinnest grid), with its
-   tile and grid and a bit-identical second launch; the 1-D gram and q8
-   passes against the 2-D ones at the wide shape; `q8_power_pass_2d`
-   against a float64 replay of its quantization model;
+   L = 128, and at 70,001 x 16,389; kernels 5 and 6 at 2,048 x 11,264 (a
+   streamed strip at the 2-D switch width: their thinnest grids), 5 at
+   2,000 x 16,384 (an EigenSNP strip, whose samples split) and at 65,536
+   x 16,384 with L = 10 (the loadings launch), each tensor-core product
+   with its tile, grid (and sample split) and a bit-identical second
+   launch; the 1-D gram and q8 passes against the 2-D ones at the wide
+   shape; `q8_power_pass_2d` against a float64 replay of its quantization
+   model;
 5. the 1-D main path, `streamed_pca(ShardedMatrix.from_packed_rows(...),
    k=10, n_power_iter=4, compute_loadings=True)` over structured
    genotypes of 262,144 x 2,048: launch counts 3 / 1 / 1 / 1 for q8 /
@@ -51,8 +54,9 @@ no result line):
    `fused_left_apply_2d`, 7i and 8i, the int8 branches of
    `right_apply_2d_q8` / `left_apply_2d_q8`) against their plain versions
    at 65,536 x 16,384 (1 GiB of int8), L = 128, and at 70,001 x 16,389
-   (container width 16,512), and 14 at 2,048 x 11,264 with a
-   bit-identical second launch, as 6 in phase 4;
+   (container width 16,512), and 13 and 14 at the thin shapes of phase 4
+   and 13 at L = 10, each with a bit-identical second launch, as 5 and 6
+   in phase 4;
 13. the dense 2-D main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
    on the genotypes of phase 6 unpacked to int8 on the card (131,072 x
    16,384, 2 GiB): launch counts 3 / 3 / 3 / 1 for 7i / 8i / 13 / 14 and
@@ -138,7 +142,7 @@ SOURCES = {
     "fused_gram_apply_packed": (CSRC + "exact_kernels.cu", PK + "492"),
     "fused_tsq_packed": (CSRC + "exact_kernels.cu", PK + "564"),
     "fused_right_apply_packed": (CSRC + "exact_kernels.cu", PK + "529"),
-    "fused_right_apply_2d_packed": (CSRC + "exact_kernels.cu", PK + "675"),
+    "fused_right_apply_2d_packed": (CSRC + "right2d_kernels.cu", PK + "675"),
     "fused_left_apply_2d_packed": (CSRC + "wide_kernels.cu", PK + "723"),
     "right_apply_2d_q8": (CSRC + "wide_kernels.cu", PK + "1096"),
     "left_apply_2d_q8": (CSRC + "wide_kernels.cu", PK + "1139"),
@@ -146,7 +150,7 @@ SOURCES = {
     "fused_gram_apply": (CSRC + "dense_kernels.cu", PK + "144"),
     "fused_tsq": (CSRC + "dense_kernels.cu", PK + "215"),
     "fused_right_apply": (CSRC + "dense_kernels.cu", PK + "181"),
-    "fused_right_apply_2d": (CSRC + "dense_kernels.cu", PK + "296"),
+    "fused_right_apply_2d": (CSRC + "right2d_kernels.cu", PK + "296"),
     "fused_left_apply_2d": (CSRC + "wide_kernels.cu", PK + "346"),
     "right_apply_2d_q8_i8": (CSRC + "wide_kernels.cu", PK + "1096"),
     "left_apply_2d_q8_i8": (CSRC + "wide_kernels.cu", PK + "1139"),
@@ -154,8 +158,11 @@ SOURCES = {
 ZERO_LAUNCHES = dict.fromkeys(
     KERNELS_1D + KERNELS_2D + KERNELS_DENSE + KERNELS_DENSE_2D, 0)
 # Kernels with a fixed sum order and no atomics: a second launch on the
-# same inputs must give the same bits.  The tensor-core left products.
-BITWISE_RERUN = ("fused_left_apply_2d_packed", "fused_left_apply_2d")
+# same inputs must give the same bits.  The tensor-core products, left
+# and right.
+LEFT_MMA = ("fused_left_apply_2d_packed", "fused_left_apply_2d")
+RIGHT_MMA = ("fused_right_apply_2d_packed", "fused_right_apply_2d")
+BITWISE_RERUN = LEFT_MMA + RIGHT_MMA
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
 # device memory rate, and tensor-core rates for the operand type of each
@@ -315,9 +322,10 @@ def median_ms(torch, fn, reps):
     return times[len(times) // 2]
 
 
-def kernel_cases(torch, d, n, seed, device, names):
+def kernel_cases(torch, d, n, seed, device, names, ell=128):
     """Inputs for each kernel of `names` at one shape: {name: (args,
-    kwargs)}."""
+    kwargs)}; `ell` the columns of B of the 2-D right products (the others
+    take 128, the 1-D right products 10)."""
     from genomic_pca_tpu_torch.ops.kernels import (
         fused_right_apply_2d_packed_plain, quantize_rows,
     )
@@ -344,6 +352,7 @@ def kernel_cases(torch, d, n, seed, device, names):
         return b
 
     b128 = basis(128)
+    b_right = b128 if ell == 128 else basis(ell)
     bq, sb, csum = quantize_basis(b128)
     # z8 / sz of a 2-D q8 pass, quantized per row tile of 1,024.
     z8, sz = quantize_rows(torch.randn((d, 128), generator=gen, device=device), 1024)
@@ -358,7 +367,7 @@ def kernel_cases(torch, d, n, seed, device, names):
         "fused_tsq_packed": lambda: ((packed, mean, inv, b128), {"precision": "bf16"}),
         "fused_right_apply_packed": lambda: ((packed, mean, inv, basis(10)),
                                              {"precision": "bf16"}),
-        "fused_right_apply_2d_packed": lambda: ((packed, mean, inv, b128),
+        "fused_right_apply_2d_packed": lambda: ((packed, mean, inv, b_right),
                                                 {"precision": "bf16"}),
         # W as the 2-D gram pass gives it: A B in f32.
         "fused_left_apply_2d_packed": lambda: (
@@ -373,7 +382,8 @@ def kernel_cases(torch, d, n, seed, device, names):
         "fused_tsq": lambda: ((geno, mean, inv, b_d), {"precision": "bf16"}),
         "fused_right_apply": lambda: ((geno, mean, inv, basis(10)[:n_d]),
                                       {"precision": "bf16"}),
-        "fused_right_apply_2d": lambda: ((geno, mean, inv, b_d), {"precision": "bf16"}),
+        "fused_right_apply_2d": lambda: ((geno, mean, inv, b_right[:n_d]),
+                                         {"precision": "bf16"}),
         "fused_left_apply_2d": lambda: (
             (geno, mean, inv, fused_right_apply_2d_packed_plain(geno, mean, inv, b_d)),
             {"precision": "bf16"}),
@@ -436,11 +446,12 @@ def library_call(torch, name, args):
     return "torch.matmul(A, B)", lambda: torch.matmul(a, b)
 
 
-def check_kernels(torch, d, n, seed, device, reps, names):
+def check_kernels(torch, d, n, seed, device, reps, names, ell=128):
     from genomic_pca_tpu_torch.ops import kernels as tk
 
     results = {}
-    for name, (args, kw) in kernel_cases(torch, d, n, seed, device, names).items():
+    for name, (args, kw) in kernel_cases(torch, d, n, seed, device, names,
+                                         ell).items():
         kern = getattr(tk, WRAPPER.get(name, name))
         plain = tk.PLAIN[name]
 
@@ -457,10 +468,16 @@ def check_kernels(torch, d, n, seed, device, reps, names):
         if name in BITWISE_RERUN:
             if not torch.equal(got, run_k()):
                 raise AssertionError(f"{name}: a second launch gave other bits")
-            tile, grid = tk.left2d_plan(got.shape[0], ell)
-            log(f"[kernel] {name} D={d} N={n} L={ell}: tile {tile} (samples x "
-                f"columns), grid {grid}, every row in each block; a second "
-                "launch repeats bit for bit")
+            if name in LEFT_MMA:
+                tile, grid = tk.left2d_plan(got.shape[0], ell)
+                plan = (f"tile {tile} (samples x columns), grid {grid}, every "
+                        "row in each block")
+            else:
+                tile, grid, splits = tk.right2d_plan(d, args[3].shape[0], ell)
+                plan = (f"tile {tile} (rows x columns), grid {grid}, the samples "
+                        f"in {splits} range(s)")
+            log(f"[kernel] {name} D={d} N={n} L={ell}: {plan}; a second launch "
+                "repeats bit for bit")
         if isinstance(got, tuple):  # a q8 pass: T = out - ru
             got, ref = got[0] - got[1], ref[0] - ref[1]
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
@@ -1076,9 +1093,15 @@ def main() -> int:
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
                                  KERNELS_2D))
     check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_2D)
-    # The thinnest grid of kernel 6: a streamed strip at the switch width.
+    # The thinnest grids of kernels 5 and 6: a streamed strip at the
+    # switch width, an EigenSNP strip (5's samples split), and the
+    # loadings launch of kernel 5 (L = k = 10).
     check_kernels(torch, 2_048, 11_264, SEED + 10, device, 5,
-                  ("fused_left_apply_2d_packed",))
+                  ("fused_right_apply_2d_packed", "fused_left_apply_2d_packed"))
+    check_kernels(torch, 2_000, 16_384, SEED + 11, device, 5,
+                  ("fused_right_apply_2d_packed",))
+    check_kernels(torch, 65_536, 16_384, SEED + 6, device, 3,
+                  ("fused_right_apply_2d_packed",), ell=10)
     compare_modes(torch, np, 65_536, 16_384, SEED + 6, device, 5)
     torch.cuda.empty_cache()
 
@@ -1148,7 +1171,11 @@ def main() -> int:
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
                                  KERNELS_DENSE_2D))
     check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_DENSE_2D)
-    check_kernels(torch, 2_048, 11_264, SEED + 10, device, 5, ("fused_left_apply_2d",))
+    check_kernels(torch, 2_048, 11_264, SEED + 10, device, 5,
+                  ("fused_right_apply_2d", "fused_left_apply_2d"))
+    check_kernels(torch, 2_000, 16_384, SEED + 11, device, 5, ("fused_right_apply_2d",))
+    check_kernels(torch, 65_536, 16_384, SEED + 6, device, 3,
+                  ("fused_right_apply_2d",), ell=10)
     torch.cuda.empty_cache()
 
     # 13. The dense 2-D main path on the genotypes of the packed 2-D one.

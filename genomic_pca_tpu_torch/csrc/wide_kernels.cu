@@ -14,9 +14,10 @@
 //   left_apply_2d_q8   (:1139, pallas_call :1158), packed -> gp_q8_left2d
 //                                      int8 (_clean_i8) -> gp_q8_left2d_dense
 //
-// A B, the fourth kernel of the mode, is right_kernel of packed_common.cuh
-// unrounded: gp_right_packed (exact_kernels.cu) for fused_right_apply_2d_packed
-// and gp_right_dense (dense_kernels.cu) for fused_right_apply_2d.
+// A B, the fourth kernel of the mode, is right2d_mma_kernel of
+// right2d_kernels.cu in bf16 mode (gp_right2d_packed / gp_right2d_dense)
+// and right_kernel of packed_common.cuh unrounded in f32 mode
+// (gp_right_packed / gp_right_dense).
 //
 // Each kernel is a template over the genotype layout (PackedRows,
 // DenseRows of packed_common.cuh), as the 1-D main loops are: a packed
@@ -46,9 +47,9 @@
 //     with both operands MN-major from the swizzled tiles; mbarriers hand
 //     every slot over and back, and setmaxnreg gives the consumers the
 //     registers the loader's warpgroup does not need;
-//   - every kRowBlock rows the accumulator is folded into a register total,
-//     so that f32 rounding grows with D / kRowBlock + kRowBlock terms, not
-//     with D (a million rows at biobank scale), whatever the tensor core's
+//   - every kFold rows the accumulator is folded into a register total,
+//     so that f32 rounding grows with D / kFold + kFold terms, not with D
+//     (a million rows at biobank scale), whatever the tensor core's
 //     internal accumulation.
 // What holds it above its bound (PERF.md): the decode of each chunk, and
 // the shared-memory traffic of its operands (48 KB of wgmma reads, both
@@ -60,17 +61,13 @@
 //
 // Every entry point launches on the given stream and returns
 // cudaGetLastError() so that a refused launch is never silent.
-#include <dlfcn.h>
-
 #include "hopper.cuh"
 
 namespace gp {
 
-constexpr int kRowBlock = 1024;  // rows summed in a partial of left2d
-
 // out (N, L) = A^T (N, D) . W (D, L) in f32, N = 4 * groups; one block per
 // 64 x 64 output tile, looping over every row.  The sum over D runs in
-// partials of kRowBlock rows added into a running total.
+// partials of kFold rows added into a running total.
 template <class Rows>
 __global__ void __launch_bounds__(kThreads)
 left2d_kernel(Rows g, const float* __restrict__ mean,
@@ -88,7 +85,7 @@ left2d_kernel(Rows g, const float* __restrict__ mean,
   float tot[4][4] = {};
   float acc[4][4] = {};
   for (int dc = 0; dc < D; dc += kBK) {
-    if (dc % kRowBlock == 0) {
+    if (dc % kFold == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -137,21 +134,8 @@ left2d_kernel(Rows g, const float* __restrict__ mean,
 // once and the two the consumers hold.  The packed rows are small (2 KB a
 // chunk), so that ring is deep; the dense ones take 8 KB.  The depths fill
 // most of the 227 KB a block may have (8 A slots, or 3 W slots dense, ran
-// slower).  The loader's warpgroup is whole for setmaxnreg; its other
-// three warps leave at once.
-constexpr int kMmaThreads = 512;  // consumers 0, 1; producer 2; loader 3
-constexpr int kLoaderWarp = 12;
-// Registers per thread after the hand-over (setmaxnreg): the consumers'
-// accumulator and total take 128, the producer's 16 rows in and out 48
-// (at 64 the packed decode spilled); 2 x 128 x 192 + 128 x (104 + 24) is
-// the SM's 65,536.
-constexpr int kConsumerRegs = 192, kProducerRegs = 104, kLoaderRegs = 24;
-static_assert(128 * (2 * kConsumerRegs + kProducerRegs + kLoaderRegs) <= 65536,
-              "the register file");
-constexpr int kProducerWarps = 4;
-constexpr int kWarpRows = 16;     // rows of one decode_rows call
-constexpr int kMmaCols = 128;     // columns of W per block
-static_assert(kRowBlock % kTileRows == 0, "a fold falls between chunks");
+// slower).
+static_assert(kFold % kTileRows == 0, "a fold falls between chunks");
 
 // Ring depths and the shared-memory layout (byte offsets from a 1024-byte
 // aligned base).  A raw slot: 64 rows of the tile's groups, then 64 means
@@ -198,28 +182,17 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
   using Smem = LeftMmaSmem<Rows>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint64_t* a_full = reinterpret_cast<uint64_t*>(sm + Smem::kBar);
-  uint64_t* a_empty = a_full + Smem::kAStages;
-  uint64_t* w_full = a_empty + Smem::kAStages;
-  uint64_t* w_empty = w_full + Smem::kWStages;
-  uint64_t* raw_full = w_empty + Smem::kWStages;
-  uint64_t* raw_empty = raw_full + Smem::kRawStages;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Smem::kBar);
+  const Ring<Smem::kAStages> a{bars};
+  const Ring<Smem::kWStages> wr{bars + 2 * Smem::kAStages};
+  const Ring<Smem::kRawStages> raw{bars + 2 * (Smem::kAStages + Smem::kWStages)};
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int s0 = blockIdx.x * kTileSamples, l0 = blockIdx.y * kMmaCols;
   const int chunks = (D + kTileRows - 1) / kTileRows;
   if (tid == 0) {
-    for (int s = 0; s < Smem::kAStages; ++s) {
-      mbar_init(&a_full[s], 1);   // the producer warp of the chunk
-      mbar_init(&a_empty[s], 2);  // one a consumer warpgroup
-    }
-    for (int s = 0; s < Smem::kWStages; ++s) {
-      mbar_init(&w_full[s], 1);   // the loader's arrival + the TMA bytes
-      mbar_init(&w_empty[s], 2);
-    }
-    for (int s = 0; s < Smem::kRawStages; ++s) {
-      mbar_init(&raw_full[s], 1);   // the loader's arrival + the TMA bytes
-      mbar_init(&raw_empty[s], 1);
-    }
+    a.init(1, 2);    // the producer warp of the chunk; both consumer warpgroups
+    wr.init(1, 2);   // the loader's arrival + the TMA bytes; both consumers
+    raw.init(1, 1);  // the loader's arrival + the TMA bytes; the producer warp
     mbar_fence_init();
   }
   __syncthreads();
@@ -228,33 +201,27 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
     setmaxnreg_dec<kLoaderRegs>();
     if (warp != kLoaderWarp) return;
     // Loader: lane 0 issues every TMA load as soon as its slot is free, the
-    // raw rows and moments of chunk j and the W tile of chunk j - lead, so
-    // that both rings run as far ahead as their depths allow.
-    if (lane == 0) {
-      constexpr int lead = Smem::kRawStages - Smem::kWStages;
-      for (int j = 0; j < chunks + lead; ++j) {
-        if (j < chunks) {
-          const int st = j % Smem::kRawStages;
-          mbar_wait(&raw_empty[st], ((j / Smem::kRawStages) & 1) ^ 1);
-          uint8_t* slot = sm + Smem::kRaw + st * Smem::kRawSlot;
-          mbar_arrive_expect_tx(&raw_full[st], Smem::kRawSlot);
-          tma_load_2d(slot, &maps.rows, (s0 / 4) * Rows::kGroupBytes, j * kTileRows,
-                      &raw_full[st]);
-          tma_load_1d(slot + Smem::kRawBytes, &maps.mean, j * kTileRows, &raw_full[st]);
-          tma_load_1d(slot + Smem::kRawBytes + 4 * kTileRows, &maps.inv_std,
-                      j * kTileRows, &raw_full[st]);
-        }
-        const int jw = j - lead;
-        if (jw >= 0) {
-          const int st = jw % Smem::kWStages;
-          mbar_wait(&w_empty[st], ((jw / Smem::kWStages) & 1) ^ 1);
-          uint8_t* wt = sm + Smem::kW + st * kTileBytes;
-          mbar_arrive_expect_tx(&w_full[st], kTileBytes);
-          tma_load_2d(wt, &maps.w, l0, jw * kTileRows, &w_full[st]);
-          tma_load_2d(wt + kPanelBytes, &maps.w, l0 + 64, jw * kTileRows, &w_full[st]);
-        }
-      }
-    }
+    // raw rows and moments of chunk j and the W tile of chunk j - lead.
+    if (lane == 0)
+      load_in_turn(
+          chunks, Smem::kRawStages - Smem::kWStages,
+          [&](int j) {
+            raw.wait_empty(j);
+            uint8_t* slot = sm + Smem::kRaw + raw.slot(j) * Smem::kRawSlot;
+            mbar_arrive_expect_tx(raw.full(j), Smem::kRawSlot);
+            tma_load_2d(slot, &maps.rows, (s0 / 4) * Rows::kGroupBytes, j * kTileRows,
+                        raw.full(j));
+            tma_load_1d(slot + Smem::kRawBytes, &maps.mean, j * kTileRows, raw.full(j));
+            tma_load_1d(slot + Smem::kRawBytes + 4 * kTileRows, &maps.inv_std,
+                        j * kTileRows, raw.full(j));
+          },
+          [&](int j) {
+            wr.wait_empty(j);
+            uint8_t* wt = sm + Smem::kW + wr.slot(j) * kTileBytes;
+            mbar_arrive_expect_tx(wr.full(j), kTileBytes);
+            tma_load_2d(wt, &maps.w, l0, j * kTileRows, wr.full(j));
+            tma_load_2d(wt + kPanelBytes, &maps.w, l0 + 64, j * kTileRows, wr.full(j));
+          });
   } else if (warp >= 8) {
     setmaxnreg_dec<kProducerRegs>();
     // Producer warpgroup: warp pw decodes all rows of chunks pw, pw + 4,
@@ -264,20 +231,19 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
     // fence.
     uint32_t* tbl = reinterpret_cast<uint32_t*>(sm + Smem::kTbl) + (warp - 8) * kWarpRows * 16;
     for (int it = warp - 8; it < chunks; it += kProducerWarps) {
-      const int sr = it % Smem::kRawStages, st = it % Smem::kAStages;
-      mbar_wait(&raw_full[sr], (it / Smem::kRawStages) & 1);
-      mbar_wait(&a_empty[st], ((it / Smem::kAStages) & 1) ^ 1);
-      const uint8_t* slot = sm + Smem::kRaw + sr * Smem::kRawSlot;
+      raw.wait_full(it);
+      a.wait_empty(it);
+      const uint8_t* slot = sm + Smem::kRaw + raw.slot(it) * Smem::kRawSlot;
       const float* moments = reinterpret_cast<const float*>(slot + Smem::kRawBytes);
 #pragma unroll
       for (int r0 = 0; r0 < kTileRows; r0 += kWarpRows)
         decode_rows<Rows>(slot, moments, moments + kTileRows,
-                          sm + Smem::kA + st * kTileBytes, tbl, r0, lane);
+                          sm + Smem::kA + a.slot(it) * kTileBytes, tbl, r0, lane);
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) {
-        mbar_arrive(&raw_empty[sr]);
-        mbar_arrive(&a_full[st]);
+        raw.release(it);
+        mbar_arrive(a.full(it));
       }
     }
   } else {
@@ -288,45 +254,28 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
     for (int c = 0; c < chunks; ++c) {
-      const int sa = c % Smem::kAStages;
-      mbar_wait(&a_full[sa], (c / Smem::kAStages) & 1);
-      mbar_wait(&w_full[c % Smem::kWStages], (c / Smem::kWStages) & 1);
-      const bool first = c % (kRowBlock / kTileRows) == 0;
-      if (first && c > 0) {
-        wgmma_wait<0>();
-        fence_regs(acc);
-#pragma unroll
-        for (int i = 0; i < 64; ++i) tot[i] += acc[i];
-      }
-      const uint32_t a = smem_u32(sm + Smem::kA + sa * kTileBytes + wg * kPanelBytes);
-      const uint32_t b = smem_u32(sm + Smem::kW + (c % Smem::kWStages) * kTileBytes);
+      a.wait_full(c);
+      wr.wait_full(c);
+      const bool first = c % (kFold / kTileRows) == 0;
+      if (first && c > 0) fold(acc, tot);
+      const uint32_t at = smem_u32(sm + Smem::kA + a.slot(c) * kTileBytes + wg * kPanelBytes);
+      const uint32_t wt = smem_u32(sm + Smem::kW + wr.slot(c) * kTileBytes);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)  // 16 rows (2 swizzle atoms) per MMA
-        wgmma_m64n128k16_tt(acc, desc_b128(a + 2048 * kk, kPanelBytes, 1024),
-                            desc_b128(b + 2048 * kk, kPanelBytes, 1024),
+        wgmma_m64n128k16<1>(acc, desc_b128(at + 2048 * kk, kPanelBytes, 1024),
+                            desc_b128(wt + 2048 * kk, kPanelBytes, 1024),
                             first && kk == 0 ? 0 : 1);
       wgmma_commit();
       wgmma_wait<1>();  // chunk c - 1's MMAs are done: release its slots
       if (c > 0 && tid % 128 == 0) {
-        mbar_arrive(&a_empty[(c - 1) % Smem::kAStages]);
-        mbar_arrive(&w_empty[(c - 1) % Smem::kWStages]);
+        a.release(c - 1);
+        wr.release(c - 1);
       }
     }
     wgmma_wait<0>();
     fence_regs(acc);
-    const int N = 4 * groups;
-    const int row = s0 + 64 * wg + 16 * (warp % 4) + lane / 4;
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int s = row + 8 * h, col = l0 + 8 * j + 2 * (lane % 4) + e;
-          const int i = 4 * j + 2 * h + e;
-          if (s < N && col < L) out[(size_t)s * L + col] = tot[i] + acc[i];
-        }
+    store_tile(out, tot, acc, s0 + 64 * wg, l0, 4 * groups, L, warp, lane);
   }
 }
 
@@ -430,44 +379,6 @@ q8_left2d_kernel(Rows g, const int8_t* __restrict__ z8,
   }
 }
 
-// cuTensorMapEncodeTiled from libcuda.so.1, which the process has loaded
-// (no link against libcuda).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_LAZY);
-    if (h != nullptr) fn = (EncodeTiledFn)dlsym(h, "cuTensorMapEncodeTiled");
-  }
-  return fn;
-}
-
-// A tensor map of a row-major (rows, cols) matrix of `esize`-byte
-// elements in boxes of box_x x box_y; rows = 0 makes it a vector (rank 1).
-// TMA needs 16-byte aligned bases and row strides.
-inline int tensor_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
-                      const void* base, int cols, int rows, int box_x,
-                      int box_y, CUtensorMapSwizzle swizzle) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)box_x, (cuuint32_t)box_y};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, type, rows > 0 ? 2 : 1, const_cast<void*>(base),
-                            dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 // Launchers shared by the packed and dense entry points.
 
 // The grid of left2d_mma_kernel: one block per kTileSamples x kMmaCols
@@ -492,12 +403,8 @@ int launch_left2d(Rows g, const void* mean, const void* inv_std, const void* w,
   LeftMmaMaps maps;
   memset(&maps, 0, sizeof(maps));
   if (D > 0) {
-    int rc = tensor_map(&maps.w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, ldw,
-                        D, 64, kTileRows, CU_TENSOR_MAP_SWIZZLE_128B);
-    if (rc == 0)
-      rc = tensor_map(&maps.rows, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, g.p,
-                      g.groups * Rows::kGroupBytes, D, 32 * Rows::kGroupBytes,
-                      kTileRows, CU_TENSOR_MAP_SWIZZLE_NONE);
+    int rc = bf16_map(&maps.w, w, ldw, D);
+    if (rc == 0) rc = rows_map(&maps.rows, g, D);
     if (rc == 0)
       rc = tensor_map(&maps.mean, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, mean, D,
                       0, kTileRows, 1, CU_TENSOR_MAP_SWIZZLE_NONE);

@@ -33,10 +33,13 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types.  Every entry returns the
-# launch's cudaGetLastError() as an int (gp_left2d_plan, which launches
-# nothing, 0).
+# launch's cudaGetLastError() as an int (the plans, which launch nothing,
+# 0).
 SIGNATURES = {
     "gp_left2d_plan": [_I, _I, _P],
+    "gp_right2d_plan": [_I, _I, _I, _I, _P],
+    "gp_right2d_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gp_right2d_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_right_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_wtw": [_P, _P, _I, _I, _I, _I, _P],

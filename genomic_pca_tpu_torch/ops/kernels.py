@@ -238,12 +238,12 @@ fused_right_apply_plain = fused_right_apply_packed_plain
 _ENTRY = {
     torch.uint8: {"right": "gp_right_packed", "left": "gp_left_packed",
                   "q8_w": "gp_q8_w", "q8_left": "gp_q8_left",
-                  "left2d": "gp_left2d_packed", "q8_right2d": "gp_q8_right2d",
-                  "q8_left2d": "gp_q8_left2d"},
+                  "left2d": "gp_left2d_packed", "right2d": "gp_right2d_packed",
+                  "q8_right2d": "gp_q8_right2d", "q8_left2d": "gp_q8_left2d"},
     torch.int8: {"right": "gp_right_dense", "left": "gp_left_dense",
                  "q8_w": "gp_q8_w_dense", "q8_left": "gp_q8_left_dense",
-                 "left2d": "gp_left2d_dense", "q8_right2d": "gp_q8_right2d_dense",
-                 "q8_left2d": "gp_q8_left2d_dense"},
+                 "left2d": "gp_left2d_dense", "right2d": "gp_right2d_dense",
+                 "q8_right2d": "gp_q8_right2d_dense", "q8_left2d": "gp_q8_left2d_dense"},
 }
 
 
@@ -284,8 +284,7 @@ def _route(geno: torch.Tensor) -> str:
 def _split(device: torch.device, tiles_2d: int, units: int, unit: int = 1):
     """Split-K layout over `units` work units of `unit` rows each: about 8
     blocks per SM.  Returns (layers, rows per layer)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    layers = max(1, min(units, -(-8 * sms // max(tiles_2d, 1))))
+    layers = max(1, min(units, -(-8 * _sms(device) // max(tiles_2d, 1))))
     per = -(-units // layers)
     return -(-units // per), per * unit
 
@@ -555,23 +554,27 @@ def fused_gram_q8(geno, inv_std, u, bq, sb, csum, tile_d=1024):
 # The four kernels of the wide-sample (2-D) mode.
 #
 # fused_right_apply_2d_packed replaces pallas_kernels.py
-# fused_right_apply_2d_packed (:675, pallas_call :692): A B with both
-# axes tiled, W in f32 (not rounded).  The TPU needed a second kernel
-# only because a full-width row tile no longer fit VMEM; the port's
-# right kernel already tiles both axes (one block per 64 x 64 output
-# tile, looping over all samples), so this wrapper launches
-# gp_right_packed (csrc/exact_kernels.cu) with round_out = 0 - the same
-# computation - and keeps its own launch count and plain version.
+# fused_right_apply_2d_packed (:675, pallas_call :692; body
+# _right2d_packed_kernel :642): A B with W (D, L) in f32, not rounded, B
+# rounded to bf16 in bf16 mode.  Bound on an H100 by the bf16 tensor-core
+# rate: 2*D*N*L operations (0.278 ms at 65,536 x 16,384 x 128) against
+# D*N4 bytes.  Design (right2d_mma_kernel, csrc/right2d_kernels.cu): the
+# left product's pipeline turned over - one block per 128 rows x 128
+# columns loops over the samples in chunks of 128; a loader warp's TMA
+# loads bring the raw half tiles and the bf16 B tiles; a producer
+# warpgroup decodes with per-row codes built once a block; two consumer
+# warpgroups run wgmma with the decoded tile K-major.  Where the row
+# blocks are fewer than the SMs (a thin strip) the samples split into
+# ranges whose partial slabs are added in a fixed order
+# (`right2d_plan`): no atomics, the same bits every launch.  f32 mode
+# launches the f32 FMA loop of the 1-D mode's right product
+# (gp_right_packed, round_out = 0).
 
 
 def fused_right_apply_2d_packed(packed, mean, inv_std, b, precision="bf16"):
     """A B: (D, L) f32, W not rounded."""
-    packed, mean, inv_std, b = _check_common(packed, mean, inv_std, b, precision)
-    if _route(packed) == "plain":
-        return fused_right_apply_2d_packed_plain(packed, mean, inv_std, b,
-                                                 precision)
-    LAUNCHES["fused_right_apply_2d_packed"] += 1
-    return _launch_right(packed, mean, inv_std, b, _bf16(precision), False)
+    return _right2d(packed, mean, inv_std, b, precision, torch.uint8,
+                    "fused_right_apply_2d_packed")
 
 
 # The 1-D mode's right product is the same function.
@@ -589,12 +592,13 @@ fused_right_apply_2d_packed_plain = fused_right_apply_packed_plain
 # the packed bytes, the moments and the bf16 W tiles (128-byte swizzled)
 # into shared-memory rings handed over by mbarriers; a producer warpgroup
 # decodes each byte into the bf16 A tile (a per-row table of nibble
-# pairs); two consumer warpgroups run wgmma on the swizzled tiles.  TMA
-# wants 16-byte aligned bases and row
-# strides (`aligned_rows`, `left2d_w_operand`, the moments' copies).  W
-# is rounded to bf16 once here (`left2d_w_operand`), as `_round_bf16`
-# rounds it in the plain version.  f32 mode keeps the f32 FMA loop
-# (left2d_kernel).
+# pairs); two consumer warpgroups run wgmma on the swizzled tiles.  f32
+# mode keeps the f32 FMA loop (left2d_kernel).
+#
+# Both tensor-core products read their operands with TMA, which wants
+# 16-byte aligned bases and row strides (`_mma_operands`), and round W or B
+# to bf16 once in the wrapper (`mma_operand`), as `_round_bf16` rounds it
+# in the plain versions.
 
 def left2d_plan(n_samples: int, ell: int) -> tuple:
     """(tile, grid) of the tensor-core left product over `n_samples` and
@@ -609,16 +613,37 @@ def left2d_plan(n_samples: int, ell: int) -> tuple:
     return (plan[0], plan[1]), (plan[2], plan[3])
 
 
-def left2d_w_operand(w: torch.Tensor) -> torch.Tensor:
-    """W (D, L) f32 as the tensor-core left product reads it: bf16, rounded
-    to nearest even once (the rounding of `_round_bf16`), columns padded
-    with zeros to a multiple of 8 so that a row is whole 16-byte units."""
-    d, ell = w.shape
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def right2d_plan(d: int, n_samples: int, ell: int, sms: int = None) -> tuple:
+    """(tile, grid, splits) of the tensor-core right product over `d` rows,
+    `n_samples` samples and `ell` columns of B on `sms` SMs (default: the
+    current CUDA device's), as launch_right2d launches it: tile (rows,
+    columns), grid (row blocks, column blocks), and the ranges the samples
+    split into where the blocks are fewer than the SMs.  Read from the
+    built library (`gp_right2d_plan`)."""
+    from genomic_pca_tpu_torch.ops.build import lib
+
+    if sms is None:
+        sms = _sms(torch.device("cuda", torch.cuda.current_device()))
+    plan = (ctypes.c_int * 5)()
+    lib().gp_right2d_plan(d, n_samples, ell, sms, ctypes.addressof(plan))
+    return (plan[0], plan[1]), (plan[2], plan[3]), plan[4]
+
+
+def mma_operand(x: torch.Tensor) -> torch.Tensor:
+    """W of the left product or B of the right, (K, L) f32, as the
+    tensor-core products read it: bf16, rounded to nearest even once (the
+    rounding of `_round_bf16`), columns padded with zeros to a multiple of
+    8 so that a row is whole 16-byte units."""
+    k, ell = x.shape
     lw = -(-ell // 8) * 8
     if lw == ell:
-        return w.to(torch.bfloat16)
-    out = torch.zeros((d, lw), dtype=torch.bfloat16, device=w.device)
-    out[:, :ell] = w
+        return x.to(torch.bfloat16)
+    out = torch.zeros((k, lw), dtype=torch.bfloat16, device=x.device)
+    out[:, :ell] = x
     return out
 
 
@@ -638,6 +663,15 @@ def aligned_rows(geno: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _mma_operands(geno, mean, inv_std, x):
+    """The operands of a tensor-core product as its TMA loads read them:
+    `aligned_rows` of the genotypes, the moments (copied where
+    misaligned), and W or B through `mma_operand`."""
+    mean, inv_std = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (mean, inv_std))
+    return aligned_rows(geno), mean, inv_std, mma_operand(x)
+
+
 def _left2d(geno, mean, inv_std, w, precision, dtype, name):
     """A^T W through the left product of the layout `dtype`: the tensor-core
     kernel in bf16 mode, the f32 loop in f32 mode."""
@@ -653,15 +687,38 @@ def _left2d(geno, mean, inv_std, w, precision, dtype, name):
         return PLAIN[name](geno, mean, inv_std, w, precision)
     LAUNCHES[name] += 1
     n, ell = _samples(geno), w.shape[1]
-    if bf16:  # TMA reads 16-byte aligned bases and row strides
-        geno, w = aligned_rows(geno), left2d_w_operand(w)
-        mean, inv_std = (t if t.data_ptr() % 16 == 0 else t.clone()
-                         for t in (mean, inv_std))
+    if bf16:
+        geno, mean, inv_std, w = _mma_operands(geno, mean, inv_std, w)
     out = torch.empty((_samples(geno), ell), dtype=torch.float32, device=dev)
     if out.numel():
         _launch(dev, _ENTRY[dtype]["left2d"], geno, mean, inv_std, w, out, d,
                 _samples(geno) // 4, ell, w.shape[1], int(bf16))
     return out[:n]
+
+
+def _right2d(geno, mean, inv_std, b, precision, dtype, name):
+    """A B through the right product of the layout `dtype`: the tensor-core
+    kernel in bf16 mode (with a slab of partials where `right2d_plan`
+    splits the samples), the f32 loop in f32 mode."""
+    geno, mean, inv_std, b = _check_common(geno, mean, inv_std, b, precision,
+                                           dtype)
+    if _route(geno) == "plain":
+        return PLAIN[name](geno, mean, inv_std, b, precision)
+    LAUNCHES[name] += 1
+    if not _bf16(precision):
+        return _launch_right(geno, mean, inv_std, b, False, False)
+    d, (n, ell), dev = geno.shape[0], b.shape, geno.device
+    out = torch.empty((d, ell), dtype=torch.float32, device=dev)
+    if not out.numel():
+        return out
+    geno, mean, inv_std, b = _mma_operands(geno, mean, inv_std, b)
+    sms = _sms(dev)
+    splits = right2d_plan(d, n, ell, sms)[2]
+    slab = (torch.empty((splits, d, ell), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    _launch(dev, _ENTRY[dtype]["right2d"], geno, mean, inv_std, b, out, slab, d,
+            _samples(geno) // 4, n, ell, b.shape[1], sms)
+    return out
 
 
 def fused_left_apply_2d_packed(packed, mean, inv_std, w, precision="bf16"):
@@ -762,22 +819,20 @@ def q8_power_pass_2d(geno, inv_std, u, bq, sb, csum, tile_d=1024):
 # fused_right_apply_2d replaces pallas_kernels.py fused_right_apply_2d
 # (:296, pallas_call :313; body _right2d_kernel :263): A B with both axes
 # tiled over (D, N) int8 dosages, bf16 operands and f32 sums, W NOT
-# rounded (the reference accumulates it in f32).  As kernel 5 reuses the
-# packed right kernel, this wrapper launches gp_right_dense
-# (csrc/dense_kernels.cu, one block per 64 x 64 output tile looping over
-# all samples) with round_out = 0 - the same computation - and keeps its
-# own launch count and plain version.  FMA bound: 2*D*N*L operations
-# against D*N bytes.
+# rounded (the reference accumulates it in f32).  Bound on an H100 by its
+# D*N bytes of int8 (0.333 ms at 65,536 x 16,384; the operations take
+# 0.278 ms).  Kernel 5's design (right2d_mma_kernel instantiated for
+# DenseRows): each row's bf16x2 scale and shift built once a block, the
+# producer's bf16x2 decode (any dosage, two bf16 roundings as the
+# reference's dense tile, -127 -> 0) into the tile the wgmma consumers
+# read K-major; the same sample split for thin strips.  f32 mode launches
+# gp_right_dense, the f32 FMA loop.
 
 
 def fused_right_apply_2d(geno, mean, inv_std, b, precision="bf16"):
     """A B over (D, N) int8 dosages: (D, L) f32, W not rounded."""
-    geno, mean, inv_std, b = _check_common(geno, mean, inv_std, b, precision,
-                                           torch.int8)
-    if _route(geno) == "plain":
-        return fused_right_apply_2d_plain(geno, mean, inv_std, b, precision)
-    LAUNCHES["fused_right_apply_2d"] += 1
-    return _launch_right(geno, mean, inv_std, b, _bf16(precision), False)
+    return _right2d(geno, mean, inv_std, b, precision, torch.int8,
+                    "fused_right_apply_2d")
 
 
 # fused_left_apply_2d replaces pallas_kernels.py fused_left_apply_2d

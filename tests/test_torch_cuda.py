@@ -122,6 +122,34 @@ def test_wide_exact_kernel_matches_plain(cuda_device, precision):
                                rtol=1e-5, atol=1e-5)
 
 
+def _mma_case(rng, layout, d, n):
+    """Genotypes of the tensor-core products (packed bytes or dense int8)
+    and their moments (d, 1): 5% missing, an inert row (inv_std 0), and in
+    the dense layout some dosages outside {0, 1, 2}."""
+    g = balding_nichols(rng, d, n, missing_rate=0.05)
+    if layout == "dense":
+        odd = rng.random(g.shape) < 0.02
+        g[odd] = rng.integers(-100, 100, size=int(odd.sum()))
+    valid = g != -127
+    g0 = np.where(valid, g, 0).astype(np.float64)
+    mu = (g0.sum(1) / np.maximum(valid.sum(1), 1)).astype(np.float32)[:, None]
+    inv = (1.0 / (g0.std(1) + 0.1)).astype(np.float32)[:, None]
+    inv[min(5, d - 1)] = 0.0
+    return (pack_int8_rows(g) if layout == "packed" else g), mu, inv
+
+
+def _launch_twice(name, args, precision):
+    """Two launches of kernel `name`: (result, the plain version's), the
+    launch count and the second launch's bits checked."""
+    tk.reset_launch_counts()
+    got = getattr(tk, name)(*args, precision=precision)
+    again = getattr(tk, name)(*args, precision=precision)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == dict(ZERO, **{name: 2})
+    assert torch.equal(got, again)
+    return got, tk.PLAIN[name](*args, precision)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [40, 1000, 2100])
 @pytest.mark.parametrize("ell", [4, 10, 128, 130, 256])
@@ -139,30 +167,59 @@ def test_left_2d_kernel_matches_plain_and_repeats(cuda_device, layout,
     dense layout some dosages outside {0, 1, 2}."""
     rng = np.random.default_rng(1000 * d + ell)
     n = 250 if layout == "packed" else 252
-    g = balding_nichols(rng, d, n, missing_rate=0.05)
-    if layout == "dense":
-        odd = rng.random(g.shape) < 0.02
-        g[odd] = rng.integers(-100, 100, size=int(odd.sum()))
-    valid = g != -127
-    g0 = np.where(valid, g, 0).astype(np.float64)
-    mu = (g0.sum(1) / np.maximum(valid.sum(1), 1)).astype(np.float32)[:, None]
-    inv = (1.0 / (g0.std(1) + 0.1)).astype(np.float32)[:, None]
-    inv[min(5, d - 1)] = 0.0
+    geno, mu, inv = _mma_case(rng, layout, d, n)
     w = (3.0 * rng.standard_normal((d, ell))).astype(np.float32)
-    geno = pack_int8_rows(g) if layout == "packed" else g
     name = ("fused_left_apply_2d_packed" if layout == "packed"
             else "fused_left_apply_2d")
-    args = _on(cuda_device, geno, mu, inv, w)
-    tk.reset_launch_counts()
-    got = getattr(tk, name)(*args, precision=precision)
-    again = getattr(tk, name)(*args, precision=precision)
-    torch.cuda.synchronize()
-    assert tk.LAUNCHES == dict(ZERO, **{name: 2})
-    assert torch.equal(got, again)
-    ref = tk.PLAIN[name](*args, precision)
+    got, ref = _launch_twice(name, _on(cuda_device, geno, mu, inv, w), precision)
     assert got.shape == ref.shape == (4 * -(-n // 4), ell)
     err = float((got - ref).abs().max())
     assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(40, None), (300, None), (300, 2100)])
+@pytest.mark.parametrize("ell", [4, 10, 128, 130, 256])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_right_2d_kernel_matches_plain_and_repeats(cuda_device, layout,
+                                                   precision, ell, d, n):
+    """Kernels 5 (packed) and 13 (dense) against their plain versions on
+    the card, to 1e-5 of max|plain|, and two launches bit for bit (no
+    atomics: the sample split's partials are added in a fixed order).  D
+    below one 128-row tile and ragged past it; 250 packed samples (63-byte
+    rows, a padded copy) and 252 dense ones (a partial 128-sample chunk);
+    2,100 samples, past a 1,024-sample fold, on a strip of 300 rows whose
+    3-6 blocks take the sample split (2 ranges); L below, at and past the
+    128-column tile.  5% missing, an inert row, odd dense dosages."""
+    rng = np.random.default_rng(7000 + 10 * d + ell)
+    n = n or (250 if layout == "packed" else 252)
+    geno, mu, inv = _mma_case(rng, layout, d, n)
+    b = (rng.standard_normal((4 * -(-n // 4), ell)) / np.sqrt(n)).astype(np.float32)
+    name = ("fused_right_apply_2d_packed" if layout == "packed"
+            else "fused_right_apply_2d")
+    if precision == "bf16" and n > 1024:
+        assert tk.right2d_plan(d, b.shape[0], ell)[2] == 2
+    got, ref = _launch_twice(name, _on(cuda_device, geno, mu, inv, b), precision)
+    assert got.shape == ref.shape == (d, ell)
+    err = float((got - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_right_2d_plan(cuda_device):
+    """The tile, grid and sample splits the library launches kernels 5 and
+    13 with on 132 SMs: 128 rows x 128 columns a block; at 65,536 x 16,384
+    its 512 blocks fill the card and the samples stay whole; a strip of
+    2,000 (EigenSNP's) or 2,048 rows gives 16 blocks, so the samples split
+    into 8 ranges (16 or 11 chunks of 128 each); a range is never shorter
+    than a 1,024-sample fold, so narrow matrices do not split."""
+    assert tk.right2d_plan(65_536, 16_384, 128, 132) == ((128, 128), (512, 1), 1)
+    assert tk.right2d_plan(2_000, 16_384, 128, 132) == ((128, 128), (16, 1), 8)
+    assert tk.right2d_plan(2_048, 11_264, 128, 132) == ((128, 128), (16, 1), 8)
+    assert tk.right2d_plan(2_000, 16_384, 10, 132) == ((128, 128), (16, 1), 8)
+    assert tk.right2d_plan(300, 2_100, 130, 132) == ((128, 128), (3, 2), 2)
+    assert tk.right2d_plan(300, 1_000, 128, 132) == ((128, 128), (3, 1), 1)
 
 
 @pytest.mark.cuda

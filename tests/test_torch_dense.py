@@ -162,6 +162,31 @@ def test_dense_right_2d_plain_matches_jax(rng, precision):
     np.testing.assert_allclose(got.numpy(), ref, *TOL_2D[precision])
 
 
+@pytest.mark.parametrize("ell", [10, 130])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_dense_right_2d_plain_matches_jax_at_hard_cases(rng, precision, ell):
+    """Kernel 13's plain version, which tests/test_torch_cuda.py holds the
+    tensor-core kernel to, against the JAX kernel at the GPU test's hard
+    cases the reference's tiling admits: L = 10 and 130, 5% missing, an
+    inert row, and 2% of dosages outside {0, 1, 2} (the dense bf16 tile
+    rounds g * scale before the shift: odd dosages make that rounding
+    inexact)."""
+    geno, mu, inv, _ = dense_case(rng, d=96, n=512)
+    odd = rng.random(geno.shape) < 0.02
+    geno[odd] = rng.integers(-100, 100, size=int(odd.sum()))
+    b = (rng.standard_normal((512, ell)) / np.sqrt(512)).astype(np.float32)
+    ref = np.asarray(pk.fused_right_apply_2d(
+        jnp.asarray(geno), jnp.asarray(mu), jnp.asarray(inv), jnp.asarray(b),
+        tile_d=32, tile_n=256, precision=precision, interpret=True,
+    ))
+    tk.reset_launch_counts()
+    got = tk.fused_right_apply_2d(_t(geno), _t(mu), _t(inv), _t(b),
+                                  precision=precision)
+    assert all(v == 0 for v in tk.LAUNCHES.values())
+    assert not got[5].any()
+    np.testing.assert_allclose(got.numpy(), ref, *TOL_2D[precision])
+
+
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 def test_dense_left_2d_plain_matches_jax(rng, precision):
     """Kernel 14: W (D, L) f32, not bf16-exact, rounded to bf16 on load in
@@ -242,6 +267,13 @@ def test_dense_2d_wrappers_validate_and_route(rng):
         tk.fused_left_apply_2d(_t(geno[:, :30]), _t(mu), _t(inv), _t(b[:16]))
     with pytest.raises(TypeError):
         tk.fused_right_apply_2d(_t(geno.view(np.uint8)), _t(mu), _t(inv), _t(b))
+    with pytest.raises(ValueError, match="b must be"):
+        tk.fused_right_apply_2d(_t(geno), _t(mu), _t(inv), _t(b[:16]))
+    tk.reset_launch_counts()
+    for precision in ("bf16", "f32"):
+        assert tk.fused_right_apply_2d(_t(geno), _t(mu), _t(inv), _t(b),
+                                       precision=precision).shape == (16, 4)
+    assert all(v == 0 for v in tk.LAUNCHES.values())
     with pytest.raises(TypeError, match="uint8 \\(packed\\) or int8"):
         tk.right_apply_2d_q8(_t(geno).to(torch.int16), _t(b).to(torch.int8))
     with pytest.raises(ValueError, match="bq must be"):

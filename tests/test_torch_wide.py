@@ -67,6 +67,37 @@ def test_right_2d_plain_matches_jax(wide_case, precision):
     np.testing.assert_allclose(got.numpy(), ref, *TOL[precision])
 
 
+@pytest.mark.parametrize("ell", [10, 130])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_right_2d_plain_matches_jax_at_hard_cases(rng, precision, ell):
+    """Kernel 5's plain version, which tests/test_torch_cuda.py holds the
+    tensor-core kernel to, against the JAX kernel at the GPU test's hard
+    cases the reference's tiling admits: L = 10 (the loadings launch) and
+    130 (past one 128-column tile), 5% missing, an inert row, 96 rows of
+    1,024 samples (three row tiles, two sample tiles)."""
+    d, n = 96, 1024
+    geno = make_genotypes(rng, d, n, missing_rate=0.05)
+    packed = padded_packed(geno)[:, : n // 4]
+    valid = geno != -127
+    g0 = np.where(valid, geno, 0).astype(np.float64)
+    mu = (g0.sum(1) / valid.sum(1)).astype(np.float32)[:, None]
+    inv = (1.0 / (g0.std(1) + 0.1)).astype(np.float32)[:, None]
+    inv[7] = 0.0
+    b = (rng.standard_normal((n, ell)) / np.sqrt(n)).astype(np.float32)
+    perm = pk.plane_major_perm_tiled(n, TILE_N4)
+    ref = np.asarray(pk.fused_right_apply_2d_packed(
+        jnp.asarray(packed), jnp.asarray(mu), jnp.asarray(inv),
+        jnp.asarray(b[perm]), tile_d=32, tile_n4=TILE_N4, precision=precision,
+        interpret=True,
+    ))
+    tk.reset_launch_counts()
+    got = tk.fused_right_apply_2d_packed(_t(packed), _t(mu), _t(inv), _t(b),
+                                         precision=precision)
+    assert all(v == 0 for v in tk.LAUNCHES.values())
+    assert not got[7].any()
+    np.testing.assert_allclose(got.numpy(), ref, *TOL[precision])
+
+
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 def test_left_2d_plain_matches_jax(wide_case, precision):
     packed, mu, inv, b = wide_case
@@ -308,6 +339,10 @@ def test_wide_wrappers_validate_and_route():
     col = torch.zeros((8, 1))
     tk.reset_launch_counts()
     tk.fused_left_apply_2d_packed(packed, col, col, torch.zeros((8, 4)))
+    for precision in ("bf16", "f32"):
+        assert tk.fused_right_apply_2d_packed(
+            packed, col, col, torch.zeros((16, 4)), precision=precision
+        ).shape == (8, 4)
     tk.right_apply_2d_q8(packed, torch.zeros((16, 4), dtype=torch.int8))
     tk.left_apply_2d_q8(packed, torch.zeros((8, 4), dtype=torch.int8),
                         torch.ones(2), 4)
@@ -317,6 +352,11 @@ def test_wide_wrappers_validate_and_route():
                              torch.zeros((16, 4), dtype=torch.int8, device="meta"))
     with pytest.raises(ValueError, match="w must be"):
         tk.fused_left_apply_2d_packed(packed, col, col, torch.zeros((7, 4)))
+    with pytest.raises(ValueError, match="b must be"):
+        tk.fused_right_apply_2d_packed(packed, col, col, torch.zeros((15, 4)))
+    with pytest.raises(TypeError):
+        tk.fused_right_apply_2d_packed(packed, col, col,
+                                       torch.zeros((16, 4), dtype=torch.bfloat16))
     with pytest.raises(TypeError):
         tk.left_apply_2d_q8(packed, torch.zeros((8, 4)), torch.ones(2), 4)
     with pytest.raises(ValueError, match="sz"):
@@ -330,26 +370,36 @@ def test_wide_wrappers_validate_and_route():
 
 
 def test_left2d_w_operand_rounds_as_the_plain_version():
-    """W's one bf16 rounding in the wrapper is the plain version's
-    `_round_bf16`, bit for bit, ties to even included; ragged columns are
-    padded with zeros to whole 16-byte rows."""
+    """The one bf16 rounding of W (left products) and B (right products)
+    in the wrappers, `mma_operand`, is the plain versions' `_round_bf16`,
+    bit for bit, ties to even included; ragged columns are padded with
+    zeros to whole 16-byte rows; and the shared operand preparation hands
+    both products aligned rows and moments."""
     ties = np.array([0x3F808000, 0x3F818000, 0xBF808000, 0xBF818000,
                      0x3F807FFF, 0x3F808001, 0x7F7F8000, 0x00008000],
                     dtype=np.uint32).view(np.float32)
     rng = np.random.default_rng(0)
-    for ell in (8, 10, 128, 130):
-        w = rng.standard_normal((3, ell)).astype(np.float32) * 3.0
-        w.reshape(-1)[: len(ties)] = ties
-        w_t = _t(w)
-        op = tk.left2d_w_operand(w_t)
-        assert op.dtype == torch.bfloat16 and op.shape == (3, -(-ell // 8) * 8)
-        assert op.is_contiguous()
-        assert torch.equal(op[:, :ell].float().view(torch.int32),
-                           tk._round_bf16(w_t).view(torch.int32))
-        assert not op[:, ell:].float().any()
+    for rows in (3, 252):  # a W of 3 variants, a B of 252 samples
+        for ell in (8, 10, 128, 130):
+            w = rng.standard_normal((rows, ell)).astype(np.float32) * 3.0
+            w.reshape(-1)[: len(ties)] = ties
+            w_t = _t(w)
+            op = tk.mma_operand(w_t)
+            assert op.dtype == torch.bfloat16
+            assert op.shape == (rows, -(-ell // 8) * 8) and op.is_contiguous()
+            assert torch.equal(op[:, :ell].float().view(torch.int32),
+                               tk._round_bf16(w_t).view(torch.int32))
+            assert not op[:, ell:].float().any()
     # Round to nearest, ties to even: 1 + 2^-8 -> 1, 1 + 3 * 2^-8 -> 1 + 2^-6.
-    got = tk.left2d_w_operand(_t(ties[:4].reshape(1, 4)))[:, :4].view(torch.int16)
+    got = tk.mma_operand(_t(ties[:4].reshape(1, 4)))[:, :4].view(torch.int16)
     assert got.numpy().view(np.uint16).tolist() == [[0x3F80, 0x3F82, 0xBF80, 0xBF82]]
+    packed = torch.full((4, 63), 0x55, dtype=torch.uint8)
+    col = torch.zeros(5)[1:].reshape(4, 1)  # a 4-byte offset from its base
+    b = _t(rng.standard_normal((252, 10)).astype(np.float32))
+    geno, mean, inv, op = tk._mma_operands(packed, col, col, b)
+    assert geno.shape == (4, 64) and op.shape == (252, 16)
+    assert all(t.data_ptr() % 16 == 0 for t in (geno, mean, inv, op))
+    assert torch.equal(mean, col) and torch.equal(op[:, :10].float(), tk._round_bf16(b))
 
 
 @pytest.mark.parametrize("layout", ["packed", "dense"])
@@ -382,13 +432,16 @@ def test_aligned_rows_pads_with_inert_missing_codes(rng, layout):
 
 
 def test_left2d_ab_checks_through_the_wrappers_and_needs_cuda(monkeypatch):
-    """The A/B timer of kernels 6 and 14 holds each layout to its plain
-    version through the wrappers before it times anything (on the CPU the
-    wrappers run the plain versions, so it agrees at a ragged shape), and
-    exits 1 without a CUDA device."""
-    from genomic_pca_tpu_torch.eval import left2d_ab
+    """The A/B timer of the tensor-core products (kernels 6, 14, 5 and 13,
+    `eval/mma2d_ab.py`) holds each product and layout to its plain version
+    through the wrappers before it times anything (on the CPU the wrappers
+    run the plain versions, so it agrees at its check shapes and a ragged
+    one), and exits 1 without a CUDA device."""
+    from genomic_pca_tpu_torch.eval import mma2d_ab
 
-    for layout in ("packed", "dense"):
-        assert left2d_ab.agrees(layout, 70, 256, 10, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    for product, layout in mma2d_ab.NAMES:
+        assert mma2d_ab.agrees(product, layout, 70, 256, 10, cpu)
+        assert mma2d_ab.agrees(product, layout, *mma2d_ab.CHECKS[product][1], cpu)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert left2d_ab.main(["tag"]) == 1
+    assert mma2d_ab.main(["tag"]) == 1
