@@ -9,7 +9,9 @@ no result line):
    card, at the 1-D main path's shapes (262,144 SNPs x 2,048 samples,
    L = 128; L = k = 10 for the loadings product) and at a ragged shape
    (70,001 x 2,504), with CUDA-event median times of kernel and plain
-   version;
+   version; the gram pass (kernel 2, on the tensor cores in bf16 mode)
+   also at 2,048 x 2,048 (a streamed 1-D strip, whose plans split both
+   products), each time with its plans and a bit-identical second launch;
 4. the four 2-D (wide-sample) kernels the same way at 65,536 x 16,384,
    L = 128, and at 70,001 x 16,389; kernels 5 and 6 at 2,048 x 11,264 (a
    streamed strip at the 2-D switch width: their thinnest grids), 5 at
@@ -37,8 +39,9 @@ no result line):
    TSVs against a float64 PCA of the PCA-SNP set it kept;
 9. the four dense int8 kernels (9-12) against their plain versions at
    262,144 x 2,048 (L = 128; 10 for the right product) and at 70,001 x
-   2,504 (container width 2,560), and the exact three (10-12) at 65,536
-   x 10,000 (container width 10,112), the width of phase 11;
+   2,504 (container width 2,560), the exact three (10-12) at 65,536 x
+   10,000 (container width 10,112), the width of phase 11, and the gram
+   pass (kernel 10) at 2,048 x 2,048, as kernel 2 in phase 3;
 10. the dense main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
    on the genotypes of phase 5 unpacked to int8 on the card: launch
    counts 3 / 1 / 1 / 1 for kernels 9 / 10 / 12 / 11 and none of 1-8, the
@@ -104,7 +107,10 @@ SEED = 20260
 # 1.3e-6 at both shapes; the bound is about ten times that, so a dropped
 # row tile or tail (17 rows of 70,001 move the Gram by about 2.4e-4)
 # fails.  right_apply_2d_q8 sums integers below 2^24 and converts once:
-# it must equal its plain version bit for bit.
+# it must equal its plain version bit for bit.  The gram passes are also
+# held half by half (`check_gram`): their W against the plain right
+# product, and the pass against the plain left product of that W rounded
+# to bf16.
 TOL = {
     "fused_gram_q8_packed": 1e-5,
     "fused_gram_apply_packed": 1e-5,
@@ -162,7 +168,8 @@ ZERO_LAUNCHES = dict.fromkeys(
 # and right.
 LEFT_MMA = ("fused_left_apply_2d_packed", "fused_left_apply_2d")
 RIGHT_MMA = ("fused_right_apply_2d_packed", "fused_right_apply_2d")
-BITWISE_RERUN = LEFT_MMA + RIGHT_MMA
+GRAM_MMA = ("fused_gram_apply_packed", "fused_gram_apply")  # bf16 mode
+BITWISE_RERUN = LEFT_MMA + RIGHT_MMA + GRAM_MMA
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
 # device memory rate, and tensor-core rates for the operand type of each
@@ -446,7 +453,51 @@ def library_call(torch, name, args):
     return "torch.matmul(A, B)", lambda: torch.matmul(a, b)
 
 
-def check_kernels(torch, d, n, seed, device, reps, names, ell=128):
+def check_gram(torch, name, args, got, ref, ties_allowed):
+    """The bf16 gram pass (kernel 2 or 10) half by half: its right half's
+    f32 W (kernel 5 / 13 on the same inputs: the same kernel, plan and
+    sum order, so the pass's bf16 W is this W rounded once) against the
+    plain right product, and the pass against the plain left product of
+    that W rounded to bf16, each to TOL.  Both gates hold at every shape.
+    W is rounded to bf16 after an f32 sum in another order than the plain
+    version's, so an entry of W at a rounding tie lands one bf16 ulp from
+    the plain W's, and moves a column of the Gram by |A| ulp(W).  At the
+    shapes of the main path that is far below TOL of max|plain|; on a
+    strip of 2,048 rows the Gram is ~100x smaller while a tie moves it as
+    much, so there (`ties_allowed`) the pass is held to the plain gram
+    within TOL of max|plain| plus, entry by entry, |A|^T |dW| over the
+    tied entries dW.  Returns (ties, largest allowance) for the log."""
+    from genomic_pca_tpu_torch.eval.mma2d_ab import gram_reference
+    from genomic_pca_tpu_torch.ops import kernels as tk
+
+    w_ref, w_err, ties = gram_reference(*args)
+    err = float((got - w_ref).abs().max()) / float(w_ref.abs().max())
+    n_ties = int(torch.count_nonzero(ties))
+    log(f"[kernel] {name} halves: W vs the plain right product {w_err:.3e}, the "
+        f"pass vs the plain left product of bf16(W) {err:.3e} (of max|ref|, tol "
+        f"{TOL['fused_gram_apply']:.0e}); {n_ties} of {ties.numel()} W entries "
+        "round one bf16 ulp from the plain W's")
+    if not max(w_err, err) <= TOL["fused_gram_apply"]:
+        raise AssertionError(f"{name}: a half disagrees with its plain version")
+    del w_ref
+    if not ties_allowed:
+        return n_ties, 0.0
+    allow = tk.standardize(*args[:3]).abs().T @ ties.abs()
+    over = (got - ref).abs() - TOL["fused_gram_apply"] * float(ref.abs().max()) - allow
+    log(f"[kernel] {name} ties: largest |A|^T|dW| {float(allow.max()):.4e}; "
+        f"largest excess over TOL + allowance {float(over.max()):.4e}")
+    if bool((over > 0).any()):
+        raise AssertionError(f"{name}: disagrees with its plain version past its "
+                             "W ties")
+    return n_ties, float(allow.max())
+
+
+def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
+                  ties_allowed=False):
+    """Each kernel of `names` against its plain version at D x N (see TOL;
+    `ties_allowed`: the gram passes' W ties, see `check_gram`), its plans
+    and a second launch's bits where it has them, and CUDA-event times of
+    kernel, plain version and library call."""
     from genomic_pca_tpu_torch.ops import kernels as tk
 
     results = {}
@@ -469,9 +520,19 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128):
             if not torch.equal(got, run_k()):
                 raise AssertionError(f"{name}: a second launch gave other bits")
             if name in LEFT_MMA:
-                tile, grid = tk.left2d_plan(got.shape[0], ell)
-                plan = (f"tile {tile} (samples x columns), grid {grid}, every "
-                        "row in each block")
+                tile, grid, ranges = tk.left2d_plan(d, got.shape[0], ell)
+                plan = (f"tile {tile} (samples x columns), grid {grid}, the rows "
+                        f"in {ranges} range(s)")
+            elif name in GRAM_MMA:
+                geno = tk.aligned_rows(args[0])
+                (rt, rg, rs), (lt, lg, lr), work = tk.gram_plan(
+                    d, tk._samples(geno) // 4, args[3].shape[0], ell)
+                plan = (f"right tile {rt} (rows x columns), tiles {rg} ("
+                        + ("a persistent grid of at most one block an SM" if rs == 1
+                           else "a block each") + f"), the samples "
+                        f"in {rs} range(s); left tile {lt} (samples x columns), "
+                        f"grid {lg}, the rows in {lr} range(s); workspace "
+                        f"{work / 2**20:.2f} MiB")
             else:
                 tile, grid, splits = tk.right2d_plan(d, args[3].shape[0], ell)
                 plan = (f"tile {tile} (rows x columns), grid {grid}, the samples "
@@ -483,6 +544,8 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128):
         if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
                                  f"{tuple(ref.shape)} or non-finite output")
+        if name in GRAM_MMA:
+            check_gram(torch, name, args, got, ref, ties_allowed)
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         del got, ref
@@ -499,7 +562,8 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128):
             lib_ms = min(median_ms(torch, lib[1], reps),
                          median_ms(torch, lib[1], reps))
         del lib
-        ok = err <= TOL[name] * scale
+        # With `ties_allowed` check_gram gated the gram pass against plain.
+        ok = err <= TOL[name] * scale or (ties_allowed and name in GRAM_MMA)
         log(f"[kernel] {name} D={d} N={n} L={ell}: max abs err {err:.4e} "
             f"(max|plain| {scale:.4e}, rel {err / scale:.3e}, "
             f"tol {TOL[name]:.0e}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
@@ -1088,6 +1152,9 @@ def main() -> int:
     # 3. The 1-D kernels against plain versions.
     results = check_kernels(torch, 262_144, 2048, SEED, device, 5, KERNELS_1D)
     check_kernels(torch, 70_001, 2504, SEED + 1, device, 3, KERNELS_1D)
+    # A streamed 1-D strip of the gram pass: both products' plans split.
+    check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5,
+                  ("fused_gram_apply_packed",), ties_allowed=True)
 
     # 4. The 2-D kernels at the wide shape and a ragged one; both modes.
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
@@ -1144,6 +1211,8 @@ def main() -> int:
     check_kernels(torch, 70_001, 2504, SEED + 1, device, 3, KERNELS_DENSE)
     check_kernels(torch, 65_536, 10_000, SEED + 9, device, 3,
                   ("fused_gram_apply", "fused_tsq", "fused_right_apply"))
+    check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5, ("fused_gram_apply",),
+                  ties_allowed=True)
     torch.cuda.empty_cache()
 
     # 10. The dense main path on the genotypes of the packed one.

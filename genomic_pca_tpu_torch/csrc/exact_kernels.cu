@@ -1,12 +1,18 @@
-// Exact (bf16 or f32 operand) packed kernels: A B, A^T W and W^T W.
+// Exact (bf16 or f32 operand) packed kernels: A B, A^T W and W^T W, and
+// the entry of the 1-D gram pass in bf16 mode.
 //
 // The main loops of A B and A^T W are those of packed_common.cuh,
 // instantiated for the PLINK 2-bit layout; W^T W takes no genotypes and
 // also serves the dense tsq pass (dense_kernels.cu).  The contractions over
-// the variant axis split it across block layers with f32 atomics.
+// the variant axis split it across block layers with f32 atomics.  They
+// serve f32 mode and the tsq pass; in bf16 mode the gram pass
+// fused_gram_apply_packed (pallas_kernels.py :492, pallas_call :508; body
+// _gram_packed_kernel :447) is gp_gram_packed: the tensor-core products
+// of right2d_kernels.cu and wide_kernels.cu, composed in gram.cuh.
 //
 // Every entry point launches on the given stream and returns
 // cudaGetLastError() so that a refused launch is never silent.
+#include "gram.cuh"
 #include "packed_common.cuh"
 
 namespace gp {
@@ -63,6 +69,30 @@ int gp_left_packed(const void* packed, const void* mean, const void* inv_std,
   return gp::launch_left(gp::PackedRows{(const uint8_t*)packed, n4}, mean,
                          inv_std, w, out, D, L, bf16, splits, rows_per_split,
                          stream);
+}
+
+// out (4 n4, L) f32 = A^T bf16(A B) over packed rows of n4 bytes, N
+// samples (B's rows), b bf16 (N, ldb); `work` as gp_gram_plan sizes it.
+int gp_gram_packed(const void* packed, const void* mean, const void* inv_std,
+                   const void* b, void* out, void* work, int D, int n4, int N,
+                   int L, int ldb, int sms, void* stream) {
+  return gp::launch_gram(gp_right2d_w_packed, gp_left2d_packed, packed, mean,
+                         inv_std, b, out, work, D, n4, N, L, ldb, sms, stream);
+}
+
+// The plans of the bf16 gram pass over D rows of n4 groups, N samples and
+// L columns on `sms` SMs, either layout, into plan[0..10]: the right
+// product's tile (rows, columns), grid (x, y) and sample splits; the left
+// product's tile (samples, columns), grid (x, y) and row ranges; the
+// workspace's bytes.
+int gp_gram_plan(int D, int n4, int N, int L, int sms, long long* plan) {
+  const gp::GramPlan p = gp::gram_plan(D, n4, N, L, sms);
+  for (int i = 0; i < 5; ++i) {
+    plan[i] = p.right[i];
+    plan[5 + i] = p.left[i];
+  }
+  plan[10] = (long long)(p.w_bytes + p.slab_bytes);
+  return 0;
 }
 
 int gp_wtw(const void* w, void* out, int D, int L, int splits,

@@ -27,6 +27,9 @@
 #include <dlfcn.h>
 #include <string.h>
 
+#include <algorithm>
+#include <atomic>
+
 #include "packed_common.cuh"
 
 namespace gp {
@@ -335,6 +338,87 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out,
         const int i = 4 * j + 2 * h + e;
         if (r < n_rows && col < L) out[(size_t)r * L + col] = tot[i] + acc[i];
       }
+}
+
+// store_tile into a bf16 out of row stride ldo (a multiple of 8, >= L):
+// each total rounded once to nearest even (the rounding of the
+// reference's w.astype(bf16)), zeros in columns L..ldo - 1 (the padded
+// operand layout of the left product's W); columns >= ldo not written.
+__device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ out,
+                                           const float (&tot)[64],
+                                           const float (&acc)[64], int r0,
+                                           int l0, int n_rows, int L, int ldo,
+                                           int warp, int lane) {
+  const int row = r0 + 16 * (warp % 4) + lane / 4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // A column pair never straddles ldo: one 4-byte store.
+      const int r = row + 8 * h, col = l0 + 8 * j + 2 * (lane % 4);
+      const int i = 4 * j + 2 * h;
+      if (r < n_rows && col < ldo)
+        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)r * ldo + col) =
+            __floats2bfloat162_rn(col < L ? tot[i] + acc[i] : 0.f,
+                                  col + 1 < L ? tot[i + 1] + acc[i + 1] : 0.f);
+    }
+}
+
+// out (rows, ldo) = the sum of slab[0..splits) (each (rows, L) f32) taken
+// in slab order, in columns < L, and 0 past L; bf16 out is rounded once,
+// after the whole sum.  The fixed-order reduction of the products that
+// split their contraction into ranges (no atomics: the same bits every
+// launch).
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+sum_splits_kernel(const float* __restrict__ slab, T* __restrict__ out, int rows,
+                  int L, int ldo, int splits) {
+  const size_t n = (size_t)rows * L, total = (size_t)rows * ldo;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * kThreads) {
+    const size_t r = i / ldo;
+    const int c = (int)(i - r * ldo);
+    float s = 0.f;
+    if (c < L) {
+      const size_t k = r * L + c;
+      s = slab[k];
+      for (int z = 1; z < splits; ++z) s += slab[z * n + k];
+    }
+    if constexpr (sizeof(T) == 2) {
+      out[i] = __float2bfloat16_rn(s);
+    } else {
+      out[i] = s;
+    }
+  }
+}
+
+template <class T>
+int launch_sum_splits(const float* slab, T* out, int rows, int L, int ldo,
+                      int splits, int sms, cudaStream_t st) {
+  const size_t total = (size_t)rows * ldo;
+  const int blocks = (int)std::max<size_t>(
+      1, std::min<size_t>((total + kThreads - 1) / kThreads, 4 * sms));
+  sum_splits_kernel<T><<<blocks, kThreads, 0, st>>>(slab, out, rows, L, ldo, splits);
+  return (int)cudaGetLastError();
+}
+
+// cudaFuncSetAttribute(kernel, max dynamic shared memory, bytes) once per
+// device for the kernel instance that owns `once` (a static of its
+// launcher), not once a launch: the launch's host work stays small.
+struct OncePerDevice {
+  std::atomic<unsigned long long> done{0};
+};
+
+template <class Kernel>
+int allow_smem(OncePerDevice& once, Kernel kernel, int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit & once.done.load()) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) once.done.fetch_or(bit);
+  return (int)e;
 }
 
 // --- registers -------------------------------------------------------------

@@ -12,6 +12,15 @@
 // FMA loop right_kernel (gp_right_packed / gp_right_dense): the wrapper
 // dispatches on the precision.
 //
+// The same kernel computes the first half of the 1-D gram pass (kernels 2
+// and 10, gp_gram_packed / gp_gram_dense): there it stores W as bf16
+// (gp_right2d_w_packed / gp_right2d_w_dense), each f32 total rounded once
+// to nearest even after the fold, as the reference rounds w.astype(bf16)
+// (pallas_kernels.py:95-107, :447-460), into the (D, ldw) layout the left
+// product's TMA reads: 64 MiB at 262,144 x 128 where an f32 W took 128 MiB
+// and a cast.  A sample split keeps f32 partials and rounds once, after
+// their fixed-order sum.
+//
 // On an H100 at 65,536 x 16,384 x 128 the packed product is bound by the
 // bf16 tensor-core rate (2 D N L = 2.75e11 operations, 0.278 ms), the
 // dense one by its 1 GiB of int8 (0.333 ms).  Design, the left product's
@@ -70,8 +79,8 @@ static_assert(128 * (2 * kRightConsumerRegs + kRightProducerRegs + kLoaderRegs) 
 // chunk's MMAs run, the producers four, hence 6 A slots; 8 raw slots let
 // four more land while four are decoded.  The dense raw slots take 8 KB,
 // so its B ring is two deep (a 2-deep ring cost the packed one 25%).  The
-// block's codes follow the rings.
-template <class Rows>
+// block's codes follow the rings (two buffers on the persistent grid).
+template <class Rows, int kCodeBufs = 1>
 struct RightMmaSmem {
   static constexpr bool kPacked = Rows::kGroupBytes == 1;
   static constexpr int kAStages = 6;
@@ -98,9 +107,14 @@ struct RightMmaSmem {
   static constexpr int kB = kA + kAStages * kTileBytes;
   static constexpr int kRaw = kB + kBStages * kBBytes;
   static constexpr int kCodes = kRaw + kRawStages * kRawBytes;
-  static constexpr int kBar = kCodes + kRightRows * kCodeWords<Rows> * 4;
-  static constexpr int kBytes =
-      kBar + 2 * (kAStages + kBStages + kRawStages) * 8 + 1024;
+  // The persistent grid asks for two code buffers; where the second does
+  // not fit (dense: 1 KB over), the producers meet once more a tile.
+  static constexpr int kCodeBytes = kRightRows * kCodeWords<Rows> * 4;
+  static constexpr int kOther = 2 * (kAStages + kBStages + kRawStages) * 8 + 1024;
+  static constexpr int kCodeBuffers =
+      kCodeBufs == 2 && kCodes + 2 * kCodeBytes + kOther <= 232448 ? 2 : 1;
+  static constexpr int kBar = kCodes + kCodeBuffers * kCodeBytes;
+  static constexpr int kBytes = kBar + kOther;
   static_assert(kBytes <= 232448, "shared memory of one block");
 };
 
@@ -109,16 +123,32 @@ struct RightMmaMaps {
   CUtensorMap b, rows;
 };
 
-// out[z] (D, L) = A B over the chunks [z per, (z + 1) per) of the samples,
-// z = blockIdx.z, N samples (B's rows); out is the result when there is
-// one range, else the slab of partials.
-template <class Rows>
+// out[z] (D, ldo) = A B over the chunks [z per, (z + 1) per) of the
+// samples, z = blockIdx.z, N samples (B's rows); out is the result when
+// there is one range, else the f32 slab of partials.  Out f32 (kernels 5
+// and 13, and the slab: row stride L; a block per output tile), or bf16
+// (the W of the 1-D gram pass, one range: row stride ldo, rounded once
+// after the fold, zeros in columns L..ldo - 1; a persistent grid).
+//
+// The persistent grid: at 262,144 x 2,048 the gram pass's W has 2,048 row
+// blocks of only 16 chunks each, so a block's prologue (barriers, the
+// rows' codes, the rings' first loads and decodes) and its store would
+// recur 15.5 times an SM without overlap.  There each block walks tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ... (row block t % rows, column block
+// t / rows) with its rings running on across them: the loader and the
+// producers start a tile's loads and decodes while the consumers finish
+// the last one.  The producers build the rows' codes of tile k into
+// buffer k % 2 and then meet at a named barrier, which each warp reaches
+// only after its items of tile k - 1: the buffer is free again (dense
+// rows, whose second buffer does not fit, meet before the build too).
+template <class Rows, class Out>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 right2d_mma_kernel(const __grid_constant__ RightMmaMaps maps,
                    const float* __restrict__ mean,
-                   const float* __restrict__ inv_std, float* __restrict__ out,
-                   int D, int N, int L, int per) {
-  using Smem = RightMmaSmem<Rows>;
+                   const float* __restrict__ inv_std, Out* __restrict__ out,
+                   int D, int N, int L, int ldo, int per) {
+  constexpr bool kPersistent = sizeof(Out) == 2;
+  using Smem = RightMmaSmem<Rows, kPersistent ? 2 : 1>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Smem::kBar);
@@ -126,9 +156,21 @@ right2d_mma_kernel(const __grid_constant__ RightMmaMaps maps,
   const Ring<Smem::kBStages> b{bars + 2 * Smem::kAStages};
   const Ring<Smem::kRawStages> raw{bars + 2 * (Smem::kAStages + Smem::kBStages)};
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int d0 = blockIdx.x * kRightRows, l0 = blockIdx.y * kMmaCols;
   const int c0 = blockIdx.z * per;
   const int chunks = max(0, min((N + kTileSamples - 1) / kTileSamples, c0 + per) - c0);
+  // The block's tiles: one (blockIdx.x, blockIdx.y), or every gridDim.x-th.
+  const int row_blocks = (D + kRightRows - 1) / kRightRows;
+  const int tiles = kPersistent ? (row_blocks * ((L + kMmaCols - 1) / kMmaCols) -
+                                   (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x
+                                : 1;
+  const auto origin = [&](int k) {  // (first row, first column) of tile k
+    if constexpr (kPersistent) {
+      const int t = blockIdx.x + k * gridDim.x;
+      return make_int2(t % row_blocks * kRightRows, t / row_blocks * kMmaCols);
+    } else {
+      return make_int2(blockIdx.x * kRightRows, blockIdx.y * kMmaCols);
+    }
+  };
   if (tid == 0) {
     a.init(1, 1);    // the producer warp of the half; its consumer warpgroup
     b.init(1, 2);    // the loader's arrival + the TMA bytes; both consumers
@@ -141,14 +183,16 @@ right2d_mma_kernel(const __grid_constant__ RightMmaMaps maps,
     setmaxnreg_dec<kLoaderRegs>();
     if (warp != kLoaderWarp) return;
     // Loader: lane 0 issues every TMA load as soon as its slot is free, the
-    // two raw half tiles of chunk j and the B tile of chunk j - kLead.
+    // two raw half tiles of chunk g and the B tile of chunk g - kLead, g
+    // counting the chunks of all the block's tiles in order.
     if (lane == 0)
       load_in_turn(
-          chunks, Smem::kLead,
-          [&](int j) {
+          tiles * chunks, Smem::kLead,
+          [&](int g) {
+            const int j = g % chunks, d0 = origin(g / chunks).x;
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int it = 2 * j + h;
+              const int it = 2 * g + h;
               raw.wait_empty(it);
               mbar_arrive_expect_tx(raw.full(it), Smem::kRawBytes);
               tma_load_2d(sm + Smem::kRaw + raw.slot(it) * Smem::kRawBytes, &maps.rows,
@@ -156,96 +200,100 @@ right2d_mma_kernel(const __grid_constant__ RightMmaMaps maps,
                           raw.full(it));
             }
           },
-          [&](int j) {
-            b.wait_empty(j);
-            uint8_t* bt = sm + Smem::kB + b.slot(j) * Smem::kBBytes;
-            mbar_arrive_expect_tx(b.full(j), Smem::kBBytes);
+          [&](int g) {
+            const int j = g % chunks, l0 = origin(g / chunks).y;
+            b.wait_empty(g);
+            uint8_t* bt = sm + Smem::kB + b.slot(g) * Smem::kBBytes;
+            mbar_arrive_expect_tx(b.full(g), Smem::kBBytes);
             const int s = (c0 + j) * kTileSamples;
 #pragma unroll
             for (int k = 0; k < 2; ++k)  // 64-sample halves
 #pragma unroll
               for (int q = 0; q < 2; ++q)  // 64-column panels
                 tma_load_2d(bt + (2 * k + q) * kPanelBytes, &maps.b, l0 + 64 * q,
-                            s + 64 * k, b.full(j));
+                            s + 64 * k, b.full(g));
           });
   } else if (warp >= 8) {
     setmaxnreg_dec<kRightProducerRegs>();
-    // Producer warpgroup.  First the codes of the block's rows, one row a
-    // thread (rows past D: scale and shift 0, so their values are 0).
-    uint32_t* codes = reinterpret_cast<uint32_t*>(sm + Smem::kCodes);
-    const int r = tid - 8 * 32, d = d0 + r;
-    const RowScale s = d < D ? row_scale(mean, inv_std, d, true) : RowScale{0.f, 0.f};
-    row_codes<Rows>(s, codes + r * kCodeWords<Rows>);
-    named_sync(1, 4 * 32);
-    // Then warp pw decodes items pw, pw + 4, ...: always half pw % 2.  Each
-    // item once its raw rows have landed and its A slot is free; then it
-    // hands the slot to the consumers and the raw slot back.
-    const int pw = warp - 8;
-    const uint32_t* half = codes + (pw & 1) * kTileRows * kCodeWords<Rows>;
-    for (int it = pw; it < 2 * chunks; it += kProducerWarps) {
-      raw.wait_full(it);
-      a.wait_empty(it);
-      const uint8_t* slot = sm + Smem::kRaw + raw.slot(it) * Smem::kRawBytes;
-      uint8_t* tile = sm + Smem::kA + a.slot(it) * kTileBytes;
+    const int pw = warp - 8, r = tid - 8 * 32;
+    for (int k = 0; k < tiles; ++k) {
+      // The codes of the tile's rows, one row a thread (rows past D: scale
+      // and shift 0, so their values are 0); with one buffer, once every
+      // producer is done with the last tile's.
+      if (Smem::kCodeBuffers == 1 && k > 0) named_sync(1, 4 * 32);
+      uint32_t* codes = reinterpret_cast<uint32_t*>(sm + Smem::kCodes) +
+                        (k % Smem::kCodeBuffers) * kRightRows * kCodeWords<Rows>;
+      const int d = origin(k).x + r;
+      const RowScale s = d < D ? row_scale(mean, inv_std, d, true) : RowScale{0.f, 0.f};
+      row_codes<Rows>(s, codes + r * kCodeWords<Rows>);
+      named_sync(1, 4 * 32);
+      // Then warp pw decodes the tile's items pw, pw + 4, ...: always half
+      // pw % 2.  Each item once its raw rows have landed and its A slot is
+      // free; then it hands the slot to the consumers and the raw slot back.
+      const uint32_t* half = codes + (pw & 1) * kTileRows * kCodeWords<Rows>;
+      for (int it = 2 * chunks * k + pw; it < 2 * chunks * (k + 1); it += kProducerWarps) {
+        raw.wait_full(it);
+        a.wait_empty(it);
+        const uint8_t* slot = sm + Smem::kRaw + raw.slot(it) * Smem::kRawBytes;
+        uint8_t* tile = sm + Smem::kA + a.slot(it) * kTileBytes;
 #pragma unroll
-      for (int r0 = 0; r0 < kTileRows; r0 += kWarpRows)
-        decode_rows_with<Rows>(slot, tile, r0, lane,
-                               SharedCodes<Rows>{half + r0 * kCodeWords<Rows>});
-      fence_proxy_async();
-      __syncwarp();
-      if (lane == 0) {
-        raw.release(it);
-        mbar_arrive(a.full(it));
+        for (int r0 = 0; r0 < kTileRows; r0 += kWarpRows)
+          decode_rows_with<Rows>(slot, tile, r0, lane,
+                                 SharedCodes<Rows>{half + r0 * kCodeWords<Rows>});
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          raw.release(it);
+          mbar_arrive(a.full(it));
+        }
       }
     }
   } else {
     setmaxnreg_inc<kRightConsumerRegs>();
-    // Consumers: warpgroup wg owns rows d0 + 64 wg .. + 63, items 2c + wg.
+    // Consumers: warpgroup wg owns rows 64 wg .. + 63 of each tile, items
+    // 2g + wg of its chunks g.
     const int wg = warp / 4;
     float acc[64], tot[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
-    for (int c = 0; c < chunks; ++c) {
-      const int it = 2 * c + wg;
-      a.wait_full(it);
-      b.wait_full(c);
-      const bool first = c % kFoldChunks == 0;
-      if (first && c > 0) fold(acc, tot);
-      const uint32_t at = smem_u32(sm + Smem::kA + a.slot(it) * kTileBytes);
-      const uint32_t bt = smem_u32(sm + Smem::kB + b.slot(c) * Smem::kBBytes);
-      wgmma_fence();
+    for (int k = 0; k < tiles; ++k) {
+      for (int c = 0; c < chunks; ++c) {
+        const int g = chunks * k + c, it = 2 * g + wg;
+        a.wait_full(it);
+        b.wait_full(g);
+        const bool first = c % kFoldChunks == 0;
+        if (first && c > 0) fold(acc, tot);
+        const uint32_t at = smem_u32(sm + Smem::kA + a.slot(it) * kTileBytes);
+        const uint32_t bt = smem_u32(sm + Smem::kB + b.slot(g) * Smem::kBBytes);
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)  // 16 samples per MMA
-        wgmma_m64n128k16<0>(
-            acc, desc_b128(at + (kk / 4) * kPanelBytes + 32 * (kk % 4), 16, 1024),
-            desc_b128(bt + (kk / 4) * 2 * kPanelBytes + 2048 * (kk % 4), kPanelBytes, 1024),
-            first && kk == 0 ? 0 : 1);
-      wgmma_commit();
-      // Wait for this chunk's MMAs and release its slots at once: the
-      // decode, not the MMA, sets the pace, and a slot held one chunk
-      // longer is a half tile fewer in decode (on an H100 a dense launch
-      // at 65,536 x 16,384 took 0.86 ms holding it, 0.65 ms releasing it).
-      wgmma_wait<0>();
-      if (tid % 128 == 0) {
-        a.release(it);
-        b.release(c);
+        for (int kk = 0; kk < 8; ++kk)  // 16 samples per MMA
+          wgmma_m64n128k16<0>(
+              acc, desc_b128(at + (kk / 4) * kPanelBytes + 32 * (kk % 4), 16, 1024),
+              desc_b128(bt + (kk / 4) * 2 * kPanelBytes + 2048 * (kk % 4), kPanelBytes, 1024),
+              first && kk == 0 ? 0 : 1);
+        wgmma_commit();
+        // Wait for this chunk's MMAs and release its slots at once: the
+        // decode, not the MMA, sets the pace, and a slot held one chunk
+        // longer is a half tile fewer in decode (on an H100 a dense launch
+        // at 65,536 x 16,384 took 0.86 ms holding it, 0.65 ms releasing it).
+        wgmma_wait<0>();
+        if (tid % 128 == 0) {
+          a.release(it);
+          b.release(g);
+        }
+      }
+      fence_regs(acc);
+      const int2 o = origin(k);
+      if constexpr (kPersistent) {
+        store_tile(out, tot, acc, o.x + kTileRows * wg, o.y, D, L, ldo, warp, lane);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+      } else {
+        store_tile(out + (size_t)blockIdx.z * D * L, tot, acc, o.x + kTileRows * wg,
+                   o.y, D, L, warp, lane);
       }
     }
-    fence_regs(acc);
-    store_tile(out + (size_t)blockIdx.z * D * L, tot, acc, d0 + kTileRows * wg, l0,
-               D, L, warp, lane);
-  }
-}
-
-// out[i] = sum over z of slab[z][i], z in order.
-__global__ void __launch_bounds__(kThreads)
-sum_splits_kernel(const float* __restrict__ slab, float* __restrict__ out,
-                  size_t n, int splits) {
-  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * kThreads) {
-    float s = slab[i];
-    for (int z = 1; z < splits; ++z) s += slab[z * n + i];
-    out[i] = s;
   }
 }
 
@@ -270,12 +318,14 @@ inline Right2dPlan right2d_plan(int D, int N, int L, int sms) {
   return {dim3(rows, cols, splits), per};
 }
 
-// b bf16 (N, ldb), columns >= L zero; slab (splits, D, L) f32 when the
-// plan splits the samples.
-template <class Rows>
+// b bf16 (N, ldb), columns >= L zero; out (D, ldo) f32 or bf16 (see
+// right2d_mma_kernel); slab (splits, D, L) f32 when the plan splits the
+// samples: the partials, added in a fixed order by sum_splits_kernel,
+// which rounds a bf16 out once, after the whole sum.
+template <class Rows, class Out>
 int launch_right2d(Rows g, const void* mean, const void* inv_std, const void* b,
-                   void* out, void* slab, int D, int N, int L, int ldb, int sms,
-                   void* stream) {
+                   Out* out, void* slab, int D, int N, int L, int ldb, int ldo,
+                   int sms, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const Right2dPlan p = right2d_plan(D, N, L, sms);
   const int splits = (int)p.grid.z;
@@ -287,19 +337,28 @@ int launch_right2d(Rows g, const void* mean, const void* inv_std, const void* b,
     if (rc == 0) rc = rows_map(&maps.rows, g, D);
     if (rc != 0) return rc;
   }
-  constexpr int smem = RightMmaSmem<Rows>::kBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      right2d_mma_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  right2d_mma_kernel<Rows><<<p.grid, kMmaThreads, smem, st>>>(
-      maps, (const float*)mean, (const float*)inv_std,
-      (float*)(splits > 1 ? slab : out), D, N, L, p.per);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0 || splits == 1) return rc;
-  const size_t n = (size_t)D * L;
-  const int blocks = (int)std::min<size_t>((n + kThreads - 1) / kThreads, 4 * sms);
-  sum_splits_kernel<<<blocks, kThreads, 0, st>>>((const float*)slab, (float*)out,
-                                                 n, splits);
+  if (splits > 1) {
+    constexpr int smem = RightMmaSmem<Rows>::kBytes;
+    static OncePerDevice once;
+    int rc = allow_smem(once, right2d_mma_kernel<Rows, float>, smem);
+    if (rc != 0) return rc;
+    right2d_mma_kernel<Rows, float><<<p.grid, kMmaThreads, smem, st>>>(
+        maps, (const float*)mean, (const float*)inv_std, (float*)slab, D, N, L,
+        L, p.per);
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    return launch_sum_splits(static_cast<const float*>(slab), out, D, L, ldo,
+                             splits, sms, st);
+  }
+  // bf16 out: the persistent grid, a block per SM at most.
+  constexpr bool kPersistent = sizeof(Out) == 2;
+  constexpr int smem = RightMmaSmem<Rows, kPersistent ? 2 : 1>::kBytes;
+  const dim3 grid = kPersistent ? dim3(std::min<int>(p.grid.x * p.grid.y, sms)) : p.grid;
+  static OncePerDevice once;
+  const int rc = allow_smem(once, right2d_mma_kernel<Rows, Out>, smem);
+  if (rc != 0) return rc;
+  right2d_mma_kernel<Rows, Out><<<grid, kMmaThreads, smem, st>>>(
+      maps, (const float*)mean, (const float*)inv_std, out, D, N, L, ldo, p.per);
   return (int)cudaGetLastError();
 }
 
@@ -307,20 +366,41 @@ int launch_right2d(Rows g, const void* mean, const void* inv_std, const void* b,
 
 extern "C" {
 
-// out (D, L) = A B over packed rows of n4 bytes / dense rows of n4 words
-// (at least N / 4), N samples; b bf16 (N, ldb).
+// out (D, L) f32 = A B over packed rows of n4 bytes / dense rows of n4
+// words (at least N / 4), N samples; b bf16 (N, ldb).
 int gp_right2d_packed(const void* packed, const void* mean, const void* inv_std,
                       const void* b, void* out, void* slab, int D, int n4, int N,
                       int L, int ldb, int sms, void* stream) {
   return gp::launch_right2d(gp::PackedRows{(const uint8_t*)packed, n4}, mean,
-                            inv_std, b, out, slab, D, N, L, ldb, sms, stream);
+                            inv_std, b, (float*)out, slab, D, N, L, ldb, L, sms,
+                            stream);
 }
 
 int gp_right2d_dense(const void* geno, const void* mean, const void* inv_std,
                      const void* b, void* out, void* slab, int D, int n4, int N,
                      int L, int ldb, int sms, void* stream) {
   return gp::launch_right2d(gp::DenseRows{(const int8_t*)geno, n4}, mean,
-                            inv_std, b, out, slab, D, N, L, ldb, sms, stream);
+                            inv_std, b, (float*)out, slab, D, N, L, ldb, L, sms,
+                            stream);
+}
+
+// w (D, ldw) bf16 = A B rounded once to nearest even, zeros in columns
+// L..ldw - 1: the W of the 1-D gram pass (gp_gram_packed / gp_gram_dense)
+// as the left product reads it.
+int gp_right2d_w_packed(const void* packed, const void* mean, const void* inv_std,
+                        const void* b, void* w, void* slab, int D, int n4, int N,
+                        int L, int ldb, int ldw, int sms, void* stream) {
+  return gp::launch_right2d(gp::PackedRows{(const uint8_t*)packed, n4}, mean,
+                            inv_std, b, (__nv_bfloat16*)w, slab, D, N, L, ldb,
+                            ldw, sms, stream);
+}
+
+int gp_right2d_w_dense(const void* geno, const void* mean, const void* inv_std,
+                       const void* b, void* w, void* slab, int D, int n4, int N,
+                       int L, int ldb, int ldw, int sms, void* stream) {
+  return gp::launch_right2d(gp::DenseRows{(const int8_t*)geno, n4}, mean,
+                            inv_std, b, (__nv_bfloat16*)w, slab, D, N, L, ldb,
+                            ldw, sms, stream);
 }
 
 // The tile (rows, columns), grid (x, y) and sample splits (grid z) of the

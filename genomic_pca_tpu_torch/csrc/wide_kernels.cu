@@ -33,8 +33,11 @@
 // So both products run on the tensor cores, and the genotypes never pass
 // through device memory as bf16:
 //   - one block per 128 samples x 128 columns of the output, looping over
-//     every row in chunks of 64 (no split of the variant axis, no atomics,
-//     a fixed sum order: the same inputs give the same bits);
+//     every row in chunks of 64 (no atomics, a fixed sum order: the same
+//     inputs give the same bits); where those blocks are fewer than the
+//     SMs (the 1-D gram pass at 2,048 samples: 16 for 132) the rows split
+//     into ranges of whole folds, each a partial slab that
+//     sum_splits_kernel adds in a fixed order (left2d_plan);
 //   - one loader warp issues every TMA load as soon as its slot is free:
 //     each chunk's raw genotype rows and moments, and its W tile (bf16,
 //     rounded once by the wrapper; 128-byte swizzled), into shared-memory
@@ -136,6 +139,7 @@ left2d_kernel(Rows g, const float* __restrict__ mean,
 // most of the 227 KB a block may have (8 A slots, or 3 W slots dense, ran
 // slower).
 static_assert(kFold % kTileRows == 0, "a fold falls between chunks");
+constexpr int kLeftFoldChunks = kFold / kTileRows;
 
 // Ring depths and the shared-memory layout (byte offsets from a 1024-byte
 // aligned base).  A raw slot: 64 rows of the tile's groups, then 64 means
@@ -173,12 +177,15 @@ struct LeftMmaMaps {
   CUtensorMap w, rows, mean, inv_std;
 };
 
-// out (N, L) = A^T W, N = 4 * groups, with A in the reference's bf16
-// rounding and W bf16 (columns >= L zero); sums in f32.
+// out[z] (N, L) = A^T W over the chunks [z per, (z + 1) per) of the rows,
+// z = blockIdx.z, N = 4 * groups, with A in the reference's bf16 rounding
+// and W bf16 (columns >= L zero); sums in f32.  out is the result when
+// there is one range, else the slab of partials.  `per` is a whole number
+// of folds, so a range's folds are the unsplit kernel's.
 template <class Rows>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
-                  float* __restrict__ out, int D, int L) {
+                  float* __restrict__ out, int D, int L, int per) {
   using Smem = LeftMmaSmem<Rows>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -188,7 +195,8 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
   const Ring<Smem::kRawStages> raw{bars + 2 * (Smem::kAStages + Smem::kWStages)};
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int s0 = blockIdx.x * kTileSamples, l0 = blockIdx.y * kMmaCols;
-  const int chunks = (D + kTileRows - 1) / kTileRows;
+  const int c0 = blockIdx.z * per;
+  const int chunks = max(0, min((D + kTileRows - 1) / kTileRows, c0 + per) - c0);
   if (tid == 0) {
     a.init(1, 2);    // the producer warp of the chunk; both consumer warpgroups
     wr.init(1, 2);   // the loader's arrival + the TMA bytes; both consumers
@@ -201,26 +209,28 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
     setmaxnreg_dec<kLoaderRegs>();
     if (warp != kLoaderWarp) return;
     // Loader: lane 0 issues every TMA load as soon as its slot is free, the
-    // raw rows and moments of chunk j and the W tile of chunk j - lead.
+    // raw rows and moments of chunk j and the W tile of chunk j - lead
+    // (chunk j of the block's range: rows from (c0 + j) kTileRows).
     if (lane == 0)
       load_in_turn(
           chunks, Smem::kRawStages - Smem::kWStages,
           [&](int j) {
             raw.wait_empty(j);
             uint8_t* slot = sm + Smem::kRaw + raw.slot(j) * Smem::kRawSlot;
+            const int r = (c0 + j) * kTileRows;
             mbar_arrive_expect_tx(raw.full(j), Smem::kRawSlot);
-            tma_load_2d(slot, &maps.rows, (s0 / 4) * Rows::kGroupBytes, j * kTileRows,
+            tma_load_2d(slot, &maps.rows, (s0 / 4) * Rows::kGroupBytes, r, raw.full(j));
+            tma_load_1d(slot + Smem::kRawBytes, &maps.mean, r, raw.full(j));
+            tma_load_1d(slot + Smem::kRawBytes + 4 * kTileRows, &maps.inv_std, r,
                         raw.full(j));
-            tma_load_1d(slot + Smem::kRawBytes, &maps.mean, j * kTileRows, raw.full(j));
-            tma_load_1d(slot + Smem::kRawBytes + 4 * kTileRows, &maps.inv_std,
-                        j * kTileRows, raw.full(j));
           },
           [&](int j) {
             wr.wait_empty(j);
             uint8_t* wt = sm + Smem::kW + wr.slot(j) * kTileBytes;
+            const int r = (c0 + j) * kTileRows;
             mbar_arrive_expect_tx(wr.full(j), kTileBytes);
-            tma_load_2d(wt, &maps.w, l0, j * kTileRows, wr.full(j));
-            tma_load_2d(wt + kPanelBytes, &maps.w, l0 + 64, j * kTileRows, wr.full(j));
+            tma_load_2d(wt, &maps.w, l0, r, wr.full(j));
+            tma_load_2d(wt + kPanelBytes, &maps.w, l0 + 64, r, wr.full(j));
           });
   } else if (warp >= 8) {
     setmaxnreg_dec<kProducerRegs>();
@@ -228,7 +238,7 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
     // ..., each once its raw rows have landed and its A slot is free, then
     // hands the slot to the consumers and the raw slot back.  Four chunks
     // in flight hide each warp's chain of waits, shared-memory latency and
-    // fence.
+    // fence.  Rows past D arrive as zeros (moments 0: values 0).
     uint32_t* tbl = reinterpret_cast<uint32_t*>(sm + Smem::kTbl) + (warp - 8) * kWarpRows * 16;
     for (int it = warp - 8; it < chunks; it += kProducerWarps) {
       raw.wait_full(it);
@@ -256,7 +266,7 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
     for (int c = 0; c < chunks; ++c) {
       a.wait_full(c);
       wr.wait_full(c);
-      const bool first = c % (kFold / kTileRows) == 0;
+      const bool first = c % kLeftFoldChunks == 0;
       if (first && c > 0) fold(acc, tot);
       const uint32_t at = smem_u32(sm + Smem::kA + a.slot(c) * kTileBytes + wg * kPanelBytes);
       const uint32_t wt = smem_u32(sm + Smem::kW + wr.slot(c) * kTileBytes);
@@ -275,7 +285,8 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
     }
     wgmma_wait<0>();
     fence_regs(acc);
-    store_tile(out, tot, acc, s0 + 64 * wg, l0, 4 * groups, L, warp, lane);
+    store_tile(out + (size_t)blockIdx.z * 4 * groups * L, tot, acc, s0 + 64 * wg, l0,
+               4 * groups, L, warp, lane);
   }
 }
 
@@ -381,18 +392,39 @@ q8_left2d_kernel(Rows g, const int8_t* __restrict__ z8,
 
 // Launchers shared by the packed and dense entry points.
 
-// The grid of left2d_mma_kernel: one block per kTileSamples x kMmaCols
-// output tile, each over every row.
-inline dim3 left2d_mma_grid(int groups, int L) {
-  return dim3((4 * groups + kTileSamples - 1) / kTileSamples,
-              (L + kMmaCols - 1) / kMmaCols);
+// The launch of left2d_mma_kernel over D rows, rows of `groups` groups
+// and L columns on `sms` SMs: a block per kTileSamples x kMmaCols output
+// tile, each over every row; where those tiles are fewer than the SMs
+// (narrow matrices: 2,048 samples give 16 tiles for 132 SMs) the rows
+// split into grid.z ranges of `per` chunks, each a whole number of folds
+// (min(SMs / tiles, folds) ranges), whose partial slabs sum_splits_kernel
+// adds in a fixed order.  At 16,384 and 11,264 samples (128 and 88 tiles)
+// there is one range: kernels 6 and 14 launch as without the split.
+struct Left2dPlan {
+  dim3 grid;
+  int per;
+};
+
+inline Left2dPlan left2d_plan(int D, int groups, int L, int sms) {
+  const int samples = (4 * groups + kTileSamples - 1) / kTileSamples;
+  const int cols = (L + kMmaCols - 1) / kMmaCols;
+  const int chunks = (D + kTileRows - 1) / kTileRows;
+  const int folds = (chunks + kLeftFoldChunks - 1) / kLeftFoldChunks;
+  const int tiles = std::max(1, samples * cols);
+  int ranges = 1;
+  if (tiles < sms) ranges = std::max(1, std::min(sms / tiles, folds));
+  const int per = std::max(1, (folds + ranges - 1) / ranges) * kLeftFoldChunks;
+  ranges = std::max(1, (chunks + per - 1) / per);
+  return {dim3(samples, cols, ranges), per};
 }
 
-// The left product: the tensor-core kernel in bf16 mode (w bf16 (D, ldw)),
-// the f32 loop in f32 mode (w f32 (D, L)).
+// The left product: the tensor-core kernel in bf16 mode (w bf16 (D, ldw);
+// slab (ranges, 4 groups, L) f32 where the plan splits the rows), the f32
+// loop in f32 mode (w f32 (D, L)).
 template <class Rows>
 int launch_left2d(Rows g, const void* mean, const void* inv_std, const void* w,
-                  void* out, int D, int L, int ldw, int bf16, void* stream) {
+                  void* out, void* slab, int D, int L, int ldw, int bf16, int sms,
+                  void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (!bf16) {
     left2d_kernel<Rows><<<grid_of(4 * g.groups, L), kThreads, 0, st>>>(
@@ -400,6 +432,9 @@ int launch_left2d(Rows g, const void* mean, const void* inv_std, const void* w,
         (float*)out, D, L);
     return (int)cudaGetLastError();
   }
+  const Left2dPlan p = left2d_plan(D, g.groups, L, sms);
+  const int ranges = (int)p.grid.z;
+  if (ranges > 1 && slab == nullptr) return (int)cudaErrorInvalidValue;
   LeftMmaMaps maps;
   memset(&maps, 0, sizeof(maps));
   if (D > 0) {
@@ -414,12 +449,15 @@ int launch_left2d(Rows g, const void* mean, const void* inv_std, const void* w,
     if (rc != 0) return rc;
   }
   constexpr int smem = LeftMmaSmem<Rows>::kBytes;
-  const cudaError_t e = cudaFuncSetAttribute(
-      left2d_mma_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  left2d_mma_kernel<Rows><<<left2d_mma_grid(g.groups, L), kMmaThreads, smem, st>>>(
-      maps, g.groups, (float*)out, D, L);
-  return (int)cudaGetLastError();
+  static OncePerDevice once;
+  int rc = allow_smem(once, left2d_mma_kernel<Rows>, smem);
+  if (rc != 0) return rc;
+  left2d_mma_kernel<Rows><<<p.grid, kMmaThreads, smem, st>>>(
+      maps, g.groups, (float*)(ranges > 1 ? slab : out), D, L, p.per);
+  rc = (int)cudaGetLastError();
+  if (rc != 0 || ranges == 1) return rc;
+  return launch_sum_splits((const float*)slab, (float*)out, 4 * g.groups, L, L,
+                           ranges, sms, st);
 }
 
 template <class Rows>
@@ -444,30 +482,32 @@ int launch_q8_left2d(Rows g, const void* z8, const void* sz, void* out, int D,
 extern "C" {
 
 // out (N, L) = A^T W over packed rows of n4 bytes / dense rows of n4 words;
-// w is bf16 (D, ldw) when bf16, else f32 (D, L).
+// w is bf16 (D, ldw) when bf16, else f32 (D, L); slab (ranges, 4 n4, L)
+// f32 where gp_left2d_plan splits the rows (bf16 only), else unused.
 int gp_left2d_packed(const void* packed, const void* mean, const void* inv_std,
-                     const void* w, void* out, int D, int n4, int L, int ldw,
-                     int bf16, void* stream) {
+                     const void* w, void* out, void* slab, int D, int n4, int L,
+                     int ldw, int bf16, int sms, void* stream) {
   return gp::launch_left2d(gp::PackedRows{(const uint8_t*)packed, n4}, mean,
-                           inv_std, w, out, D, L, ldw, bf16, stream);
+                           inv_std, w, out, slab, D, L, ldw, bf16, sms, stream);
 }
 
 int gp_left2d_dense(const void* geno, const void* mean, const void* inv_std,
-                    const void* w, void* out, int D, int n4, int L, int ldw,
-                    int bf16, void* stream) {
+                    const void* w, void* out, void* slab, int D, int n4, int L,
+                    int ldw, int bf16, int sms, void* stream) {
   return gp::launch_left2d(gp::DenseRows{(const int8_t*)geno, n4}, mean,
-                           inv_std, w, out, D, L, ldw, bf16, stream);
+                           inv_std, w, out, slab, D, L, ldw, bf16, sms, stream);
 }
 
-// The tile (samples, columns) and grid (x, y) of the bf16 left product
-// over rows of n4 groups and L columns, as launch_left2d launches it,
-// into plan[0..3].
-int gp_left2d_plan(int n4, int L, int* plan) {
-  const dim3 grid = gp::left2d_mma_grid(n4, L);
+// The tile (samples, columns), grid (x, y) and row ranges (grid z) of the
+// bf16 left product over D rows, rows of n4 groups and L columns on `sms`
+// SMs, as launch_left2d launches it, into plan[0..4].
+int gp_left2d_plan(int D, int n4, int L, int sms, int* plan) {
+  const gp::Left2dPlan p = gp::left2d_plan(D, n4, L, sms);
   plan[0] = gp::kTileSamples;
   plan[1] = gp::kMmaCols;
-  plan[2] = (int)grid.x;
-  plan[3] = (int)grid.y;
+  plan[2] = (int)p.grid.x;
+  plan[3] = (int)p.grid.y;
+  plan[4] = (int)p.grid.z;
   return 0;
 }
 

@@ -1,6 +1,6 @@
 """A/B timing of the tensor-core products between source trees, on one
-GPU: the left products A^T W (kernels 6 and 14) and the right products
-A B (kernels 5 and 13).
+GPU: the left products A^T W (kernels 6 and 14), the right products A B
+(kernels 5 and 13) and the 1-D gram pass A^T bf16(A B) (kernels 2 and 10).
 
     python -m genomic_pca_tpu_torch.eval.mma2d_ab TAG
 
@@ -8,14 +8,18 @@ Run it from the root of each tree to compare (the kernels build from that
 tree's `csrc/`), alternating the trees on one card, so that they share its
 clocks and power limit.
 It first holds each product of each layout to its plain version at small
-shapes (ragged ones, and for the right products a strip whose samples
-split), with a second launch equal bit for bit; a tree that disagrees
-exits 2 and is not timed.  Then it prints two lines,
+shapes (ragged ones, for the right products a strip whose samples split,
+for the left ones and the gram pass a matrix whose rows split), with a
+second launch equal bit for bit; a tree that disagrees exits 2 and is not
+timed.  Then it prints three lines,
 
     [TAG] left packed <ms> dense <ms> thin packed <ms> thin dense <ms>
     [TAG] right packed <ms> dense <ms> strip packed <ms> dense <ms> thin
           packed <ms> dense <ms> L=10 packed <ms> dense <ms> fma strip
           packed <ms> dense <ms>
+    [TAG] gram packed <ms> dense <ms> strip packed <ms> dense <ms> right
+          packed <ms> dense <ms> left packed <ms> dense <ms> fma packed
+          <ms> dense <ms> fma strip packed <ms> dense <ms>
 
 the mean time of back-to-back launches of the C entries (the wrappers'
 host work excluded: W and B already bf16), L = 128 unless named: at
@@ -24,8 +28,14 @@ the right ones at 2,000 x 16,384 (an EigenSNP strip, 200) and 2,048 x
 11,264 (200), and at 65,536 x 16,384 with L = 10 (the loadings launch,
 20).  "fma strip" is the f32 FMA loop the right products launched before
 they ran on the tensor cores (gp_right_packed / gp_right_dense in bf16
-mode; the f32 mode's kernel) at 2,000 x 16,384.  Exits 1 without a CUDA
-device.
+mode; the f32 mode's kernel) at 2,000 x 16,384.  The gram line times the
+one C call of the bf16 gram pass (gp_gram_packed / gp_gram_dense) at the
+1-D main shape 262,144 x 2,048 (20 launches) and a streamed 1-D strip of
+2,048 x 2,048 (200); its two halves alone at the main shape, as the
+right product (f32 out: the same kernel and plan) and the left product
+(its row split and slab sum); and the FMA pair it replaced (the right
+loop rounding W, then the split-K left loop with f32 atomics; the f32
+mode's kernels) at both shapes.  Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -45,10 +55,13 @@ NAMES = {
     ("left", "dense"): "fused_left_apply_2d",
     ("right", "packed"): "fused_right_apply_2d_packed",
     ("right", "dense"): "fused_right_apply_2d",
+    ("gram", "packed"): "fused_gram_apply_packed",
+    ("gram", "dense"): "fused_gram_apply",
 }
 CHECKS = {
     "left": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
     "right": ((40, 256, 10), (300, 2100, 130), (4096, 1024, 128)),
+    "gram": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
 }
 LAYOUTS = ("packed", "dense")
 
@@ -57,7 +70,12 @@ def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
            seed: int = 0) -> bool:
     """The kernel of `product` and `layout` against its plain version to
     1e-5 of max|plain|, on dosages with 5% missing (dense: 2% outside {0,
-    1, 2}), and a second launch equal bit for bit."""
+    1, 2}), and a second launch equal bit for bit.  The gram pass rounds W
+    to bf16 after a sum in another order than the plain version's, so an
+    entry of W at a rounding tie may land one bf16 ulp apart: it is held
+    to the plain left product of the right product's W rounded as the
+    pass rounds it (`gram_reference`), whose own right half is held to
+    plain."""
     rng = np.random.default_rng(seed)
     g = rng.integers(0, 3, size=(d, n)).astype(np.int8)
     if layout == "dense":
@@ -74,16 +92,40 @@ def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
     name = NAMES[product, layout]
     kernel = getattr(tk, name)
     got, again = kernel(*args), kernel(*args)
-    ref = tk.PLAIN[name](*args, "bf16")
+    w_err = 0.0
+    if product == "gram":
+        ref, w_err, _ = gram_reference(*args)
+    else:
+        ref = tk.PLAIN[name](*args, "bf16")
     err = float((got - ref).abs().max()) / float(ref.abs().max())
-    return err <= 1e-5 and bool(torch.equal(got, again))
+    return max(err, w_err) <= 1e-5 and bool(torch.equal(got, again))
+
+
+def gram_reference(geno, mean, inv_std, b):
+    """The bf16 gram pass's reference on the inputs of a call: (the plain
+    left product of W = bf16(A B) with the right product's f32 W from its
+    tensor-core kernel (the gram pass's own sum order and plan, so that
+    its bf16 W is this W rounded once), that W's error against the plain
+    right product relative to max|plain|, the W entries whose bf16
+    rounding differs from the plain W's).  On the CPU both are the plain
+    versions."""
+    right = (tk.fused_right_apply_2d_packed if geno.dtype == torch.uint8
+             else tk.fused_right_apply_2d)
+    w, w_plain = right(geno, mean, inv_std, b), tk.fused_right_apply_packed_plain(
+        geno, mean, inv_std, b)
+    w_err = float((w - w_plain).abs().max()) / float(w_plain.abs().max())
+    ties = tk._round_bf16(w) - tk._round_bf16(w_plain)
+    ref = tk.fused_left_apply_2d_packed_plain(geno, mean, inv_std, tk._round_bf16(w))
+    return ref, w_err, ties
 
 
 def launch_ms(product: str, layout: str, d: int, n: int, reps: int,
               ell: int = 128, fma: bool = False) -> float:
     """Mean ms of `reps` back-to-back launches of the C entry on random
     bytes (the time does not depend on the genotypes); `fma`: the right
-    product's f32 FMA loop in bf16 mode."""
+    product's f32 FMA loop in bf16 mode, or the gram pass's FMA pair."""
+    if fma and product == "gram":
+        return fma_gram_ms(layout, d, n, reps, ell)
     dev = torch.device("cuda")
     cols = n // 4 if layout == "packed" else n
     g = torch.randint(0, 256, (d, cols), device=dev, dtype=torch.uint8)
@@ -93,11 +135,21 @@ def launch_ms(product: str, layout: str, d: int, n: int, reps: int,
     inv = torch.rand((d, 1), device=dev) + 0.5
     stream = torch.cuda.current_stream().cuda_stream
     lib = build.lib()
+    sms = tk._sms(dev)
     if product == "left":
         x = torch.randn((d, ell), device=dev)
         out = torch.empty((n, ell), device=dev)
         entry = getattr(lib, tk._ENTRY[g.dtype]["left2d"])
-        args = [x.to(torch.bfloat16), out, d, n // 4, ell, ell, 1]
+        ranges = tk.left2d_plan(d, n, ell, sms)[2]
+        slab = torch.empty((ranges, n, ell), device=dev) if ranges > 1 else None
+        args = [x.to(torch.bfloat16), out, slab, d, n // 4, ell, ell, 1, sms]
+    elif product == "gram":
+        b = tk.mma_operand(torch.randn((n, ell), device=dev))
+        out = torch.empty((n, ell), device=dev)
+        work = torch.empty(tk.gram_plan(d, n // 4, n, ell, sms)[2],
+                           dtype=torch.uint8, device=dev)
+        entry = getattr(lib, tk._ENTRY[g.dtype]["gram"])
+        args = [b, out, work, d, n // 4, n, ell, b.shape[1], sms]
     else:
         x = torch.randn((n, ell), device=dev)
         out = torch.empty((d, ell), device=dev)
@@ -106,7 +158,6 @@ def launch_ms(product: str, layout: str, d: int, n: int, reps: int,
             args = [x, out, d, n // 4, ell, 1, 0]
         else:
             entry = getattr(lib, tk._ENTRY[g.dtype]["right2d"])
-            sms = tk._sms(dev)
             b = tk.mma_operand(x)
             splits = tk.right2d_plan(d, n, ell, sms)[2]
             slab = torch.empty((splits, d, ell), device=dev) if splits > 1 else None
@@ -122,6 +173,48 @@ def launch_ms(product: str, layout: str, d: int, n: int, reps: int,
     start.record()
     for _ in range(reps):
         entry(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def fma_gram_ms(layout: str, d: int, n: int, reps: int, ell: int = 128) -> float:
+    """Mean ms of `reps` back-to-back bf16 gram passes through the FMA pair
+    the tensor-core pass replaced: gp_right_* rounding W to bf16 (f32
+    storage), then gp_left_* split-K into a zeroed output, as the pass's
+    wrapper launched them."""
+    dev = torch.device("cuda")
+    cols = n // 4 if layout == "packed" else n
+    g = torch.randint(0, 256, (d, cols), device=dev, dtype=torch.uint8)
+    if layout == "dense":
+        g = (g % 3).to(torch.int8)
+    mean = torch.rand((d, 1), device=dev)
+    inv = torch.rand((d, 1), device=dev) + 0.5
+    b = torch.randn((n, ell), device=dev)
+    w = torch.empty((d, ell), device=dev)
+    out = torch.zeros((n, ell), device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = build.lib()
+    right = getattr(lib, tk._ENTRY[g.dtype]["right"])
+    left = getattr(lib, tk._ENTRY[g.dtype]["left"])
+    splits, rows = tk._split(dev, -(-n // 64) * -(-ell // 64), -(-d // 16), 16)
+    p = [t.data_ptr() for t in (g, mean, inv)]
+
+    def once():
+        rc = right(*p, b.data_ptr(), w.data_ptr(), d, n // 4, ell, 1, 1, stream)
+        rc |= left(*p, w.data_ptr(), out.data_ptr(), d, n // 4, ell, 1, splits,
+                   rows, stream)
+        if rc != 0:
+            raise RuntimeError(f"gram {layout}: the FMA pair refused the launch")
+
+    for _ in range(3):
+        once()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        once()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -153,6 +246,12 @@ def main(argv=None) -> int:
           f"thin {each('right', 2_048, 11_264, 200)} "
           f"L=10 {each('right', 65_536, 16_384, 20, ell=10)} "
           f"fma strip {each('right', 2_000, 16_384, 20, fma=True)}", flush=True)
+    print(f"[{a.tag}] gram {each('gram', 262_144, 2_048, 20)} "
+          f"strip {each('gram', 2_048, 2_048, 200)} "
+          f"right {each('right', 262_144, 2_048, 20)} "
+          f"left {each('left', 262_144, 2_048, 20)} "
+          f"fma {each('gram', 262_144, 2_048, 5, fma=True)} "
+          f"fma strip {each('gram', 2_048, 2_048, 50, fma=True)}", flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
 """Where the time of the packed randomized-PCA core goes, on one GPU.
 
-    python -m genomic_pca_tpu_torch.eval.profile_core [--out DIR]
+    python -m genomic_pca_tpu_torch.eval.profile_core [--out DIR] [--streamed]
 
 At the main path's shape (262,144 SNPs x 2,048 samples, k = 10, a
 128-wide sketch, 4 power iterations), over random PLINK bytes made from a
@@ -12,7 +12,11 @@ on the host clock, around work that ends in `torch.cuda.synchronize()`:
 - `pca_core` alone on a resident matrix, over 10 runs;
 
 then traces one `pca_core` with torch.profiler and prints the device time
-by kernel and the busy share (device time / traced wall).  Prints the
+by kernel and the busy share (device time / traced wall).  With
+`--streamed` it also times `streamed_pca(compute_loadings=True)` over a
+host-streamed container of the same bytes in strips of 2,048 rows (the
+streamed 1-D main path: per strip kernels 1, 2 and 4), over 3 warm runs
+after one cold run, with the seconds of each of its passes.  Prints the
 card's `nvidia-smi` name and power limit; writes `summary.json` and the
 profiler table under `--out` when given.  Exits 1 without a CUDA device.
 """
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 ROWS, SAMPLES, K, RUNS = 262_144, 2048, 10, 10
+STRIP, STREAMED_RUNS = 2048, 3
 
 
 def _stats(xs):
@@ -49,6 +54,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="genomic_pca_tpu_torch.eval.profile_core")
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for summary.json and the profiler table")
+    ap.add_argument("--streamed", action="store_true",
+                    help="also time the streamed 1-D main path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_core needs a CUDA device (torch.cuda.is_available() is "
@@ -134,6 +141,8 @@ def main(argv=None) -> int:
           f"{device_ms:.3f} ms, busy share {device_ms / traced_ms:.3f}")
     for name, count, ms in rows:
         print(f"  {ms:9.3f} ms  x{count:<3d} {name[:100]}")
+    if args.streamed:
+        summary.update(streamed(packed, mean, std, n, k, device))
     if args.out is not None:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "summary.json").write_text(json.dumps(summary, indent=1))
@@ -141,6 +150,37 @@ def main(argv=None) -> int:
             prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=60))
     return 0
+
+
+def streamed(packed, mean, std, n, k, device) -> dict:
+    """Wall of `streamed_pca` over a host-streamed container of `packed`
+    in STRIP-row strips, and the seconds of each pass of the last run."""
+    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
+
+    d = packed.shape[0]
+    n_strips = -(-d // STRIP)
+
+    def source(i):
+        lo, hi = i * STRIP, min((i + 1) * STRIP, d)
+        return packed[lo:hi], mean[lo:hi], std[lo:hi]
+
+    walls, passes = [], []
+    for _ in range(1 + STREAMED_RUNS):
+        sm = StreamingMatrix(source, n_strips, d, n, STRIP, packed=True,
+                             device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streamed_pca(sm, k=k, n_power_iter=4, seed=7, compute_loadings=True)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        passes = [(t["pass"], t["seconds"]) for t in sm.pass_log]
+    print(f"streamed 1-D, {n_strips} strips of {STRIP} rows: cold run "
+          f"{walls[0]:.4f} s")
+    out = {"streamed_s": _stats(walls[1:]), "streamed_passes_s": passes}
+    print(_fmt("streamed_pca (streamed)", out["streamed_s"]))
+    print("  passes of the last run: " + ", ".join(f"{p} {s:.4f} s" for p, s in passes))
+    return out
 
 
 if __name__ == "__main__":

@@ -36,23 +36,28 @@ _I = ctypes.c_int
 # launch's cudaGetLastError() as an int (the plans, which launch nothing,
 # 0).
 SIGNATURES = {
-    "gp_left2d_plan": [_I, _I, _P],
+    "gp_left2d_plan": [_I, _I, _I, _I, _P],
     "gp_right2d_plan": [_I, _I, _I, _I, _P],
+    "gp_gram_plan": [_I, _I, _I, _I, _I, _P],
     "gp_right2d_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_right2d_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gp_right2d_w_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gp_right2d_w_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gp_gram_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gp_gram_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_right_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_wtw": [_P, _P, _I, _I, _I, _I, _P],
     "gp_q8_w": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_left": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gp_left2d_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gp_left2d_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_right2d": [_P, _P, _P, _I, _I, _I, _P],
     "gp_q8_left2d": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_right_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_w_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_left_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gp_left2d_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gp_left2d_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_right2d_dense": [_P, _P, _P, _I, _I, _I, _P],
     "gp_q8_left2d_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

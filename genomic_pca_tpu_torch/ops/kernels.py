@@ -27,6 +27,7 @@ rounded to bf16 at the reference's points, f32 sums) or "f32".
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict
 
 import torch
@@ -237,10 +238,12 @@ fused_right_apply_plain = fused_right_apply_packed_plain
 # C entry points of each pass, by genotype layout.
 _ENTRY = {
     torch.uint8: {"right": "gp_right_packed", "left": "gp_left_packed",
+                  "gram": "gp_gram_packed",
                   "q8_w": "gp_q8_w", "q8_left": "gp_q8_left",
                   "left2d": "gp_left2d_packed", "right2d": "gp_right2d_packed",
                   "q8_right2d": "gp_q8_right2d", "q8_left2d": "gp_q8_left2d"},
     torch.int8: {"right": "gp_right_dense", "left": "gp_left_dense",
+                 "gram": "gp_gram_dense",
                  "q8_w": "gp_q8_w_dense", "q8_left": "gp_q8_left_dense",
                  "left2d": "gp_left2d_dense", "right2d": "gp_right2d_dense",
                  "q8_right2d": "gp_q8_right2d_dense", "q8_left2d": "gp_q8_left2d_dense"},
@@ -342,14 +345,29 @@ def _launch_right(geno, mean, inv_std, b, bf16: bool, round_out: bool):
 
 
 def _launch_gram(geno, mean, inv_std, b, bf16: bool):
-    """W = A B (rounded to bf16 in bf16 mode), then A^T W split-K."""
+    """A^T (A B), W = A B rounded to bf16 in bf16 mode.  bf16: one call of
+    the gram entry (gp_gram_packed / gp_gram_dense: the tensor-core right
+    product storing W as bf16, then the tensor-core left product), with
+    one workspace of the size `gram_plan` reports.  f32: the f32 FMA right
+    loop, then A^T W split-K with f32 atomics."""
     d, n, ell, dev = geno.shape[0], _samples(geno), b.shape[1], geno.device
-    w = _launch_right(geno, mean, inv_std, b, bf16, bf16)
-    out = torch.zeros((n, ell), dtype=torch.float32, device=dev)
-    splits, rows = _split(dev, -(-n // 64) * -(-ell // 64), -(-d // 16), 16)
-    _launch(dev, _ENTRY[geno.dtype]["left"], geno, mean, inv_std, w, out, d,
-            n // 4, ell, int(bf16), splits, rows)
-    return out
+    if not bf16:
+        w = _launch_right(geno, mean, inv_std, b, False, False)
+        out = torch.zeros((n, ell), dtype=torch.float32, device=dev)
+        splits, rows = _split(dev, -(-n // 64) * -(-ell // 64), -(-d // 16), 16)
+        _launch(dev, _ENTRY[geno.dtype]["left"], geno, mean, inv_std, w, out, d,
+                n // 4, ell, 0, splits, rows)
+        return out
+    if not (d and n and ell):
+        return torch.zeros((n, ell), dtype=torch.float32, device=dev)
+    geno, mean, inv_std, b = _mma_operands(geno, mean, inv_std, b)
+    groups, sms = _samples(geno) // 4, _sms(dev)
+    work = torch.empty(gram_plan(d, groups, n, ell, sms)[2], dtype=torch.uint8,
+                       device=dev)
+    out = torch.empty((4 * groups, ell), dtype=torch.float32, device=dev)
+    _launch(dev, _ENTRY[geno.dtype]["gram"], geno, mean, inv_std, b, out, work, d,
+            groups, n, ell, b.shape[1], sms)
+    return out[:n]
 
 
 def _launch_tsq(geno, mean, inv_std, b, bf16: bool):
@@ -419,13 +437,20 @@ def fused_right_apply_packed(packed, mean, inv_std, b, precision="bf16"):
 
 
 # fused_gram_apply_packed replaces pallas_kernels.py fused_gram_apply_packed
-# (:492, pallas_call :508).  The TPU kernel keeps the (N, L) accumulator
-# in VMEM across a sequential grid; Hopper blocks run in parallel, so the
-# pass is W = A B (right kernel, W rounded to bf16 as the reference rounds
-# it, kept in device memory: D*L*4 bytes) and then A^T W with the variant
-# axis split across block layers and f32 atomics into the zeroed output.
-# Bound by the FMA rate (4*D*N*L operations); the W round trip is 2*D*L*4
-# bytes against D*N4 read twice.
+# (:492, pallas_call :508; body _gram_packed_kernel :447).  The TPU kernel
+# keeps the (N, L) accumulator in VMEM across a sequential grid; Hopper
+# blocks run in parallel, and one fused block would need that whole
+# accumulator or W for every row, so in bf16 mode the pass is two
+# tensor-core products in one C call (gp_gram_packed, csrc/gram.cuh): W =
+# A B by right2d_mma_kernel, stored as bf16 (each f32 total rounded once,
+# as the reference rounds w.astype(bf16): 2*D*L bytes written and read,
+# 64 MiB at 262,144 x 128), then A^T W by left2d_mma_kernel with the rows
+# split into fixed-order ranges of whole folds where its sample tiles are
+# fewer than the SMs (2,048 samples: 16 tiles x 8 ranges).  No atomics:
+# the same bits every call.  Bound on an H100 by the bf16 tensor-core
+# rate: 4*D*N*L operations, 0.278 ms at 262,144 x 2,048 x 128.  f32 mode
+# keeps the f32 FMA loops (right_kernel, then left_kernel split-K with f32
+# atomics).
 
 
 def fused_gram_apply_packed(packed, mean, inv_std, b, precision="bf16"):
@@ -500,9 +525,13 @@ def fused_right_apply(geno, mean, inv_std, b, precision="bf16"):
 
 # fused_gram_apply replaces pallas_kernels.py fused_gram_apply (:144,
 # pallas_call :160; body _gram_kernel :95).  The TPU kernel carries the
-# (N, L) accumulator through a sequential grid; here W = A B (rounded to
-# bf16 as the reference rounds it) then A^T W split across block layers
-# with f32 atomics.  4*D*N*L operations, FMA bound.
+# (N, L) accumulator through a sequential grid; here, in bf16 mode, the
+# packed pass's design over int8 rows (gp_gram_dense): W = A B by
+# right2d_mma_kernel<DenseRows> stored as bf16, then A^T W by
+# left2d_mma_kernel<DenseRows> with its row split.  Bound on an H100 by
+# the bf16 tensor-core rate (4*D*N*L operations, 0.278 ms at 262,144 x
+# 2,048 x 128; its 512 MiB of int8 take 0.16 ms).  f32 mode keeps the f32
+# FMA loops.
 
 
 def fused_gram_apply(geno, mean, inv_std, b, precision="bf16"):
@@ -587,8 +616,11 @@ fused_right_apply_2d_packed_plain = fused_right_apply_packed_plain
 # bf16 mode.  Bound on an H100 by the bf16 tensor-core rate: 2*D*N*L
 # operations (0.278 ms at 65,536 x 16,384 x 128) against D*N4 bytes.
 # Design (left2d_mma_kernel, csrc/wide_kernels.cu): one block per 128
-# samples x 128 columns loops over every row in chunks of 64 - no split-K,
-# no atomics, a deterministic sum order.  A loader warp's TMA loads bring
+# samples x 128 columns loops over every row in chunks of 64 - no atomics,
+# a deterministic sum order; where those blocks are fewer than the SMs
+# (narrow matrices; never at the 2-D switch widths) the rows split into
+# ranges of whole folds whose partial slabs are added in a fixed order
+# (`left2d_plan`).  A loader warp's TMA loads bring
 # the packed bytes, the moments and the bf16 W tiles (128-byte swizzled)
 # into shared-memory rings handed over by mbarriers; a producer warpgroup
 # decodes each byte into the bf16 A tile (a per-row table of nibble
@@ -600,21 +632,52 @@ fused_right_apply_2d_packed_plain = fused_right_apply_packed_plain
 # to bf16 once in the wrapper (`mma_operand`), as `_round_bf16` rounds it
 # in the plain versions.
 
-def left2d_plan(n_samples: int, ell: int) -> tuple:
-    """(tile, grid) of the tensor-core left product over `n_samples` and
-    `ell` columns of W, as launch_left2d launches it: read from the built
-    library (`gp_left2d_plan`), so that a log shows what the launch uses.
-    The padded copy of `aligned_rows` (to 64 samples packed, 16 dense)
-    never changes the grid: both divide the tile."""
-    from genomic_pca_tpu_torch.ops.build import lib
-
-    plan = (ctypes.c_int * 4)()
-    lib().gp_left2d_plan(-(-n_samples // 4), ell, ctypes.addressof(plan))
-    return (plan[0], plan[1]), (plan[2], plan[3])
-
-
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _current_sms(sms) -> int:
+    return sms if sms is not None else _sms(
+        torch.device("cuda", torch.cuda.current_device()))
+
+
+@functools.lru_cache(maxsize=512)
+def _library_plan(entry: str, size: int, ctype, *args) -> tuple:
+    """The `size` numbers C entry `entry` reports for `args`: a plan
+    depends on its integers alone, so a pass asks the library once."""
+    from genomic_pca_tpu_torch.ops.build import lib
+
+    plan = (ctype * size)()
+    getattr(lib(), entry)(*args, ctypes.addressof(plan))
+    return tuple(plan)
+
+
+def left2d_plan(d: int, n_samples: int, ell: int, sms: int = None) -> tuple:
+    """(tile, grid, ranges) of the tensor-core left product over `d` rows,
+    `n_samples` samples and `ell` columns of W on `sms` SMs (default: the
+    current CUDA device's), as launch_left2d launches it: tile (samples,
+    columns), grid (sample blocks, column blocks), and the ranges the rows
+    split into where the blocks are fewer than the SMs (each a partial
+    slab, added in a fixed order).  Read from the built library
+    (`gp_left2d_plan`), so that a log shows what the launch uses.  The
+    padded copy of `aligned_rows` (to 64 samples packed, 16 dense) never
+    changes the plan: both divide the tile."""
+    p = _library_plan("gp_left2d_plan", 5, ctypes.c_int, d, -(-n_samples // 4),
+                      ell, _current_sms(sms))
+    return (p[0], p[1]), (p[2], p[3]), p[4]
+
+
+def gram_plan(d: int, groups: int, n: int, ell: int, sms: int = None) -> tuple:
+    """The plans of the bf16 gram pass (gp_gram_packed / gp_gram_dense)
+    over `d` rows of `groups` groups of four samples, `n` samples of B and
+    `ell` columns on `sms` SMs: ((tile, grid, sample splits) of its right
+    product, (tile, grid, row ranges) of its left product, workspace
+    bytes), read from the built library (`gp_gram_plan`).  The right
+    product's grid counts its output tiles; with one sample range a
+    persistent grid of at most one block an SM walks them."""
+    p = _library_plan("gp_gram_plan", 11, ctypes.c_longlong, d, groups, n, ell,
+                      _current_sms(sms))
+    return ((p[0], p[1]), (p[2], p[3]), p[4]), ((p[5], p[6]), (p[7], p[8]), p[9]), p[10]
 
 
 def right2d_plan(d: int, n_samples: int, ell: int, sms: int = None) -> tuple:
@@ -624,13 +687,9 @@ def right2d_plan(d: int, n_samples: int, ell: int, sms: int = None) -> tuple:
     columns), grid (row blocks, column blocks), and the ranges the samples
     split into where the blocks are fewer than the SMs.  Read from the
     built library (`gp_right2d_plan`)."""
-    from genomic_pca_tpu_torch.ops.build import lib
-
-    if sms is None:
-        sms = _sms(torch.device("cuda", torch.cuda.current_device()))
-    plan = (ctypes.c_int * 5)()
-    lib().gp_right2d_plan(d, n_samples, ell, sms, ctypes.addressof(plan))
-    return (plan[0], plan[1]), (plan[2], plan[3]), plan[4]
+    p = _library_plan("gp_right2d_plan", 5, ctypes.c_int, d, n_samples, ell,
+                      _current_sms(sms))
+    return (p[0], p[1]), (p[2], p[3]), p[4]
 
 
 def mma_operand(x: torch.Tensor) -> torch.Tensor:
@@ -674,7 +733,8 @@ def _mma_operands(geno, mean, inv_std, x):
 
 def _left2d(geno, mean, inv_std, w, precision, dtype, name):
     """A^T W through the left product of the layout `dtype`: the tensor-core
-    kernel in bf16 mode, the f32 loop in f32 mode."""
+    kernel in bf16 mode (with a slab of partials where `left2d_plan` splits
+    the rows), the f32 loop in f32 mode."""
     bf16 = _bf16(precision)
     geno = _check_geno(geno, dtype)
     d, dev = geno.shape[0], geno.device
@@ -687,12 +747,17 @@ def _left2d(geno, mean, inv_std, w, precision, dtype, name):
         return PLAIN[name](geno, mean, inv_std, w, precision)
     LAUNCHES[name] += 1
     n, ell = _samples(geno), w.shape[1]
+    slab, sms = None, _sms(dev)
     if bf16:
         geno, mean, inv_std, w = _mma_operands(geno, mean, inv_std, w)
+        ranges = left2d_plan(d, _samples(geno), ell, sms)[2]
+        if ranges > 1:
+            slab = torch.empty((ranges, _samples(geno), ell), dtype=torch.float32,
+                               device=dev)
     out = torch.empty((_samples(geno), ell), dtype=torch.float32, device=dev)
     if out.numel():
-        _launch(dev, _ENTRY[dtype]["left2d"], geno, mean, inv_std, w, out, d,
-                _samples(geno) // 4, ell, w.shape[1], int(bf16))
+        _launch(dev, _ENTRY[dtype]["left2d"], geno, mean, inv_std, w, out, slab, d,
+                _samples(geno) // 4, ell, w.shape[1], int(bf16), sms)
     return out[:n]
 
 

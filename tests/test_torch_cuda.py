@@ -224,14 +224,79 @@ def test_right_2d_plan(cuda_device):
 
 @pytest.mark.cuda
 def test_left_2d_plan_is_one_block_per_output_tile(cuda_device):
-    """The tile and grid the library launches kernels 6 and 14 with: 128
-    samples x 128 columns a block, every row in each block (no split of
-    the rows).  16,384 samples give 128 blocks for 132 SMs, the 2-D switch
-    width 11,264 (a streamed strip) 88; ragged widths round up."""
-    assert tk.left2d_plan(16_384, 128) == ((128, 128), (128, 1))
-    assert tk.left2d_plan(11_264, 128) == ((128, 128), (88, 1))
-    assert tk.left2d_plan(250, 130) == ((128, 128), (2, 2))
-    assert tk.left2d_plan(256, 4) == ((128, 128), (2, 1))
+    """The tile, grid and row ranges the library launches kernels 6 and 14
+    with on 132 SMs: 128 samples x 128 columns a block, every row in each
+    block (one range) at the 2-D widths: 16,384 samples give 128 blocks,
+    the 2-D switch width 11,264 (a streamed strip) 88; ragged widths round
+    up, and rows within one fold never split."""
+    assert tk.left2d_plan(65_536, 16_384, 128, 132) == ((128, 128), (128, 1), 1)
+    assert tk.left2d_plan(2_000, 16_384, 128, 132) == ((128, 128), (128, 1), 1)
+    assert tk.left2d_plan(65_536, 11_264, 128, 132) == ((128, 128), (88, 1), 1)
+    assert tk.left2d_plan(1_024, 250, 130, 132) == ((128, 128), (2, 2), 1)
+    assert tk.left2d_plan(40, 256, 4, 132) == ((128, 128), (2, 1), 1)
+
+
+@pytest.mark.cuda
+def test_gram_1d_plan_splits_rows_and_samples(cuda_device):
+    """The plans of the bf16 gram pass (kernels 2 and 10) on 132 SMs.  At
+    the 1-D main shape 262,144 x 2,048, L = 128, the right product fills
+    the card with 2,048 row blocks and keeps the samples whole, and the
+    left product's 16 sample tiles take 8 row ranges of 32 folds (128
+    blocks); the workspace is W in bf16 and the 8 row slabs.  A streamed
+    strip of 2,048 x 2,048 splits both: 2 sample ranges, 2 row ranges,
+    their slabs sharing the bytes after W.  Narrow or short matrices split
+    only as far as they have folds."""
+    assert tk.left2d_plan(262_144, 2_048, 128, 132) == ((128, 128), (16, 1), 8)
+    right, left, work = tk.gram_plan(262_144, 512, 2_048, 128, 132)
+    assert right == ((128, 128), (2_048, 1), 1)
+    assert left == ((128, 128), (16, 1), 8)
+    assert work == 262_144 * 128 * 2 + 8 * 2_048 * 128 * 4
+    right, left, work = tk.gram_plan(2_048, 512, 2_048, 128, 132)
+    assert right == ((128, 128), (16, 1), 2)
+    assert left == ((128, 128), (16, 1), 2)
+    assert work == 2_048 * 128 * 2 + 2 * 2_048 * 128 * 4
+    right, left, work = tk.gram_plan(5_000, 128, 512, 130, 132)
+    assert right == ((128, 128), (40, 2), 1)
+    assert left == ((128, 128), (4, 2), 5)
+    assert work == -(-5_000 * 136 * 2 // 256) * 256 + 5 * 512 * 130 * 4
+    assert tk.gram_plan(1_000, 64, 256, 10, 132)[1][2] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(2100, None), (5000, 512), (2048, 2048)])
+@pytest.mark.parametrize("ell", [10, 130])
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_gram_1d_kernel_matches_plain_and_repeats(cuda_device, layout, ell, d, n):
+    """Kernels 2 (packed) and 10 (dense) in bf16 mode: the one-call gram
+    pass on the tensor cores.  Two launches bit for bit (no atomics); the
+    right half's f32 W (kernel 5 / 13: the same kernel and plan) within
+    1e-5 of the plain right product; the pass within 1e-5 of max|ref| of
+    the plain left product of that W rounded to bf16 (so W is rounded once
+    and its pad is inert); and within 1e-5 of max|plain| of the plain gram
+    plus, entry by entry, |A|^T |dW|, dW the bf16 W entries that round one
+    ulp apart from the plain W's (ties: the f32 sums run in another
+    order).  Ragged D past a fold with 250 packed / 252 dense samples (the
+    rows split into 3 ranges), 5,000 x 512 (5 row ranges), and a streamed
+    1-D strip of 2,048 x 2,048 (2 sample ranges, 2 row ranges); L = 10 and
+    130 (a padded W); 5% missing, an inert row, odd dense dosages."""
+    from genomic_pca_tpu_torch.eval.mma2d_ab import gram_reference
+
+    rng = np.random.default_rng(9000 + d + ell)
+    n = n or (250 if layout == "packed" else 252)
+    geno, mu, inv = _mma_case(rng, layout, d, n)
+    b = (rng.standard_normal((4 * -(-n // 4), ell)) / np.sqrt(n)).astype(np.float32)
+    name = "fused_gram_apply_packed" if layout == "packed" else "fused_gram_apply"
+    args = _on(cuda_device, geno, mu, inv, b)
+    groups = tk._samples(tk.aligned_rows(args[0])) // 4
+    right, left, _ = tk.gram_plan(d, groups, b.shape[0], ell)
+    assert (right[2], left[2]) == {2100: (1, 3), 5000: (1, 5), 2048: (2, 2)}[d]
+    got, plain = _launch_twice(name, args, "bf16")
+    assert got.shape == plain.shape == (b.shape[0], ell)
+    ref, w_err, ties = gram_reference(*args)
+    assert w_err <= 1e-5, w_err
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    allow = tk.standardize(*args[:3]).abs().T @ ties.abs()
+    assert bool(((got - plain).abs() <= 1e-5 * float(plain.abs().max()) + allow).all())
 
 
 @pytest.mark.cuda
