@@ -13,14 +13,14 @@ no result line):
    also at 2,048 x 2,048 (a streamed 1-D strip, whose plans split both
    products), each time with its plans and a bit-identical second launch;
 4. the four 2-D (wide-sample) kernels the same way at 65,536 x 16,384,
-   L = 128, and at 70,001 x 16,389; kernels 5 and 6 at 2,048 x 11,264 (a
-   streamed strip at the 2-D switch width: their thinnest grids), 5 at
-   2,000 x 16,384 (an EigenSNP strip, whose samples split) and at 65,536
-   x 16,384 with L = 10 (the loadings launch), each tensor-core product
-   with its tile, grid (and sample split) and a bit-identical second
-   launch; the 1-D gram and q8 passes against the 2-D ones at the wide
-   shape; `q8_power_pass_2d` against a float64 replay of its quantization
-   model;
+   L = 128, and at 70,001 x 16,389; kernels 5, 6 and 7 at 2,048 x 11,264
+   (a streamed strip at the 2-D switch width: their thinnest grids), 5
+   and 7 at 2,000 x 16,384 (an EigenSNP strip, whose samples split) and 5
+   at 65,536 x 16,384 with L = 10 (the loadings launch), each tensor-core
+   product with its tile, grid (and sample split) and a bit-identical
+   second launch; the 1-D gram and q8 passes against the 2-D ones at the
+   wide shape; `q8_power_pass_2d` against a float64 replay of its
+   quantization model;
 5. the 1-D main path, `streamed_pca(ShardedMatrix.from_packed_rows(...),
    k=10, n_power_iter=4, compute_loadings=True)` over structured
    genotypes of 262,144 x 2,048: launch counts 3 / 1 / 1 / 1 for q8 /
@@ -57,9 +57,9 @@ no result line):
    `fused_left_apply_2d`, 7i and 8i, the int8 branches of
    `right_apply_2d_q8` / `left_apply_2d_q8`) against their plain versions
    at 65,536 x 16,384 (1 GiB of int8), L = 128, and at 70,001 x 16,389
-   (container width 16,512), and 13 and 14 at the thin shapes of phase 4
-   and 13 at L = 10, each with a bit-identical second launch, as 5 and 6
-   in phase 4;
+   (container width 16,512), and 13, 14 and 7i at the thin shapes of
+   phase 4 and 13 at L = 10, each with a bit-identical second launch, as
+   5, 6 and 7 in phase 4;
 13. the dense 2-D main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
    on the genotypes of phase 6 unpacked to int8 on the card (131,072 x
    16,384, 2 GiB): launch counts 3 / 3 / 3 / 1 for 7i / 8i / 13 / 14 and
@@ -106,8 +106,9 @@ SEED = 20260
 # move by one bf16 ulp of W.  On an H100 the 1-D four stay at or below
 # 1.3e-6 at both shapes; the bound is about ten times that, so a dropped
 # row tile or tail (17 rows of 70,001 move the Gram by about 2.4e-4)
-# fails.  right_apply_2d_q8 sums integers below 2^24 and converts once:
-# it must equal its plain version bit for bit.  The gram passes are also
+# fails.  right_apply_2d_q8 sums integers exactly in int32 (a split's
+# slab too) and converts once, as its plain version: it must equal it bit
+# for bit.  The gram passes are also
 # held half by half (`check_gram`): their W against the plain right
 # product, and the pass against the plain left product of that W rounded
 # to bf16.
@@ -150,7 +151,7 @@ SOURCES = {
     "fused_right_apply_packed": (CSRC + "exact_kernels.cu", PK + "529"),
     "fused_right_apply_2d_packed": (CSRC + "right2d_kernels.cu", PK + "675"),
     "fused_left_apply_2d_packed": (CSRC + "wide_kernels.cu", PK + "723"),
-    "right_apply_2d_q8": (CSRC + "wide_kernels.cu", PK + "1096"),
+    "right_apply_2d_q8": (CSRC + "q8_right2d_kernels.cu", PK + "1096"),
     "left_apply_2d_q8": (CSRC + "wide_kernels.cu", PK + "1139"),
     "fused_gram_q8": (CSRC + "dense_kernels.cu", PK + "847"),
     "fused_gram_apply": (CSRC + "dense_kernels.cu", PK + "144"),
@@ -158,18 +159,19 @@ SOURCES = {
     "fused_right_apply": (CSRC + "dense_kernels.cu", PK + "181"),
     "fused_right_apply_2d": (CSRC + "right2d_kernels.cu", PK + "296"),
     "fused_left_apply_2d": (CSRC + "wide_kernels.cu", PK + "346"),
-    "right_apply_2d_q8_i8": (CSRC + "wide_kernels.cu", PK + "1096"),
+    "right_apply_2d_q8_i8": (CSRC + "q8_right2d_kernels.cu", PK + "1096"),
     "left_apply_2d_q8_i8": (CSRC + "wide_kernels.cu", PK + "1139"),
 }
 ZERO_LAUNCHES = dict.fromkeys(
     KERNELS_1D + KERNELS_2D + KERNELS_DENSE + KERNELS_DENSE_2D, 0)
 # Kernels with a fixed sum order and no atomics: a second launch on the
 # same inputs must give the same bits.  The tensor-core products, left
-# and right.
+# and right, exact and q8.
 LEFT_MMA = ("fused_left_apply_2d_packed", "fused_left_apply_2d")
 RIGHT_MMA = ("fused_right_apply_2d_packed", "fused_right_apply_2d")
 GRAM_MMA = ("fused_gram_apply_packed", "fused_gram_apply")  # bf16 mode
-BITWISE_RERUN = LEFT_MMA + RIGHT_MMA + GRAM_MMA
+Q8_RIGHT_MMA = ("right_apply_2d_q8", "right_apply_2d_q8_i8")
+BITWISE_RERUN = LEFT_MMA + RIGHT_MMA + GRAM_MMA + Q8_RIGHT_MMA
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
 # device memory rate, and tensor-core rates for the operand type of each
@@ -533,6 +535,11 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
                         f"in {rs} range(s); left tile {lt} (samples x columns), "
                         f"grid {lg}, the rows in {lr} range(s); workspace "
                         f"{work / 2**20:.2f} MiB")
+            elif name in Q8_RIGHT_MMA:
+                tile, grid, splits = tk.q8_right2d_plan(
+                    d, tk._samples(tk.aligned_rows(args[0])), ell)
+                plan = (f"tile {tile} (rows x columns), grid {grid}, the samples "
+                        f"in {splits} range(s) (int32 slabs)")
             else:
                 tile, grid, splits = tk.right2d_plan(d, args[3].shape[0], ell)
                 plan = (f"tile {tile} (rows x columns), grid {grid}, the samples "
@@ -1160,13 +1167,14 @@ def main() -> int:
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
                                  KERNELS_2D))
     check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_2D)
-    # The thinnest grids of kernels 5 and 6: a streamed strip at the
-    # switch width, an EigenSNP strip (5's samples split), and the
+    # The thinnest grids of kernels 5, 6 and 7: a streamed strip at the
+    # switch width, an EigenSNP strip (5's and 7's samples split), and the
     # loadings launch of kernel 5 (L = k = 10).
     check_kernels(torch, 2_048, 11_264, SEED + 10, device, 5,
-                  ("fused_right_apply_2d_packed", "fused_left_apply_2d_packed"))
+                  ("fused_right_apply_2d_packed", "fused_left_apply_2d_packed",
+                   "right_apply_2d_q8"))
     check_kernels(torch, 2_000, 16_384, SEED + 11, device, 5,
-                  ("fused_right_apply_2d_packed",))
+                  ("fused_right_apply_2d_packed", "right_apply_2d_q8"))
     check_kernels(torch, 65_536, 16_384, SEED + 6, device, 3,
                   ("fused_right_apply_2d_packed",), ell=10)
     compare_modes(torch, np, 65_536, 16_384, SEED + 6, device, 5)
@@ -1241,8 +1249,9 @@ def main() -> int:
                                  KERNELS_DENSE_2D))
     check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_DENSE_2D)
     check_kernels(torch, 2_048, 11_264, SEED + 10, device, 5,
-                  ("fused_right_apply_2d", "fused_left_apply_2d"))
-    check_kernels(torch, 2_000, 16_384, SEED + 11, device, 5, ("fused_right_apply_2d",))
+                  ("fused_right_apply_2d", "fused_left_apply_2d", "right_apply_2d_q8_i8"))
+    check_kernels(torch, 2_000, 16_384, SEED + 11, device, 5,
+                  ("fused_right_apply_2d", "right_apply_2d_q8_i8"))
     check_kernels(torch, 65_536, 16_384, SEED + 6, device, 3,
                   ("fused_right_apply_2d",), ell=10)
     torch.cuda.empty_cache()

@@ -4,9 +4,10 @@
 //   - mbarriers (init, arrive, arrive with a byte count, parity wait),
 //     rings of slots handed over by them, 1-D and 2-D TMA loads and their
 //     tensor maps, the generic-to-async proxy fence;
-//   - wgmma: the B128 shared-memory matrix descriptor and
+//   - wgmma: the B128 shared-memory matrix descriptor,
 //     m64n128k16.f32.bf16.bf16 with B MN-major and A MN-major (the left
-//     product) or K-major (the right product);
+//     product) or K-major (the right product), and m64n128k32.s32.s8.s8
+//     with both operands K-major (the q8 right product);
 //   - the warp roles both products share (consumers, producer, loader);
 //   - decode_rows_with<Rows>: 16 rows of raw genotype groups -> bf16 rows
 //     of a (64 rows x 128 samples) operand tile, from per-row codes built
@@ -237,6 +238,16 @@ inline int bf16_map(CUtensorMap* map, const void* base, int ld, int rows) {
                     64, kTileRows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
+// A row-major (rows, ld) int8 matrix in boxes of 128 columns (128 bytes,
+// the widest box SWIZZLE_128B takes) x box_rows rows with the 128-byte
+// swizzle: a box lands as box_rows / 8 swizzle atoms of 1024 bytes, the
+// K-major B128 operand of the s8 wgmma (K along the 128 columns).
+inline int i8_map(CUtensorMap* map, const void* base, int ld, int rows,
+                  int box_rows) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, ld, rows, 128,
+                    box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
 // --- wgmma ----------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a B128-swizzled operand: start
@@ -265,6 +276,11 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_regs(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+__device__ __forceinline__ void fence_regs(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // d (64 x 128 f32, the warpgroup's fragment) = A (64 x 16) B (16 x 128)
@@ -309,6 +325,47 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransA));
+}
+
+// d (64 x 128 s32) = A (64 x 32) B (32 x 128) (+ d when scale_d), A and B
+// int8 in shared memory, both K-major (the only layout the integer wgmma
+// takes): a 128-byte swizzle row holds 128 K values, so a K step of 32 is
+// a 32-byte advance inside it, as a bf16 K step of 16.  Sums are exact in
+// int32 in any order.  The fragment is wgmma_m64n128k16's.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // tot += acc once every MMA in flight has landed in acc.
@@ -364,21 +421,25 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* __restrict__ out,
     }
 }
 
-// out (rows, ldo) = the sum of slab[0..splits) (each (rows, L) f32) taken
-// in slab order, in columns < L, and 0 past L; bf16 out is rounded once,
-// after the whole sum.  The fixed-order reduction of the products that
-// split their contraction into ranges (no atomics: the same bits every
-// launch).
-template <class T>
+// out (rows, ldo) = the sum of slab[0..splits) (each (rows, L), f32 or
+// int32) taken in slab order in the slab's type, in columns < L, and 0
+// past L; out is converted once, after the whole sum: a bf16 out rounded
+// from f32, an f32 out from int32 (the q8 product's exact integers).  The
+// fixed-order reduction of the products that split their contraction
+// into ranges (no atomics: the same bits every launch).
+__device__ __forceinline__ float sum_to_f32(float s) { return s; }
+__device__ __forceinline__ float sum_to_f32(int s) { return __int2float_rn(s); }
+
+template <class T, class S>
 __global__ void __launch_bounds__(kThreads)
-sum_splits_kernel(const float* __restrict__ slab, T* __restrict__ out, int rows,
+sum_splits_kernel(const S* __restrict__ slab, T* __restrict__ out, int rows,
                   int L, int ldo, int splits) {
   const size_t n = (size_t)rows * L, total = (size_t)rows * ldo;
   for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < total;
        i += (size_t)gridDim.x * kThreads) {
     const size_t r = i / ldo;
     const int c = (int)(i - r * ldo);
-    float s = 0.f;
+    S s = 0;
     if (c < L) {
       const size_t k = r * L + c;
       s = slab[k];
@@ -387,18 +448,19 @@ sum_splits_kernel(const float* __restrict__ slab, T* __restrict__ out, int rows,
     if constexpr (sizeof(T) == 2) {
       out[i] = __float2bfloat16_rn(s);
     } else {
-      out[i] = s;
+      out[i] = sum_to_f32(s);
     }
   }
 }
 
-template <class T>
-int launch_sum_splits(const float* slab, T* out, int rows, int L, int ldo,
+template <class T, class S>
+int launch_sum_splits(const S* slab, T* out, int rows, int L, int ldo,
                       int splits, int sms, cudaStream_t st) {
   const size_t total = (size_t)rows * ldo;
   const int blocks = (int)std::max<size_t>(
       1, std::min<size_t>((total + kThreads - 1) / kThreads, 4 * sms));
-  sum_splits_kernel<T><<<blocks, kThreads, 0, st>>>(slab, out, rows, L, ldo, splits);
+  sum_splits_kernel<T, S><<<blocks, kThreads, 0, st>>>(slab, out, rows, L, ldo,
+                                                      splits);
   return (int)cudaGetLastError();
 }
 
@@ -453,6 +515,30 @@ __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
   uint32_t d;
   asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
   return d;
+}
+
+// G0, the int8 dosage with missing -> 0, of four packed bytes (sample 4k
+// + p in bits 2p..2p+1 of byte k): byte p of word k.  Two bytes at a time,
+// their eight 2-bit codes are spread to the nibbles of a prmt selector
+// over the dosages of codes {0, 1, 2, 3} = {2, 0, 1, 0} (0x00010002); a
+// selector reads only its low 16 bits.
+__device__ __forceinline__ uint4 packed_g0_16(uint32_t x) {
+  uint32_t lo = x & 0xFFFFu, hi = x >> 16;
+  lo = (lo | (lo << 8)) & 0x00FF00FFu;
+  hi = (hi | (hi << 8)) & 0x00FF00FFu;
+  lo = (lo | (lo << 4)) & 0x0F0F0F0Fu;
+  hi = (hi | (hi << 4)) & 0x0F0F0F0Fu;
+  lo = (lo | (lo << 2)) & 0x33333333u;
+  hi = (hi | (hi << 2)) & 0x33333333u;
+  constexpr uint32_t kDosage = 0x00010002u;
+  return make_uint4(prmt(kDosage, 0u, lo), prmt(kDosage, 0u, lo >> 16),
+                    prmt(kDosage, 0u, hi), prmt(kDosage, 0u, hi >> 16));
+}
+
+// max(g, 0) of four int8 lanes: prmt's sign-replicating selectors make
+// 0xFF of every negative byte (the -127 sentinel among them).
+__device__ __forceinline__ uint32_t dense_g0(uint32_t w) {
+  return w & ~prmt(w, 0u, 0xBA98u);
 }
 
 // a * b and a + b on bf16 pairs, each rounded to nearest even once.

@@ -1,5 +1,5 @@
-// Wide-sample (2-D mode) kernels: A^T W, G0 bq and sum_t sz_t G0_t^T z8_t,
-// for both genotype layouts.
+// Wide-sample (2-D mode) kernels: A^T W and sum_t sz_t G0_t^T z8_t, for
+// both genotype layouts.
 //
 // They replace the 2-D tiled TPU kernels of genomic_pca_tpu/ops/
 // pallas_kernels.py, which the JAX container picks once no full-width
@@ -9,22 +9,22 @@
 //                        _left2d_packed_kernel :657) -> gp_left2d_packed
 //   fused_left_apply_2d        (:346, pallas_call :363; body
 //                        _left2d_kernel :278)        -> gp_left2d_dense
-//   right_apply_2d_q8  (:1096, pallas_call :1112), packed -> gp_q8_right2d
-//                                      int8 (_clean_i8) -> gp_q8_right2d_dense
 //   left_apply_2d_q8   (:1139, pallas_call :1158), packed -> gp_q8_left2d
 //                                      int8 (_clean_i8) -> gp_q8_left2d_dense
 //
-// A B, the fourth kernel of the mode, is right2d_mma_kernel of
-// right2d_kernels.cu in bf16 mode (gp_right2d_packed / gp_right2d_dense)
-// and right_kernel of packed_common.cuh unrounded in f32 mode
-// (gp_right_packed / gp_right_dense).
+// The mode's right products are in their own sources: A B is
+// right2d_mma_kernel of right2d_kernels.cu in bf16 mode (gp_right2d_packed
+// / gp_right2d_dense) and right_kernel of packed_common.cuh unrounded in
+// f32 mode (gp_right_packed / gp_right_dense); G0 bq is
+// q8_right2d_mma_kernel of q8_right2d_kernels.cu (gp_q8_right2d /
+// gp_q8_right2d_dense).
 //
 // Each kernel is a template over the genotype layout (PackedRows,
 // DenseRows of packed_common.cuh), as the 1-D main loops are: a packed
 // byte and an aligned dense 32-bit word both hold a group of four samples,
 // so the loaders read one group per thread and the loops are the same.
-// The dense q8 kernels take G0 = max(g, 0) with __vmaxs4 (DenseRows::lanes)
-// or per byte (DenseRows::dosage), so the -127 sentinel is raw 0.
+// The dense q8 left product takes G0 = max(g, 0) per byte
+// (DenseRows::dosage), so the -127 sentinel is raw 0.
 //
 // The left products A^T W (kernels 6 and 14), bf16 mode: left2d_mma_kernel.
 // On an H100 at 65,536 x 16,384 x 128 the packed one is bound by the bf16
@@ -290,30 +290,6 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
   }
 }
 
-// out (D, L) = G0 bq as f32: the int32 row sum converted once.  Exact
-// while |sum| < 2^24, i.e. for up to about 66,000 samples; beyond that
-// the single rounding of the exact int32 sum can differ from the
-// reference, which adds per-tile int32 sums in f32.
-template <class Rows>
-__global__ void __launch_bounds__(kThreads)
-q8_right2d_kernel(Rows g, const int8_t* __restrict__ bq,
-                  float* __restrict__ out, int D, int L) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int d0 = blockIdx.x * kBM, l0 = blockIdx.y * kBN;
-  int acc[4][4] = {};
-  q8_right_tile(g, bq, D, L, d0, l0, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = d0 + ty + 16 * i;
-    if (r >= D) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = l0 + tx + 16 * j;
-      if (c < L) out[(size_t)r * L + c] = __int2float_rn(acc[i][j]);
-    }
-  }
-}
-
 // out (N, L) = sum over row tiles t of sz[t] (G0_t^T z8_t).  Inside a
 // tile the product is summed exactly in int32 (2 * 127 * tile_d < 2^31);
 // sums under different scales cannot be added as integers, so at every
@@ -461,14 +437,6 @@ int launch_left2d(Rows g, const void* mean, const void* inv_std, const void* w,
 }
 
 template <class Rows>
-int launch_q8_right2d(Rows g, const void* bq, void* out, int D, int L,
-                      void* stream) {
-  q8_right2d_kernel<Rows><<<grid_of(D, L), kThreads, 0, (cudaStream_t)stream>>>(
-      g, (const int8_t*)bq, (float*)out, D, L);
-  return (int)cudaGetLastError();
-}
-
-template <class Rows>
 int launch_q8_left2d(Rows g, const void* z8, const void* sz, void* out, int D,
                      int L, int tile_d, void* stream) {
   q8_left2d_kernel<Rows><<<grid_of(4 * g.groups, L), kThreads, 0,
@@ -509,19 +477,6 @@ int gp_left2d_plan(int D, int n4, int L, int sms, int* plan) {
   plan[3] = (int)p.grid.y;
   plan[4] = (int)p.grid.z;
   return 0;
-}
-
-// out (D, L) = G0 bq, the integer sums converted to f32 once.
-int gp_q8_right2d(const void* packed, const void* bq, void* out, int D, int n4,
-                  int L, void* stream) {
-  return gp::launch_q8_right2d(gp::PackedRows{(const uint8_t*)packed, n4}, bq,
-                               out, D, L, stream);
-}
-
-int gp_q8_right2d_dense(const void* geno, const void* bq, void* out, int D,
-                        int n4, int L, void* stream) {
-  return gp::launch_q8_right2d(gp::DenseRows{(const int8_t*)geno, n4}, bq, out,
-                               D, L, stream);
 }
 
 // out (N, L) = sum_t sz[t] G0_t^T z8_t.

@@ -1,17 +1,24 @@
 """A/B timing of the tensor-core products between source trees, on one
 GPU: the left products A^T W (kernels 6 and 14), the right products A B
-(kernels 5 and 13) and the 1-D gram pass A^T bf16(A B) (kernels 2 and 10).
+(kernels 5 and 13), the 1-D gram pass A^T bf16(A B) (kernels 2 and 10)
+and the q8 right products G0 bq (kernels 7 and 7i).
 
-    python -m genomic_pca_tpu_torch.eval.mma2d_ab TAG
+    python -m genomic_pca_tpu_torch.eval.mma2d_ab TAG [--lines LINE ...]
 
 Run it from the root of each tree to compare (the kernels build from that
 tree's `csrc/`), alternating the trees on one card, so that they share its
-clocks and power limit.
+clocks and power limit.  The q8 line times a tree's kernel through its own
+wrapper and C call, so it also times a tree whose wrapper predates this
+script: run this file with that tree first on PYTHONPATH,
+
+    PYTHONPATH=<tree> python <this file> TAG --lines q8right
+
 It first holds each product of each layout to its plain version at small
 shapes (ragged ones, for the right products a strip whose samples split,
 for the left ones and the gram pass a matrix whose rows split), with a
-second launch equal bit for bit; a tree that disagrees exits 2 and is not
-timed.  Then it prints three lines,
+second launch equal bit for bit (the q8 products bit for bit to plain); a
+tree that disagrees exits 2 and is not timed.  Then it prints four lines
+(`--lines` picks some),
 
     [TAG] left packed <ms> dense <ms> thin packed <ms> thin dense <ms>
     [TAG] right packed <ms> dense <ms> strip packed <ms> dense <ms> thin
@@ -20,22 +27,29 @@ timed.  Then it prints three lines,
     [TAG] gram packed <ms> dense <ms> strip packed <ms> dense <ms> right
           packed <ms> dense <ms> left packed <ms> dense <ms> fma packed
           <ms> dense <ms> fma strip packed <ms> dense <ms>
+    [TAG] q8right packed <ms> call <ms> dense <ms> call <ms> thin packed
+          <ms> call <ms> dense <ms> call <ms> int_mm <ms> thin int_mm <ms>
 
 the mean time of back-to-back launches of the C entries (the wrappers'
-host work excluded: W and B already bf16), L = 128 unless named: at
-65,536 x 16,384 (20 launches), the left products at 2,048 x 11,264 (200),
-the right ones at 2,000 x 16,384 (an EigenSNP strip, 200) and 2,048 x
-11,264 (200), and at 65,536 x 16,384 with L = 10 (the loadings launch,
-20).  "fma strip" is the f32 FMA loop the right products launched before
-they ran on the tensor cores (gp_right_packed / gp_right_dense in bf16
-mode; the f32 mode's kernel) at 2,000 x 16,384.  The gram line times the
-one C call of the bf16 gram pass (gp_gram_packed / gp_gram_dense) at the
-1-D main shape 262,144 x 2,048 (20 launches) and a streamed 1-D strip of
-2,048 x 2,048 (200); its two halves alone at the main shape, as the
-right product (f32 out: the same kernel and plan) and the left product
-(its row split and slab sum); and the FMA pair it replaced (the right
-loop rounding W, then the split-K left loop with f32 atomics; the f32
-mode's kernels) at both shapes.  Exits 1 without a CUDA device.
+host work excluded: W and B already bf16, bq already transposed), L = 128
+unless named: at 65,536 x 16,384 (20 launches), the left products at
+2,048 x 11,264 (200), the right ones at 2,000 x 16,384 (an EigenSNP
+strip, 200) and 2,048 x 11,264 (200), and at 65,536 x 16,384 with L = 10
+(the loadings launch, 20).  "fma strip" is the f32 FMA loop the right
+products launched before they ran on the tensor cores (gp_right_packed /
+gp_right_dense in bf16 mode; the f32 mode's kernel) at 2,000 x 16,384.
+The gram line times the one C call of the bf16 gram pass (gp_gram_packed /
+gp_gram_dense) at the 1-D main shape 262,144 x 2,048 (20 launches) and a
+streamed 1-D strip of 2,048 x 2,048 (200); its two halves alone at the
+main shape, as the right product (f32 out: the same kernel and plan) and
+the left product (its row split and slab sum); and the FMA pair it
+replaced (the right loop rounding W, then the split-K left loop with f32
+atomics; the f32 mode's kernels) at both shapes.  The q8 line times, at
+65,536 x 16,384 (20) and 2,048 x 11,264 (200), the C call the wrapper
+makes (replayed with the arguments it passed) and the wrapper call
+itself ("call": the operand, slab and launch), and `torch._int_mm` of
+the same product on decoded operands (G0 int8 row-major, bq
+column-major).  Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,13 +71,19 @@ NAMES = {
     ("right", "dense"): "fused_right_apply_2d",
     ("gram", "packed"): "fused_gram_apply_packed",
     ("gram", "dense"): "fused_gram_apply",
+    ("q8right", "packed"): "right_apply_2d_q8",
+    ("q8right", "dense"): "right_apply_2d_q8_i8",
 }
 CHECKS = {
     "left": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
     "right": ((40, 256, 10), (300, 2100, 130), (4096, 1024, 128)),
     "gram": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
+    "q8right": ((40, 256, 10), (300, 2100, 130), (2000, 4096, 128)),
 }
 LAYOUTS = ("packed", "dense")
+# The products each printed line times (the gram line also its halves).
+LINES = {"left": ("left",), "right": ("right",), "gram": ("gram", "right", "left"),
+         "q8right": ("q8right",)}
 
 
 def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
@@ -77,6 +97,8 @@ def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
     pass rounds it (`gram_reference`), whose own right half is held to
     plain."""
     rng = np.random.default_rng(seed)
+    if product == "q8right":
+        return q8right_agrees(layout, d, n, ell, device, rng)
     g = rng.integers(0, 3, size=(d, n)).astype(np.int8)
     if layout == "dense":
         odd = rng.random(g.shape) < 0.02
@@ -99,6 +121,20 @@ def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
         ref = tk.PLAIN[name](*args, "bf16")
     err = float((got - ref).abs().max()) / float(ref.abs().max())
     return max(err, w_err) <= 1e-5 and bool(torch.equal(got, again))
+
+
+def q8right_agrees(layout: str, d: int, n: int, ell: int, device, rng) -> bool:
+    """Kernel 7 or 7i against its plain version bit for bit (exact integer
+    sums), on dosages {0, 1, 2} with 5% missing and a random bq, and a
+    second launch equal bit for bit."""
+    g = rng.integers(0, 3, size=(d, n)).astype(np.int8)
+    g[rng.random(g.shape) < 0.05] = -127
+    geno = pack_int8_rows(g) if layout == "packed" else g
+    bq = rng.integers(-127, 128, size=(4 * -(-n // 4), ell)).astype(np.int8)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (geno, bq)]
+    got, again = tk.right_apply_2d_q8(*args), tk.right_apply_2d_q8(*args)
+    ref = tk.PLAIN[NAMES["q8right", layout]](*args)
+    return bool(torch.equal(got, ref)) and bool(torch.equal(got, again))
 
 
 def gram_reference(geno, mean, inv_std, b):
@@ -164,18 +200,81 @@ def launch_ms(product: str, layout: str, d: int, n: int, reps: int,
             args = [b, out, slab, d, n // 4, n, ell, b.shape[1], sms]
     args = [a.data_ptr() if torch.is_tensor(a) else a
             for a in [g, mean, inv, *args, stream]]
-    for _ in range(3):
+
+    def once():
         if entry(*args) != 0:
             raise RuntimeError(f"{product} {layout} refused the launch")
+
+    return mean_ms(once, reps)
+
+
+def mean_ms(fn, reps: int) -> float:
+    """Mean ms of `reps` back-to-back calls of `fn` after three warm-up
+    calls, by CUDA events around the run."""
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        entry(*args)
+        fn()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def captured_launch(fn, *args) -> tuple:
+    """(C entry, its arguments) of the one C call `fn(*args)` makes through
+    `kernels._launch`; the tensors among the arguments stay alive with the
+    tuple."""
+    seen, real = [], tk._launch
+
+    def spy(device, entry, *call):
+        seen.append((entry, call))
+        real(device, entry, *call)
+
+    tk._launch = spy
+    try:
+        fn(*args)
+    finally:
+        tk._launch = real
+    (entry, call), = seen
+    return entry, call
+
+
+def q8right_ms(layout: str, d: int, n: int, reps: int, call: bool) -> float:
+    """Mean ms of `reps` back-to-back q8 right products G0 bq (L = 128):
+    the C call the wrapper makes, replayed with the arguments it passed,
+    or (`call`) the wrapper itself."""
+    dev = torch.device("cuda")
+    if layout == "packed":
+        g = torch.randint(0, 256, (d, n // 4), device=dev, dtype=torch.uint8)
+    else:
+        g = torch.randint(0, 3, (d, n), device=dev, dtype=torch.int8)
+    bq = torch.randint(-127, 128, (n, 128), device=dev, dtype=torch.int8)
+    if call:
+        return mean_ms(lambda: tk.right_apply_2d_q8(g, bq), reps)
+    entry, args = captured_launch(tk.right_apply_2d_q8, g, bq)
+    fn = getattr(build.lib(), entry)
+    ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def once():
+        if fn(*ptrs, stream) != 0:
+            raise RuntimeError(f"q8right {layout} refused the launch")
+
+    return mean_ms(once, reps)
+
+
+def int_mm_ms(d: int, n: int, reps: int) -> float:
+    """Mean ms of `torch._int_mm(G0, bq)` at D x N, L = 128, on operands
+    already decoded: G0 int8 row-major, bq int8 column-major (as cuBLASLt
+    takes it).  A yardstick only: the port never calls it."""
+    dev = torch.device("cuda")
+    g0 = torch.randint(0, 3, (d, n), device=dev, dtype=torch.int8)
+    bq = torch.randint(-127, 128, (128, n), device=dev, dtype=torch.int8).t()
+    return mean_ms(lambda: torch._int_mm(g0, bq), reps)
 
 
 def fma_gram_ms(layout: str, d: int, n: int, reps: int, ell: int = 128) -> float:
@@ -207,29 +306,22 @@ def fma_gram_ms(layout: str, d: int, n: int, reps: int, ell: int = 128) -> float
         if rc != 0:
             raise RuntimeError(f"gram {layout}: the FMA pair refused the launch")
 
-    for _ in range(3):
-        once()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        once()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return mean_ms(once, reps)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("tag")
+    ap.add_argument("--lines", nargs="+", choices=tuple(LINES), default=tuple(LINES),
+                    help="the lines to check and time (default: all)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("mma2d_ab needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    bad = [(prod, lay, *shape) for prod, lay in NAMES for shape in CHECKS[prod]
-           if not agrees(prod, lay, *shape, dev)]
+    products = {p for line in a.lines for p in LINES[line]}
+    bad = [(prod, lay, *shape) for prod, lay in NAMES if prod in products
+           for shape in CHECKS[prod] if not agrees(prod, lay, *shape, dev)]
     for prod, lay, d, n, ell in bad:
         print(f"[{a.tag}] FAIL {prod} {lay} D={d} N={n} L={ell}", flush=True)
     if bad:
@@ -239,19 +331,31 @@ def main(argv=None) -> int:
         return " ".join(f"{lay} {launch_ms(product, lay, d, n, reps, **kw):.4f}"
                         for lay in LAYOUTS)
 
-    print(f"[{a.tag}] left {each('left', 65_536, 16_384, 20)} "
-          f"thin {each('left', 2_048, 11_264, 200)}", flush=True)
-    print(f"[{a.tag}] right {each('right', 65_536, 16_384, 20)} "
-          f"strip {each('right', 2_000, 16_384, 200)} "
-          f"thin {each('right', 2_048, 11_264, 200)} "
-          f"L=10 {each('right', 65_536, 16_384, 20, ell=10)} "
-          f"fma strip {each('right', 2_000, 16_384, 20, fma=True)}", flush=True)
-    print(f"[{a.tag}] gram {each('gram', 262_144, 2_048, 20)} "
-          f"strip {each('gram', 2_048, 2_048, 200)} "
-          f"right {each('right', 262_144, 2_048, 20)} "
-          f"left {each('left', 262_144, 2_048, 20)} "
-          f"fma {each('gram', 262_144, 2_048, 5, fma=True)} "
-          f"fma strip {each('gram', 2_048, 2_048, 50, fma=True)}", flush=True)
+    def each_q8(d, n, reps):
+        return " ".join(f"{lay} {q8right_ms(lay, d, n, reps, False):.4f} call "
+                        f"{q8right_ms(lay, d, n, reps, True):.4f}" for lay in LAYOUTS)
+
+    if "left" in a.lines:
+        print(f"[{a.tag}] left {each('left', 65_536, 16_384, 20)} "
+              f"thin {each('left', 2_048, 11_264, 200)}", flush=True)
+    if "right" in a.lines:
+        print(f"[{a.tag}] right {each('right', 65_536, 16_384, 20)} "
+              f"strip {each('right', 2_000, 16_384, 200)} "
+              f"thin {each('right', 2_048, 11_264, 200)} "
+              f"L=10 {each('right', 65_536, 16_384, 20, ell=10)} "
+              f"fma strip {each('right', 2_000, 16_384, 20, fma=True)}", flush=True)
+    if "gram" in a.lines:
+        print(f"[{a.tag}] gram {each('gram', 262_144, 2_048, 20)} "
+              f"strip {each('gram', 2_048, 2_048, 200)} "
+              f"right {each('right', 262_144, 2_048, 20)} "
+              f"left {each('left', 262_144, 2_048, 20)} "
+              f"fma {each('gram', 262_144, 2_048, 5, fma=True)} "
+              f"fma strip {each('gram', 2_048, 2_048, 50, fma=True)}", flush=True)
+    if "q8right" in a.lines:
+        print(f"[{a.tag}] q8right {each_q8(65_536, 16_384, 20)} "
+              f"thin {each_q8(2_048, 11_264, 200)} "
+              f"int_mm {int_mm_ms(65_536, 16_384, 20):.4f} "
+              f"thin int_mm {int_mm_ms(2_048, 11_264, 200):.4f}", flush=True)
     return 0
 
 

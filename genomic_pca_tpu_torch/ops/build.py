@@ -38,6 +38,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "gp_left2d_plan": [_I, _I, _I, _I, _P],
     "gp_right2d_plan": [_I, _I, _I, _I, _P],
+    "gp_q8_right2d_plan": [_I, _I, _I, _I, _P],
     "gp_gram_plan": [_I, _I, _I, _I, _I, _P],
     "gp_right2d_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_right2d_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -51,14 +52,14 @@ SIGNATURES = {
     "gp_q8_w": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_left": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_left2d_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gp_q8_right2d": [_P, _P, _P, _I, _I, _I, _P],
+    "gp_q8_right2d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_q8_left2d": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_right_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_w_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_left_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_left2d_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gp_q8_right2d_dense": [_P, _P, _P, _I, _I, _I, _P],
+    "gp_q8_right2d_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_q8_left2d_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 

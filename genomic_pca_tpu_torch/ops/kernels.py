@@ -793,22 +793,59 @@ def fused_left_apply_2d_packed(packed, mean, inv_std, w, precision="bf16"):
 
 
 # right_apply_2d_q8 replaces pallas_kernels.py right_apply_2d_q8 (:1096,
-# pallas_call :1112), both branches: packed input (kernel 7) and int8
-# input (_clean_i8 :1048, kernel 7i), chosen by the genotype dtype as the
-# JAX function chooses.  The raw integer products sum_j G0 bq on __dp4a,
-# summed in int32 over the whole row and converted to f32 once (exact
-# below 2^24, ~66k samples; the reference adds per-tile int32 sums in
-# f32).  Bound by the dp4a instruction rate.  One block per 64 x 64
-# output tile; the main loop is the one of the 1-D q8 pass (q8_right_tile
-# in csrc/packed_common.cuh) without its fused corrections, which
-# q8_power_pass_2d does in torch.  The int8 branch takes G0 = max(g, 0)
-# of four samples at once with __vmaxs4 (DenseRows::lanes), so the -127
-# sentinel is raw 0, and reads D*N bytes where the packed one reads D*N/4.
-# Each branch has its own launch count: right_apply_2d_q8 (packed),
-# right_apply_2d_q8_i8 (int8).
+# pallas_call :1112; body _right2d_q8_kernel :1057), both branches: packed
+# input (kernel 7, _unpack_packed_tile_s8 :902) and int8 input (_clean_i8
+# :1048, kernel 7i), chosen by the genotype dtype as the JAX function
+# chooses.  The raw integer products G0 bq, summed exactly in int32 and
+# converted to f32 once: bit for bit the plain version at every shape
+# (the reference adds per-tile int32 sums in f32, which differs once a sum
+# passes 2^24, about 66,000 samples).  Bound on an H100 at 65,536 x 16,384
+# x 128 by the int8 tensor-core rate packed (2*D*N*L operations, 0.139 ms)
+# and by its 1 GiB of bytes dense (0.331 ms).  Design
+# (q8_right2d_mma_kernel, csrc/q8_right2d_kernels.cu): kernel 5's pipeline
+# with int8 operands - one block per 128 rows x 128 columns loops over the
+# samples in chunks of 256; a loader warp's TMA loads bring the raw packed
+# half tiles (dense: the int8 rows straight into the operand ring, which a
+# producer warp clamps in place to max(g, 0)) and the tiles of bq^T; a
+# producer warpgroup decodes packed bytes into int8 dosages; two consumer
+# warpgroups run s8 wgmma with int32 accumulators, both operands K-major,
+# so the wrapper passes bq transposed (`q8_operand`, made once a call).
+# Where the row blocks are fewer than the SMs (a thin strip) the samples
+# split into ranges whose int32 slabs are added in a fixed order and
+# converted once (`q8_right2d_plan`).  Each branch has its own launch
+# count: right_apply_2d_q8 (packed), right_apply_2d_q8_i8 (int8).
 
 _Q8_2D_NAME = {torch.uint8: ("right_apply_2d_q8", "left_apply_2d_q8"),
                torch.int8: ("right_apply_2d_q8_i8", "left_apply_2d_q8_i8")}
+
+
+def q8_right2d_plan(d: int, n_samples: int, ell: int, sms: int = None) -> tuple:
+    """(tile, grid, splits) of the q8 right product over `d` rows,
+    `n_samples` samples and `ell` columns of bq on `sms` SMs (default: the
+    current CUDA device's), as launch_q8_right2d launches it: tile (rows,
+    columns), grid (row blocks, column blocks), and the ranges the samples
+    split into where the blocks are fewer than the SMs (each an int32
+    slab).  Read from the built library (`gp_q8_right2d_plan`)."""
+    p = _library_plan("gp_q8_right2d_plan", 5, ctypes.c_int, d, n_samples, ell,
+                      _current_sms(sms))
+    return (p[0], p[1]), (p[2], p[3]), p[4]
+
+
+def q8_operand(bq: torch.Tensor, samples: int = None) -> torch.Tensor:
+    """bq (N, L) int8 as the q8 right product reads it: transposed, (L_pad,
+    N_pad) int8 contiguous, with L padded to a multiple of 16 and N to
+    `samples` (the genotype rows' width in samples; default N), rounded up
+    to a multiple of 16 so that a row is whole 16-byte units; every pad
+    entry 0, so that samples past the genotypes add nothing.  Without pads
+    (the containers' widths, L = 128) it is one transposed copy."""
+    n, ell = bq.shape
+    n_pad = -(-max(n, samples or 0) // 16) * 16
+    l_pad = -(-ell // 16) * 16
+    if (l_pad, n_pad) == (ell, n):
+        return bq.t().contiguous()
+    out = torch.zeros((l_pad, n_pad), dtype=torch.int8, device=bq.device)
+    out[:ell, :n] = bq.T
+    return out
 
 
 def right_apply_2d_q8(geno, bq):
@@ -827,7 +864,16 @@ def right_apply_2d_q8(geno, bq):
     LAUNCHES[_Q8_2D_NAME[dtype][0]] += 1
     ell = bq.shape[1]
     out = torch.empty((d, ell), dtype=torch.float32, device=dev)
-    _launch(dev, _ENTRY[dtype]["q8_right2d"], geno, bq, out, d, n // 4, ell)
+    if not out.numel():
+        return out
+    geno = aligned_rows(geno)
+    bqt = q8_operand(bq, _samples(geno))
+    sms = _sms(dev)
+    splits = q8_right2d_plan(d, _samples(geno), ell, sms)[2]
+    slab = (torch.empty((splits, d, ell), dtype=torch.int32, device=dev)
+            if splits > 1 else None)
+    _launch(dev, _ENTRY[dtype]["q8_right2d"], geno, bqt, out, slab, d,
+            _samples(geno) // 4, ell, bqt.shape[1], sms)
     return out
 
 

@@ -333,6 +333,89 @@ def test_wide_q8_kernels_match_plain_and_quant_model(cuda_device, d, n, tile_d):
     np.testing.assert_allclose(t, t_p, rtol=1e-5, atol=1e-5 * np.abs(t_p).max())
     t_ref = quant_model(g, iv, u, bq, float(sb[0, 0]), tile_d)
     assert np.abs(t - t_ref).max() <= 1e-3 * np.abs(t_ref).max()
+    assert torch.equal(tk.right_apply_2d_q8(packed, bq_t), w)
+
+
+def _q8_right_case(rng, d, n, ell, layout):
+    """Unstructured dosages {0, 1, 2} with 5% missing and row 7 all
+    missing (a swapped pair of samples would show), packed or int8, and a
+    random bq (N, L)."""
+    g = rng.integers(0, 3, size=(d, n)).astype(np.int8)
+    g[rng.random(g.shape) < 0.05] = -127
+    g[min(7, d - 1)] = -127
+    bq = rng.integers(-127, 128, size=(n, ell)).astype(np.int8)
+    return (pack_int8_rows(g) if layout == "packed" else g), bq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+@pytest.mark.parametrize("d,n,ell", [
+    (200, 1_100, 10), (200, 1_100, 130), (300, 2_100, 130),  # ragged
+    (2_000, 16_384, 128),  # an EigenSNP strip: the samples split
+    (2_048, 11_264, 128),  # a streamed strip at the 2-D switch width
+])
+def test_q8_right_2d_kernel_matches_plain_bit_for_bit(cuda_device, layout, d, n, ell):
+    """Kernels 7 and 7i (s8 wgmma, int32 sums converted once) equal their
+    plain versions bit for bit, at rows and samples that are not whole
+    tiles or chunks (TMA's zero fill decodes to dosage 2 packed: those rows
+    must not be stored, those samples must meet zero columns of bq^T) and
+    at the thin strips whose samples split into int32 slabs; a second
+    launch repeats the bits; each branch counts under its own key."""
+    geno, bq = _on(cuda_device, *_q8_right_case(np.random.default_rng(15), d, n, ell,
+                                                layout))
+    tk.reset_launch_counts()
+    got, again = tk.right_apply_2d_q8(geno, bq), tk.right_apply_2d_q8(geno, bq)
+    torch.cuda.synchronize()
+    name = "right_apply_2d_q8" if layout == "packed" else "right_apply_2d_q8_i8"
+    assert tk.LAUNCHES == dict(ZERO, **{name: 2})
+    assert torch.equal(got, tk.right_apply_2d_q8_plain(geno, bq))
+    assert torch.equal(got, again)
+    assert not bool(got[7].any())
+
+
+@pytest.mark.cuda
+def test_q8_right_2d_plan(cuda_device):
+    """The q8 right product's tile, grid and sample splits as the library
+    reports them: one range at the 2-D kernel shape, eight at the thin
+    strips, and ranges of at least 1,024 samples."""
+    assert tk.q8_right2d_plan(65_536, 16_384, 128, 132) == ((128, 128), (512, 1), 1)
+    assert tk.q8_right2d_plan(2_000, 16_384, 128, 132) == ((128, 128), (16, 1), 8)
+    assert tk.q8_right2d_plan(2_048, 11_264, 128, 132) == ((128, 128), (16, 1), 8)
+    assert tk.q8_right2d_plan(200, 1_152, 130, 132) == ((128, 128), (2, 2), 1)
+    assert tk.q8_right2d_plan(5, 70_016, 16, 132) == ((128, 128), (1, 1), 55)
+    assert tk.q8_right2d_plan(5, 70_016, 16, 1) == ((128, 128), (1, 1), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_q8_right_2d_sums_past_2_24_are_exact_with_and_without_a_split(cuda_device,
+                                                                      layout):
+    """5 rows x 70,000 samples, dosage 2 and bq 127 but for a few entries:
+    |sum| passes 2^24 and most sums are odd.  The kernel gives the int64
+    product converted once both through the wrapper (the samples split into
+    55 ranges on 132 SMs: the slab stays int32) and through the C entry
+    planned for one SM (one range), as the plain version does."""
+    rng = np.random.default_rng(24)
+    d, n, ell = 5, 70_000, 16
+    g = np.full((d, n), 2, np.int8)
+    g[rng.random(g.shape) < 0.001] = 1
+    g[rng.random(g.shape) < 0.001] = -127
+    bq = np.full((n, ell), 127, np.int8)
+    bq[rng.random(bq.shape) < 0.001] = -5
+    exact = np.maximum(g, 0).astype(np.int64) @ bq.astype(np.int64)
+    assert exact.min() >= 2**24 and (exact % 2).any()
+    geno, b = _on(cuda_device, pack_int8_rows(g) if layout == "packed" else g, bq)
+    rows = tk.aligned_rows(geno)
+    samples = tk._samples(rows)
+    assert tk.q8_right2d_plan(d, samples, ell)[2] > 1
+    got = tk.right_apply_2d_q8(geno, b)
+    one = torch.empty((d, ell), dtype=torch.float32, device=cuda_device)
+    bqt = tk.q8_operand(b, samples)
+    tk._launch(cuda_device, tk._ENTRY[geno.dtype]["q8_right2d"], rows, bqt, one, None,
+               d, samples // 4, ell, bqt.shape[1], 1)
+    np.testing.assert_array_equal(got.cpu().numpy(), exact.astype(np.float32))
+    np.testing.assert_array_equal(one.cpu().numpy(), exact.astype(np.float32))
+    assert torch.equal(got, tk.right_apply_2d_q8_plain(geno, b))
 
 
 @pytest.mark.cuda
@@ -498,6 +581,7 @@ def test_dense_2d_q8_kernels_match_plain_and_quant_model(cuda_device, d, n, tile
     np.testing.assert_allclose(t, t_p, rtol=1e-5, atol=1e-5 * np.abs(t_p).max())
     t_ref = quant_model(g, iv, u, bq, float(sb[0, 0]), tile_d)
     assert np.abs(t - t_ref).max() <= 1e-3 * np.abs(t_ref).max()
+    assert torch.equal(tk.right_apply_2d_q8(geno, bq_t), w)
 
 
 @pytest.mark.cuda
