@@ -12,6 +12,7 @@ no result line):
    version; the gram pass (kernel 2, on the tensor cores in bf16 mode)
    also at 2,048 x 2,048 (a streamed 1-D strip, whose plans split both
    products), each time with its plans and a bit-identical second launch;
+   the gram and tsq passes (kernels 2 and 3) held half by half;
 4. the four 2-D (wide-sample) kernels the same way at 65,536 x 16,384,
    L = 128, and at 70,001 x 16,389; kernels 5, 6 and 7 at 2,048 x 11,264
    (a streamed strip at the 2-D switch width: their thinnest grids), 5
@@ -111,7 +112,8 @@ SEED = 20260
 # for bit.  The gram passes are also
 # held half by half (`check_gram`): their W against the plain right
 # product, and the pass against the plain left product of that W rounded
-# to bf16.
+# to bf16; the tsq passes likewise (`check_tsq`), their W^T W half against
+# a float64 W^T W of that W.
 TOL = {
     "fused_gram_q8_packed": 1e-5,
     "fused_gram_apply_packed": 1e-5,
@@ -171,7 +173,8 @@ LEFT_MMA = ("fused_left_apply_2d_packed", "fused_left_apply_2d")
 RIGHT_MMA = ("fused_right_apply_2d_packed", "fused_right_apply_2d")
 GRAM_MMA = ("fused_gram_apply_packed", "fused_gram_apply")  # bf16 mode
 Q8_RIGHT_MMA = ("right_apply_2d_q8", "right_apply_2d_q8_i8")
-BITWISE_RERUN = LEFT_MMA + RIGHT_MMA + GRAM_MMA + Q8_RIGHT_MMA
+TSQ_MMA = ("fused_tsq_packed", "fused_tsq")  # bf16 mode
+BITWISE_RERUN = LEFT_MMA + RIGHT_MMA + GRAM_MMA + Q8_RIGHT_MMA + TSQ_MMA
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
 # device memory rate, and tensor-core rates for the operand type of each
@@ -494,6 +497,24 @@ def check_gram(torch, name, args, got, ref, ties_allowed):
     return n_ties, float(allow.max())
 
 
+def check_tsq(torch, name, args, got):
+    """The bf16 tsq pass (kernel 3 or 12) half by half, as `check_gram`
+    holds the gram pass: its right half's f32 W (kernel 5 / 13 on the same
+    inputs: the same kernel, plan and sum order) against the plain right
+    product, and its W^T W half against a float64 W^T W of that W rounded
+    to bf16, each to TOL."""
+    from genomic_pca_tpu_torch.eval.mma2d_ab import tsq_reference
+
+    ref, w_err, ties, _ = tsq_reference(*args)
+    err = float((got.double() - ref).abs().max()) / float(ref.abs().max())
+    log(f"[kernel] {name} halves: W vs the plain right product {w_err:.3e}, W^T W "
+        f"vs float64 over bf16(W) {err:.3e} (of max|ref|, tol "
+        f"{TOL['fused_tsq']:.0e}); {int(torch.count_nonzero(ties))} of "
+        f"{ties.numel()} W entries round one bf16 ulp from the plain W's")
+    if not max(w_err, err) <= TOL["fused_tsq"]:
+        raise AssertionError(f"{name}: a half disagrees with its reference")
+
+
 def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
                   ties_allowed=False):
     """Each kernel of `names` against its plain version at D x N (see TOL;
@@ -535,6 +556,15 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
                         f"in {rs} range(s); left tile {lt} (samples x columns), "
                         f"grid {lg}, the rows in {lr} range(s); workspace "
                         f"{work / 2**20:.2f} MiB")
+            elif name in TSQ_MMA:
+                geno = tk.aligned_rows(args[0])
+                (rt, rg, rs), (wt, wg, wr), work = tk.tsq_plan(
+                    d, tk._samples(geno) // 4, args[3].shape[0], ell)
+                plan = (f"right tile {rt} (rows x columns), tiles {rg} ("
+                        + ("a persistent grid of at most one block an SM" if rs == 1
+                           else "a block each") + f"), the samples "
+                        f"in {rs} range(s); W^T W tile {wt}, grid {wg}, the rows in "
+                        f"{wr} range(s); workspace {work / 2**20:.2f} MiB")
             elif name in Q8_RIGHT_MMA:
                 tile, grid, splits = tk.q8_right2d_plan(
                     d, tk._samples(tk.aligned_rows(args[0])), ell)
@@ -553,6 +583,8 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
                                  f"{tuple(ref.shape)} or non-finite output")
         if name in GRAM_MMA:
             check_gram(torch, name, args, got, ref, ties_allowed)
+        if name in TSQ_MMA:
+            check_tsq(torch, name, args, got)
         err = float((got - ref).abs().max())
         scale = float(ref.abs().max())
         del got, ref

@@ -9,8 +9,11 @@
 //                                                  of gram.cuh); f32 mode
 //                                                  gp_right_dense, then
 //                                                  gp_left_dense
-//   fused_tsq         (:215, pallas_call :231)  -> gp_right_dense, round_out,
-//                                                  then gp_wtw (exact_kernels.cu)
+//   fused_tsq         (:215, pallas_call :231)  -> gp_tsq_dense (bf16 mode:
+//                                                  the tensor-core products
+//                                                  of gram.cuh); f32 mode
+//                                                  gp_right_dense, then gp_wtw
+//                                                  (exact_kernels.cu)
 //   fused_gram_q8     (:847, pallas_call :863)  -> gp_q8_w_dense, then
 //                                                  gp_q8_left_dense
 //
@@ -28,9 +31,9 @@
 // 2*D*N*L operations per product in f32 FMAs (exact) or dp4a lanes (q8):
 // 1.4e11 at L = 128, about 7 ms at the 21 TFLOP/s the packed right kernel
 // reaches.  So the kernels are bound by the FMA and dp4a issue rates, as
-// the packed ones are, and the 4x bytes cost little.  The gram pass's
-// bf16 mode runs on the tensor cores (gram.cuh); the others are later
-// work.
+// the packed ones are, and the 4x bytes cost little.  The gram and tsq
+// passes' bf16 mode runs on the tensor cores (gram.cuh); the loadings
+// product and the q8 pass are later work.
 //
 // Exact passes: valid = (g != -127); bf16 mode standardises as
 // bf16(bf16(g * bf16(inv)) + bf16(-mean * inv)) (pallas_kernels.py
@@ -61,6 +64,15 @@ int gp_gram_dense(const void* geno, const void* mean, const void* inv_std,
                   int L, int ldb, int sms, void* stream) {
   return gp::launch_gram(gp_right2d_w_dense, gp_left2d_dense, geno, mean,
                          inv_std, b, out, work, D, n4, N, L, ldb, sms, stream);
+}
+
+// out (L, L) = bf16(A B)^T bf16(A B) over dense rows of n4 words, N samples
+// (B's rows), b bf16 (N, ldb); `work` as gp_tsq_plan sizes it.
+int gp_tsq_dense(const void* geno, const void* mean, const void* inv_std,
+                 const void* b, void* out, void* work, int D, int n4, int N,
+                 int L, int ldb, int sms, void* stream) {
+  return gp::launch_tsq(gp_right2d_w_dense, geno, mean, inv_std, b, out, work, D,
+                        n4, N, L, ldb, sms, stream);
 }
 
 // out (N, L) += A^T W, split-K over `splits` row ranges.

@@ -1,14 +1,17 @@
 // Exact (bf16 or f32 operand) packed kernels: A B, A^T W and W^T W, and
-// the entry of the 1-D gram pass in bf16 mode.
+// the entries of the 1-D gram and tsq passes in bf16 mode.
 //
 // The main loops of A B and A^T W are those of packed_common.cuh,
-// instantiated for the PLINK 2-bit layout; W^T W takes no genotypes and
-// also serves the dense tsq pass (dense_kernels.cu).  The contractions over
-// the variant axis split it across block layers with f32 atomics.  They
-// serve f32 mode and the tsq pass; in bf16 mode the gram pass
+// instantiated for the PLINK 2-bit layout; W^T W (wtw_kernel) takes no
+// genotypes and also serves the dense tsq pass (dense_kernels.cu).  The
+// contractions over the variant axis split it across block layers with f32
+// atomics.  They serve f32 mode ("HIGHEST" in the reference) and the
+// loadings product fused_right_apply_packed.  In bf16 mode the gram pass
 // fused_gram_apply_packed (pallas_kernels.py :492, pallas_call :508; body
-// _gram_packed_kernel :447) is gp_gram_packed: the tensor-core products
-// of right2d_kernels.cu and wide_kernels.cu, composed in gram.cuh.
+// _gram_packed_kernel :447) is gp_gram_packed and the tsq pass
+// fused_tsq_packed (:564, pallas_call :580; body _tsq_packed_kernel :472)
+// is gp_tsq_packed: the tensor-core products of right2d_kernels.cu,
+// wide_kernels.cu and wtw_kernels.cu, composed in gram.cuh.
 //
 // Every entry point launches on the given stream and returns
 // cudaGetLastError() so that a refused launch is never silent.
@@ -80,6 +83,15 @@ int gp_gram_packed(const void* packed, const void* mean, const void* inv_std,
                          inv_std, b, out, work, D, n4, N, L, ldb, sms, stream);
 }
 
+// out (L, L) f32 = bf16(A B)^T bf16(A B) over packed rows of n4 bytes, N
+// samples (B's rows), b bf16 (N, ldb); `work` as gp_tsq_plan sizes it.
+int gp_tsq_packed(const void* packed, const void* mean, const void* inv_std,
+                  const void* b, void* out, void* work, int D, int n4, int N,
+                  int L, int ldb, int sms, void* stream) {
+  return gp::launch_tsq(gp_right2d_w_packed, packed, mean, inv_std, b, out, work,
+                        D, n4, N, L, ldb, sms, stream);
+}
+
 // The plans of the bf16 gram pass over D rows of n4 groups, N samples and
 // L columns on `sms` SMs, either layout, into plan[0..10]: the right
 // product's tile (rows, columns), grid (x, y) and sample splits; the left
@@ -90,6 +102,22 @@ int gp_gram_plan(int D, int n4, int N, int L, int sms, long long* plan) {
   for (int i = 0; i < 5; ++i) {
     plan[i] = p.right[i];
     plan[5 + i] = p.left[i];
+  }
+  plan[10] = (long long)(p.w_bytes + p.slab_bytes);
+  return 0;
+}
+
+// The plans of the bf16 tsq pass over D rows, N samples and L columns on
+// `sms` SMs, either layout, into plan[0..10]: the right product's (the
+// gram pass's: tile, grid, sample splits), W^T W's tile (rows, columns),
+// grid (x, y) and row ranges, the workspace's bytes.  n4 is taken as
+// gp_gram_plan takes it; the plan does not depend on it.
+int gp_tsq_plan(int D, int n4, int N, int L, int sms, long long* plan) {
+  (void)n4;
+  const gp::TsqPlan p = gp::tsq_plan(D, N, L, sms);
+  for (int i = 0; i < 5; ++i) {
+    plan[i] = p.right[i];
+    plan[5 + i] = p.wtw[i];
   }
   plan[10] = (long long)(p.w_bytes + p.slab_bytes);
   return 0;

@@ -1,23 +1,25 @@
 """A/B timing of the tensor-core products between source trees, on one
 GPU: the left products A^T W (kernels 6 and 14), the right products A B
-(kernels 5 and 13), the 1-D gram pass A^T bf16(A B) (kernels 2 and 10)
-and the q8 right products G0 bq (kernels 7 and 7i).
+(kernels 5 and 13), the 1-D gram pass A^T bf16(A B) (kernels 2 and 10),
+the q8 right products G0 bq (kernels 7 and 7i) and the 1-D tsq pass
+bf16(A B)^T bf16(A B) (kernels 3 and 12).
 
     python -m genomic_pca_tpu_torch.eval.mma2d_ab TAG [--lines LINE ...]
 
 Run it from the root of each tree to compare (the kernels build from that
 tree's `csrc/`), alternating the trees on one card, so that they share its
-clocks and power limit.  The q8 line times a tree's kernel through its own
-wrapper and C call, so it also times a tree whose wrapper predates this
-script: run this file with that tree first on PYTHONPATH,
+clocks and power limit.  The q8 and tsq lines time a tree's kernel
+through its own wrapper and C calls, so they also time a tree whose
+wrapper predates this script: run this file with that tree first on
+PYTHONPATH,
 
-    PYTHONPATH=<tree> python <this file> TAG --lines q8right
+    PYTHONPATH=<tree> python <this file> TAG --lines q8right tsq
 
 It first holds each product of each layout to its plain version at small
 shapes (ragged ones, for the right products a strip whose samples split,
 for the left ones and the gram pass a matrix whose rows split), with a
 second launch equal bit for bit (the q8 products bit for bit to plain); a
-tree that disagrees exits 2 and is not timed.  Then it prints four lines
+tree that disagrees exits 2 and is not timed.  Then it prints five lines
 (`--lines` picks some),
 
     [TAG] left packed <ms> dense <ms> thin packed <ms> thin dense <ms>
@@ -29,6 +31,8 @@ tree that disagrees exits 2 and is not timed.  Then it prints four lines
           <ms> dense <ms> fma strip packed <ms> dense <ms>
     [TAG] q8right packed <ms> call <ms> dense <ms> call <ms> thin packed
           <ms> call <ms> dense <ms> call <ms> int_mm <ms> thin int_mm <ms>
+    [TAG] tsq packed <ms> call <ms> dense <ms> call <ms> wtw <ms> fma
+          packed <ms> dense <ms> multi_dot packed <ms> dense <ms>
 
 the mean time of back-to-back launches of the C entries (the wrappers'
 host work excluded: W and B already bf16, bq already transposed), L = 128
@@ -49,7 +53,18 @@ atomics; the f32 mode's kernels) at both shapes.  The q8 line times, at
 makes (replayed with the arguments it passed) and the wrapper call
 itself ("call": the operand, slab and launch), and `torch._int_mm` of
 the same product on decoded operands (G0 int8 row-major, bq
-column-major).  Exits 1 without a CUDA device.
+column-major).  The tsq line times, at the 1-D main shape 262,144 x 2,048
+with L = 128 (20 launches), the C calls a wrapper call of kernel 3 / 12
+makes (replayed: since the tensor-core pass, gp_tsq_packed /
+gp_tsq_dense; before it, the FMA pair) and the wrapper call itself
+("call"); the W^T W half alone (gp_wtw_mma on a bf16 W of 262,144 x 128;
+"-" in a tree without it); the FMA pair the pass replaced (gp_right_*
+rounding W to bf16, then gp_wtw split-K with f32 atomics; the f32 mode's
+kernels); and `torch.linalg.multi_dot([B^T, A^T, A, B])` on A and B
+already standardized and rounded to bf16.  Its check holds the pass to
+a float64 W^T W over the pass's own W (`tsq_reference`): the tensor-core
+right product's, or in a tree without the tsq entry (before the
+tensor-core pass) the FMA right loop's.  Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -73,17 +88,20 @@ NAMES = {
     ("gram", "dense"): "fused_gram_apply",
     ("q8right", "packed"): "right_apply_2d_q8",
     ("q8right", "dense"): "right_apply_2d_q8_i8",
+    ("tsq", "packed"): "fused_tsq_packed",
+    ("tsq", "dense"): "fused_tsq",
 }
 CHECKS = {
     "left": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
     "right": ((40, 256, 10), (300, 2100, 130), (4096, 1024, 128)),
     "gram": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
     "q8right": ((40, 256, 10), (300, 2100, 130), (2000, 4096, 128)),
+    "tsq": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
 }
 LAYOUTS = ("packed", "dense")
 # The products each printed line times (the gram line also its halves).
 LINES = {"left": ("left",), "right": ("right",), "gram": ("gram", "right", "left"),
-         "q8right": ("q8right",)}
+         "q8right": ("q8right",), "tsq": ("tsq",)}
 
 
 def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
@@ -95,7 +113,8 @@ def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
     entry of W at a rounding tie may land one bf16 ulp apart: it is held
     to the plain left product of the right product's W rounded as the
     pass rounds it (`gram_reference`), whose own right half is held to
-    plain."""
+    plain; the tsq pass likewise to a float64 W^T W of that W
+    (`tsq_reference`)."""
     rng = np.random.default_rng(seed)
     if product == "q8right":
         return q8right_agrees(layout, d, n, ell, device, rng)
@@ -114,13 +133,18 @@ def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
     name = NAMES[product, layout]
     kernel = getattr(tk, name)
     got, again = kernel(*args), kernel(*args)
-    w_err = 0.0
+    w_err, fma = 0.0, False
     if product == "gram":
         ref, w_err, _ = gram_reference(*args)
+    elif product == "tsq":
+        # Before the tensor-core pass: the FMA pair, whose W^T W adds with f32
+        # atomics, so its bits may change from launch to launch.
+        fma = "gp_tsq_packed" not in build.SIGNATURES and device.type == "cuda"
+        ref, w_err, _, _ = tsq_reference(*args, fma=fma)
     else:
         ref = tk.PLAIN[name](*args, "bf16")
-    err = float((got - ref).abs().max()) / float(ref.abs().max())
-    return max(err, w_err) <= 1e-5 and bool(torch.equal(got, again))
+    err = float((got.double() - ref).abs().max()) / float(ref.abs().max())
+    return max(err, w_err) <= 1e-5 and (fma or bool(torch.equal(got, again)))
 
 
 def q8right_agrees(layout: str, d: int, n: int, ell: int, device, rng) -> bool:
@@ -137,22 +161,56 @@ def q8right_agrees(layout: str, d: int, n: int, ell: int, device, rng) -> bool:
     return bool(torch.equal(got, ref)) and bool(torch.equal(got, again))
 
 
-def gram_reference(geno, mean, inv_std, b):
-    """The bf16 gram pass's reference on the inputs of a call: (the plain
-    left product of W = bf16(A B) with the right product's f32 W from its
-    tensor-core kernel (the gram pass's own sum order and plan, so that
-    its bf16 W is this W rounded once), that W's error against the plain
-    right product relative to max|plain|, the W entries whose bf16
-    rounding differs from the plain W's).  On the CPU both are the plain
-    versions."""
-    right = (tk.fused_right_apply_2d_packed if geno.dtype == torch.uint8
-             else tk.fused_right_apply_2d)
+def pass_w(geno, mean, inv_std, b, fma: bool = False):
+    """The W of the bf16 gram and tsq passes on the inputs of a call: (the
+    right product's f32 W from its tensor-core kernel - the passes' own
+    sum order and plan, so that their bf16 W is this W rounded once; with
+    `fma` from the FMA right loop, kernel 4 / 11, which a tree's tsq pass
+    rounded before the tensor-core pass -, that W's error against the
+    plain right product relative to max|plain|, the plain W rounded to
+    bf16, the differences of the W entries whose bf16 rounding differs
+    from the plain W's).  On the CPU both W are the plain version's."""
+    packed = geno.dtype == torch.uint8
+    right = ((tk.fused_right_apply_packed if packed else tk.fused_right_apply) if fma
+             else tk.fused_right_apply_2d_packed if packed else tk.fused_right_apply_2d)
     w, w_plain = right(geno, mean, inv_std, b), tk.fused_right_apply_packed_plain(
         geno, mean, inv_std, b)
     w_err = float((w - w_plain).abs().max()) / float(w_plain.abs().max())
-    ties = tk._round_bf16(w) - tk._round_bf16(w_plain)
+    w_plain = tk._round_bf16(w_plain)
+    return w, w_err, w_plain, tk._round_bf16(w) - w_plain
+
+
+def gram_reference(geno, mean, inv_std, b):
+    """The bf16 gram pass's reference on the inputs of a call: (the plain
+    left product of the pass's W rounded to bf16, W's error against the
+    plain right product, the W ties; see `pass_w`)."""
+    w, w_err, _, ties = pass_w(geno, mean, inv_std, b)
     ref = tk.fused_left_apply_2d_packed_plain(geno, mean, inv_std, tk._round_bf16(w))
     return ref, w_err, ties
+
+
+def tsq_reference(geno, mean, inv_std, b, fma: bool = False):
+    """The bf16 tsq pass's reference on the inputs of a call: (the float64
+    W^T W of the pass's W rounded to bf16, W's error against the plain
+    right product, the W ties (see `pass_w`), and entry by entry |dW|^T
+    |W| + |W|^T |dW|, |W| the larger of the two bf16 W: how far the pass
+    may lie from the plain tsq through W's ties)."""
+    w, w_err, w_plain, ties = pass_w(geno, mean, inv_std, b, fma)
+    wb = tk._round_bf16(w).double()
+    aw, dw = torch.maximum(wb.abs(), w_plain.double().abs()), ties.double().abs()
+    return wb.T @ wb, w_err, ties, dw.T @ aw + aw.T @ dw
+
+
+def operands(layout: str, d: int, n: int, ell: int = 128) -> tuple:
+    """(genotypes, mean, inv_std, b) of a product at D x N on the card:
+    random bytes (the time does not depend on the genotypes)."""
+    dev = torch.device("cuda")
+    if layout == "packed":
+        g = torch.randint(0, 256, (d, n // 4), device=dev, dtype=torch.uint8)
+    else:
+        g = torch.randint(0, 3, (d, n), device=dev, dtype=torch.int8)
+    return (g, torch.rand((d, 1), device=dev), torch.rand((d, 1), device=dev) + 0.5,
+            torch.randn((n, ell), device=dev) / n ** 0.5)
 
 
 def launch_ms(product: str, layout: str, d: int, n: int, reps: int,
@@ -162,13 +220,8 @@ def launch_ms(product: str, layout: str, d: int, n: int, reps: int,
     product's f32 FMA loop in bf16 mode, or the gram pass's FMA pair."""
     if fma and product == "gram":
         return fma_gram_ms(layout, d, n, reps, ell)
-    dev = torch.device("cuda")
-    cols = n // 4 if layout == "packed" else n
-    g = torch.randint(0, 256, (d, cols), device=dev, dtype=torch.uint8)
-    if layout == "dense":
-        g = (g % 3).to(torch.int8)
-    mean = torch.rand((d, 1), device=dev)
-    inv = torch.rand((d, 1), device=dev) + 0.5
+    g, mean, inv, _ = operands(layout, d, n, ell)
+    dev = g.device
     stream = torch.cuda.current_stream().cuda_stream
     lib = build.lib()
     sms = tk._sms(dev)
@@ -224,10 +277,10 @@ def mean_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def captured_launch(fn, *args) -> tuple:
-    """(C entry, its arguments) of the one C call `fn(*args)` makes through
-    `kernels._launch`; the tensors among the arguments stay alive with the
-    tuple."""
+def captured_launches(fn, *args) -> list:
+    """[(C entry, its arguments)] of the C calls `fn(*args)` makes through
+    `kernels._launch`, in order; the tensors among the arguments stay
+    alive with the list."""
     seen, real = [], tk._launch
 
     def spy(device, entry, *call):
@@ -239,32 +292,87 @@ def captured_launch(fn, *args) -> tuple:
         fn(*args)
     finally:
         tk._launch = real
-    (entry, call), = seen
-    return entry, call
+    return seen
+
+
+def replay_ms(calls, reps: int, label: str) -> float:
+    """Mean ms of `reps` back-to-back replays of the C calls `calls` (as
+    `captured_launches` gives them)."""
+    lib = build.lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    fns = [(getattr(lib, entry), [a.data_ptr() if torch.is_tensor(a) else a
+                                  for a in (*args, stream)]) for entry, args in calls]
+
+    def once():
+        for fn, ptrs in fns:
+            if fn(*ptrs) != 0:
+                raise RuntimeError(f"{label} refused the launch")
+
+    return mean_ms(once, reps)
 
 
 def q8right_ms(layout: str, d: int, n: int, reps: int, call: bool) -> float:
     """Mean ms of `reps` back-to-back q8 right products G0 bq (L = 128):
     the C call the wrapper makes, replayed with the arguments it passed,
     or (`call`) the wrapper itself."""
-    dev = torch.device("cuda")
-    if layout == "packed":
-        g = torch.randint(0, 256, (d, n // 4), device=dev, dtype=torch.uint8)
-    else:
-        g = torch.randint(0, 3, (d, n), device=dev, dtype=torch.int8)
-    bq = torch.randint(-127, 128, (n, 128), device=dev, dtype=torch.int8)
+    g = operands(layout, d, n)[0]
+    bq = torch.randint(-127, 128, (n, 128), device=g.device, dtype=torch.int8)
     if call:
         return mean_ms(lambda: tk.right_apply_2d_q8(g, bq), reps)
-    entry, args = captured_launch(tk.right_apply_2d_q8, g, bq)
-    fn = getattr(build.lib(), entry)
-    ptrs = [a.data_ptr() if torch.is_tensor(a) else a for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
+    return replay_ms(captured_launches(tk.right_apply_2d_q8, g, bq), reps,
+                     f"q8right {layout}")
 
-    def once():
-        if fn(*ptrs, stream) != 0:
-            raise RuntimeError(f"q8right {layout} refused the launch")
 
-    return mean_ms(once, reps)
+def tsq_ms(layout: str, d: int, n: int, reps: int, call: bool) -> float:
+    """Mean ms of `reps` back-to-back bf16 tsq passes (L = 128): the C
+    calls a wrapper call makes, replayed with the arguments it passed, or
+    (`call`) the wrapper itself."""
+    args = operands(layout, d, n)
+    fn = tk.fused_tsq_packed if layout == "packed" else tk.fused_tsq
+    if call:
+        return mean_ms(lambda: fn(*args), reps)
+    return replay_ms(captured_launches(fn, *args), reps, f"tsq {layout}")
+
+
+def wtw_ms(d: int, reps: int, ell: int = 128):
+    """Mean ms of `reps` back-to-back W^T W halves of the tsq pass
+    (gp_wtw_mma, with its row slab) on a bf16 W (D, ell); None in a tree
+    without it."""
+    if "gp_wtw_mma" not in build.SIGNATURES:
+        return None
+    dev = torch.device("cuda")
+    sms = tk._sms(dev)
+    w = torch.randn((d, ell), device=dev).to(torch.bfloat16)
+    out = torch.empty((ell, ell), device=dev)
+    ranges = tk.tsq_plan(d, 1, 1, ell, sms)[1][2]
+    slab = torch.empty((ranges, ell, ell), device=dev) if ranges > 1 else None
+    return replay_ms([("gp_wtw_mma", (w, out, slab, d, ell, ell, sms))], reps, "wtw")
+
+
+def fma_tsq_ms(layout: str, d: int, n: int, reps: int, ell: int = 128) -> float:
+    """Mean ms of `reps` back-to-back bf16 tsq passes through the FMA pair
+    the tensor-core pass replaced: gp_right_* rounding W to bf16 (f32
+    storage), then gp_wtw split-K, as the pass's wrapper launched them."""
+    g, mean, inv, b = operands(layout, d, n, ell)
+    dev = g.device
+    w = torch.empty((d, ell), device=dev)
+    out = torch.zeros((ell, ell), device=dev)
+    splits, rows = tk._split(dev, (-(-ell // 64)) ** 2, -(-d // 16), 16)
+    return replay_ms([(tk._ENTRY[g.dtype]["right"], (g, mean, inv, b, w, d, n // 4,
+                                                      ell, 1, 1)),
+                      ("gp_wtw", (w, out, d, ell, splits, rows))], reps,
+                     f"tsq {layout}: the FMA pair")
+
+
+def multi_dot_ms(layout: str, d: int, n: int, reps: int) -> float:
+    """Mean ms of `torch.linalg.multi_dot([B^T, A^T, A, B])` at D x N, L =
+    128, on A and B already standardized and rounded to bf16.  A
+    yardstick only: the port never calls it."""
+    g, mean, inv, b = operands(layout, d, n)
+    a = tk.standardize(g, mean, inv, "bf16").to(torch.bfloat16)
+    b = b.to(torch.bfloat16)
+    at, bt = a.t(), b.t()
+    return mean_ms(lambda: torch.linalg.multi_dot([bt, at, a, b]), reps)
 
 
 def int_mm_ms(d: int, n: int, reps: int) -> float:
@@ -282,14 +390,8 @@ def fma_gram_ms(layout: str, d: int, n: int, reps: int, ell: int = 128) -> float
     the tensor-core pass replaced: gp_right_* rounding W to bf16 (f32
     storage), then gp_left_* split-K into a zeroed output, as the pass's
     wrapper launched them."""
-    dev = torch.device("cuda")
-    cols = n // 4 if layout == "packed" else n
-    g = torch.randint(0, 256, (d, cols), device=dev, dtype=torch.uint8)
-    if layout == "dense":
-        g = (g % 3).to(torch.int8)
-    mean = torch.rand((d, 1), device=dev)
-    inv = torch.rand((d, 1), device=dev) + 0.5
-    b = torch.randn((n, ell), device=dev)
+    g, mean, inv, b = operands(layout, d, n, ell)
+    dev = g.device
     w = torch.empty((d, ell), device=dev)
     out = torch.zeros((n, ell), device=dev)
     stream = torch.cuda.current_stream().cuda_stream
@@ -356,6 +458,15 @@ def main(argv=None) -> int:
               f"thin {each_q8(2_048, 11_264, 200)} "
               f"int_mm {int_mm_ms(65_536, 16_384, 20):.4f} "
               f"thin int_mm {int_mm_ms(2_048, 11_264, 200):.4f}", flush=True)
+    if "tsq" in a.lines:
+        d, n = 262_144, 2_048
+        calls = " ".join(f"{lay} {tsq_ms(lay, d, n, 20, False):.4f} call "
+                         f"{tsq_ms(lay, d, n, 20, True):.4f}" for lay in LAYOUTS)
+        wtw = wtw_ms(d, 20)
+        fma = " ".join(f"{lay} {fma_tsq_ms(lay, d, n, 5):.4f}" for lay in LAYOUTS)
+        dots = " ".join(f"{lay} {multi_dot_ms(lay, d, n, 20):.4f}" for lay in LAYOUTS)
+        print(f"[{a.tag}] tsq {calls} wtw {'-' if wtw is None else f'{wtw:.4f}'} "
+              f"fma {fma} multi_dot {dots}", flush=True)
     return 0
 
 

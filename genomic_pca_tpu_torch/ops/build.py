@@ -40,12 +40,17 @@ SIGNATURES = {
     "gp_right2d_plan": [_I, _I, _I, _I, _P],
     "gp_q8_right2d_plan": [_I, _I, _I, _I, _P],
     "gp_gram_plan": [_I, _I, _I, _I, _I, _P],
+    "gp_tsq_plan": [_I, _I, _I, _I, _I, _P],
+    "gp_wtw_plan": [_I, _I, _I, _P],
     "gp_right2d_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_right2d_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_right2d_w_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gp_right2d_w_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gp_gram_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_gram_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gp_tsq_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gp_tsq_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gp_wtw_mma": [_P, _P, _P, _I, _I, _I, _I, _P],
     "gp_right_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_wtw": [_P, _P, _I, _I, _I, _I, _P],

@@ -238,12 +238,12 @@ fused_right_apply_plain = fused_right_apply_packed_plain
 # C entry points of each pass, by genotype layout.
 _ENTRY = {
     torch.uint8: {"right": "gp_right_packed", "left": "gp_left_packed",
-                  "gram": "gp_gram_packed",
+                  "gram": "gp_gram_packed", "tsq": "gp_tsq_packed",
                   "q8_w": "gp_q8_w", "q8_left": "gp_q8_left",
                   "left2d": "gp_left2d_packed", "right2d": "gp_right2d_packed",
                   "q8_right2d": "gp_q8_right2d", "q8_left2d": "gp_q8_left2d"},
     torch.int8: {"right": "gp_right_dense", "left": "gp_left_dense",
-                 "gram": "gp_gram_dense",
+                 "gram": "gp_gram_dense", "tsq": "gp_tsq_dense",
                  "q8_w": "gp_q8_w_dense", "q8_left": "gp_q8_left_dense",
                  "left2d": "gp_left2d_dense", "right2d": "gp_right2d_dense",
                  "q8_right2d": "gp_q8_right2d_dense", "q8_left2d": "gp_q8_left2d_dense"},
@@ -371,12 +371,28 @@ def _launch_gram(geno, mean, inv_std, b, bf16: bool):
 
 
 def _launch_tsq(geno, mean, inv_std, b, bf16: bool):
-    """W = A B (rounded to bf16 in bf16 mode), then W^T W split-K."""
-    d, ell = geno.shape[0], b.shape[1]
-    w = _launch_right(geno, mean, inv_std, b, bf16, bf16)
-    out = torch.zeros((ell, ell), dtype=torch.float32, device=geno.device)
-    splits, rows = _split(geno.device, (-(-ell // 64)) ** 2, -(-d // 16), 16)
-    _launch(geno.device, "gp_wtw", w, out, d, ell, splits, rows)
+    """W^T W, W = A B rounded to bf16 in bf16 mode.  bf16: one call of the
+    tsq entry (gp_tsq_packed / gp_tsq_dense: the gram pass's tensor-core
+    right product storing W as bf16, then W^T W on the tensor cores), with
+    one workspace of the size `tsq_plan` reports.  f32 ("HIGHEST" in the
+    reference): the f32 FMA right loop, then W^T W split-K with f32
+    atomics (gp_wtw) - a dispatch on the precision, not a fallback."""
+    d, n, ell, dev = geno.shape[0], _samples(geno), b.shape[1], geno.device
+    if not bf16:
+        w = _launch_right(geno, mean, inv_std, b, False, False)
+        out = torch.zeros((ell, ell), dtype=torch.float32, device=dev)
+        splits, rows = _split(dev, (-(-ell // 64)) ** 2, -(-d // 16), 16)
+        _launch(dev, "gp_wtw", w, out, d, ell, splits, rows)
+        return out
+    if not (d and n and ell):
+        return torch.zeros((ell, ell), dtype=torch.float32, device=dev)
+    geno, mean, inv_std, b = _mma_operands(geno, mean, inv_std, b)
+    groups, sms = _samples(geno) // 4, _sms(dev)
+    work = torch.empty(tsq_plan(d, groups, n, ell, sms)[2], dtype=torch.uint8,
+                       device=dev)
+    out = torch.empty((ell, ell), dtype=torch.float32, device=dev)
+    _launch(dev, _ENTRY[geno.dtype]["tsq"], geno, mean, inv_std, b, out, work, d,
+            groups, n, ell, b.shape[1], sms)
     return out
 
 
@@ -463,9 +479,18 @@ def fused_gram_apply_packed(packed, mean, inv_std, b, precision="bf16"):
 
 
 # fused_tsq_packed replaces pallas_kernels.py fused_tsq_packed (:564,
-# pallas_call :580).  W = A B as in the gram pass (rounded to bf16 in
-# bf16 mode), then W^T W with split-K f32 atomics: 2*D*N*L + 2*D*L*L
-# operations, FMA bound.
+# pallas_call :580; body _tsq_packed_kernel :472), the Rayleigh-Ritz Gram
+# of the resident 1-D core.  In bf16 mode one C call (gp_tsq_packed,
+# csrc/gram.cuh): W = A B by right2d_mma_kernel with the gram pass's plan,
+# stored as bf16 (each f32 total rounded once, as the reference rounds
+# wc = w.astype(bf16)), then W^T W by wtw_mma_kernel (csrc/wtw_kernels.cu):
+# one block per 128 x 128 output tile and range of whole 1,024-row folds
+# (`tsq_plan`: 128 ranges at 262,144 x 128 on 132 SMs), the ranges' slab
+# added in a fixed order.  No atomics: the same bits every call.  Bound on
+# an H100 by the bf16 tensor-core rate: 2*D*N*L + 2*D*L*L operations,
+# 0.148 ms at 262,144 x 2,048 x 128 (W^T W alone by W's 64 MiB: 20 us).
+# f32 mode keeps the f32 FMA loops (right_kernel, then wtw_kernel split-K
+# with f32 atomics).
 
 
 def fused_tsq_packed(packed, mean, inv_std, b, precision="bf16"):
@@ -503,10 +528,12 @@ def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
 
 # ---------------------------------------------------------------------------
 # The four kernels of the dense int8 1-D mode (csrc/dense_kernels.cu): the
-# packed kernels' main loops with a loader that reads one aligned 32-bit
-# word of four int8 samples per thread where the packed one reads a byte.
-# Each pass reads D*N bytes, four times the packed bytes, and stays bound
-# by the FMA / dp4a issue rate (2*D*N*L operations per product).
+# packed kernels' designs with a loader that reads one aligned 32-bit word
+# of four int8 samples per thread where the packed one reads a byte.  Each
+# pass reads D*N bytes, four times the packed bytes; the right product and
+# the q8 pass stay bound by the FMA / dp4a issue rate (2*D*N*L operations
+# per product), the gram and tsq passes run on the tensor cores in bf16
+# mode.
 #
 # fused_right_apply replaces pallas_kernels.py fused_right_apply (:181,
 # pallas_call :197; body _right_kernel :112): one block per 64 x 64
@@ -545,8 +572,11 @@ def fused_gram_apply(geno, mean, inv_std, b, precision="bf16"):
 
 
 # fused_tsq replaces pallas_kernels.py fused_tsq (:215, pallas_call :231;
-# body _tsq_kernel :120): W = A B rounded to bf16 in bf16 mode, then
-# W^T W split-K (gp_wtw).  FMA bound.
+# body _tsq_kernel :120): in bf16 mode the packed pass's design over int8
+# rows (gp_tsq_dense): W = A B by right2d_mma_kernel<DenseRows> stored as
+# bf16, then W^T W by wtw_mma_kernel.  Bound on an H100 by its 512 MiB of
+# int8 at 262,144 x 2,048 (0.16 ms; the operations take 0.148 ms).  f32
+# mode keeps the f32 FMA loops.
 
 
 def fused_tsq(geno, mean, inv_std, b, precision="bf16"):
@@ -676,6 +706,20 @@ def gram_plan(d: int, groups: int, n: int, ell: int, sms: int = None) -> tuple:
     product's grid counts its output tiles; with one sample range a
     persistent grid of at most one block an SM walks them."""
     p = _library_plan("gp_gram_plan", 11, ctypes.c_longlong, d, groups, n, ell,
+                      _current_sms(sms))
+    return ((p[0], p[1]), (p[2], p[3]), p[4]), ((p[5], p[6]), (p[7], p[8]), p[9]), p[10]
+
+
+def tsq_plan(d: int, groups: int, n: int, ell: int, sms: int = None) -> tuple:
+    """The plans of the bf16 tsq pass (gp_tsq_packed / gp_tsq_dense) over
+    `d` rows of `groups` groups of four samples, `n` samples of B and `ell`
+    columns on `sms` SMs: ((tile, grid, sample splits) of its right
+    product - the gram pass's, see `gram_plan` -, (tile, grid, row ranges)
+    of W^T W, workspace bytes), read from the built library
+    (`gp_tsq_plan`).  W^T W's tile is 128 x 128 of the (L, L) output; its
+    rows split into ranges of whole 1,024-row folds, each a partial (L, L)
+    slab added in a fixed order."""
+    p = _library_plan("gp_tsq_plan", 11, ctypes.c_longlong, d, groups, n, ell,
                       _current_sms(sms))
     return ((p[0], p[1]), (p[2], p[3]), p[4]), ((p[5], p[6]), (p[7], p[8]), p[9]), p[10]
 

@@ -40,17 +40,42 @@ def _on(device, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
 
 
+# The C entries one tsq call makes: in bf16 mode the one tensor-core call,
+# in f32 mode the FMA right loop and W^T W split-K.
+TSQ_ENTRIES = {
+    "packed": {"bf16": ["gp_tsq_packed"], "f32": ["gp_right_packed", "gp_wtw"]},
+    "dense": {"bf16": ["gp_tsq_dense"], "f32": ["gp_right_dense", "gp_wtw"]},
+}
+
+
+def _spy_entries(monkeypatch) -> list:
+    """The names of the C entries `kernels._launch` calls from now on."""
+    seen, real = [], tk._launch
+
+    def spy(device, entry, *args):
+        seen.append(entry)
+        real(device, entry, *args)
+
+    monkeypatch.setattr(tk, "_launch", spy)
+    return seen
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
 @pytest.mark.parametrize("name", [
     "fused_gram_apply_packed", "fused_right_apply_packed", "fused_tsq_packed",
 ])
-def test_exact_kernel_matches_plain(cuda_device, name, precision):
+def test_exact_kernel_matches_plain(cuda_device, monkeypatch, name, precision):
+    """Kernels 2-4 against their plain versions; the tsq pass makes one C
+    call in bf16 mode and keeps the FMA pair (gp_wtw) in f32 mode."""
     packed, mu, inv, b = _on(cuda_device, *exact_case(np.random.default_rng(1)))
+    entries = _spy_entries(monkeypatch)
     tk.reset_launch_counts()
     got = getattr(tk, name)(packed, mu, inv, b, precision=precision)
     torch.cuda.synchronize()
     assert tk.LAUNCHES[name] == 1
+    if name == "fused_tsq_packed":
+        assert entries == TSQ_ENTRIES["packed"][precision]
     ref = tk.PLAIN[name](packed, mu, inv, b, precision)
     rtol, atol = TOL[precision]
     if name == "fused_tsq_packed" and precision == "bf16":
@@ -300,6 +325,74 @@ def test_gram_1d_kernel_matches_plain_and_repeats(cuda_device, layout, ell, d, n
 
 
 @pytest.mark.cuda
+def test_tsq_1d_plan_splits_rows(cuda_device):
+    """The plans of the bf16 tsq pass (kernels 3 and 12) on 132 SMs: its
+    right product is the gram pass's (the same W), and W^T W takes one
+    128 x 128 tile at L <= 128 (2 x 2 at L = 130) and splits the rows into
+    min(SMs / tiles, folds) ranges of whole 1,024-row folds: 128 ranges of
+    2 folds at the 1-D main shape 262,144 x 2,048, L = 128.  The
+    workspace is W in bf16, then the larger slab: the right product's
+    sample ranges or W^T W's row ranges."""
+    right, wtw, work = tk.tsq_plan(262_144, 512, 2_048, 128, 132)
+    assert right == tk.gram_plan(262_144, 512, 2_048, 128, 132)[0]
+    assert right == ((128, 128), (2_048, 1), 1)
+    assert wtw == ((128, 128), (1, 1), 128)
+    assert work == 262_144 * 128 * 2 + 128 * 128 * 128 * 4
+    right, wtw, work = tk.tsq_plan(2_048, 512, 2_048, 128, 132)
+    assert right == ((128, 128), (16, 1), 2)
+    assert wtw == ((128, 128), (1, 1), 2)
+    assert work == 2_048 * 128 * 2 + max(2 * 2_048 * 128, 2 * 128 * 128) * 4
+    right, wtw, work = tk.tsq_plan(5_000, 128, 512, 130, 132)
+    assert right == ((128, 128), (40, 2), 1)
+    assert wtw == ((128, 128), (2, 2), 5)
+    assert work == -(-5_000 * 136 * 2 // 256) * 256 + 5 * 130 * 130 * 4
+    assert tk.tsq_plan(1_000, 64, 256, 10, 132)[1] == ((128, 128), (1, 1), 1)
+    assert tk.tsq_plan(1_000, 64, 256, 10, 132)[2] == -(-1_000 * 16 * 2 // 256) * 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(2100, None), (5000, 512), (2048, 2048)])
+@pytest.mark.parametrize("ell", [10, 130])
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_tsq_1d_kernel_matches_plain_and_repeats(cuda_device, monkeypatch, layout,
+                                                 ell, d, n):
+    """Kernels 3 (packed) and 12 (dense) in bf16 mode: one C call, the gram
+    pass's W store then W^T W on the tensor cores.  Two launches bit for
+    bit (no atomics); the right half's f32 W (kernel 5 / 13: the same
+    kernel and plan) within 1e-5 of the plain right product; the W^T W
+    half within 1e-5 of max|G| of a float64 W^T W over that W rounded to
+    bf16 (so W is rounded once and its pad is inert); and the pass within
+    1e-5 of max|plain| of the plain tsq plus, entry by entry, |dW|^T |W| +
+    |W|^T |dW|, dW the bf16 W entries that round one ulp apart from the
+    plain W's (ties: the f32 sums run in another order).  Ragged D past a
+    fold with 250 packed / 252 dense samples (W^T W's rows in 3 ranges),
+    5,000 x 512 (5 ranges), and a streamed 1-D strip of 2,048 x 2,048 (2
+    sample ranges, 2 row ranges); L = 10 and 130 (a padded W, 2 x 2 output
+    tiles); 5% missing, an inert row, odd dense dosages."""
+    from genomic_pca_tpu_torch.eval.mma2d_ab import tsq_reference
+
+    rng = np.random.default_rng(9500 + d + ell)
+    n = n or (250 if layout == "packed" else 252)
+    geno, mu, inv = _mma_case(rng, layout, d, n)
+    b = (rng.standard_normal((4 * -(-n // 4), ell)) / np.sqrt(n)).astype(np.float32)
+    name = "fused_tsq_packed" if layout == "packed" else "fused_tsq"
+    args = _on(cuda_device, geno, mu, inv, b)
+    groups = tk._samples(tk.aligned_rows(args[0])) // 4
+    right, wtw, _ = tk.tsq_plan(d, groups, b.shape[0], ell)
+    assert (right[2], wtw[2]) == {2100: (1, 3), 5000: (1, 5), 2048: (2, 2)}[d]
+    assert wtw[1] == ((1, 1) if ell <= 128 else (2, 2))
+    entries = _spy_entries(monkeypatch)
+    got, plain = _launch_twice(name, args, "bf16")
+    assert entries == TSQ_ENTRIES[layout]["bf16"] * 2
+    assert got.shape == plain.shape == (ell, ell)
+    ref, w_err, ties, allow = tsq_reference(*args)
+    assert w_err <= 1e-5, w_err
+    assert float((got.double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert bool(((got - plain).abs().double()
+                 <= 1e-5 * float(plain.abs().max()) + allow).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d,n,tile_d", [(300, 250, 64), (2048, 512, 1024)])
 def test_wide_q8_kernels_match_plain_and_quant_model(cuda_device, d, n, tile_d):
     """Kernel 7 bit for bit (exact integer sums); kernel 8 to 1e-5 (f32
@@ -455,17 +548,21 @@ def test_pca_core_2d_on_cuda_matches_cpu(cuda_device):
 @pytest.mark.parametrize("name", [
     "fused_gram_apply", "fused_right_apply", "fused_tsq",
 ])
-def test_dense_exact_kernel_matches_plain(cuda_device, name, precision):
+def test_dense_exact_kernel_matches_plain(cuda_device, monkeypatch, name, precision):
     """5% missing (-127) and an inert row; 512 SNPs x 256 samples.  In
     bf16 a W entry whose f32 sum lands on a rounding boundary rounds one
     bf16 ulp the other way and moves the gram entries of its row by
     |x| * 2^-8 |W|: on an H100 2 of 32,768 entries by 5.8e-3, so gram and
-    tsq take the reference test's tsq bar."""
+    tsq take the reference test's tsq bar.  The tsq pass makes one C call
+    in bf16 mode and keeps the FMA pair (gp_wtw) in f32 mode."""
     geno, mu, inv, b = _on(cuda_device, *dense_case(np.random.default_rng(7)))
+    entries = _spy_entries(monkeypatch)
     tk.reset_launch_counts()
     got = getattr(tk, name)(geno, mu, inv, b, precision=precision)
     torch.cuda.synchronize()
     assert tk.LAUNCHES == dict(ZERO, **{name: 1})
+    if name == "fused_tsq":
+        assert entries == TSQ_ENTRIES["dense"][precision]
     ref = tk.PLAIN[name](geno, mu, inv, b, precision)
     rtol, atol = TOL[precision]
     if name != "fused_right_apply" and precision == "bf16":
