@@ -12,7 +12,10 @@ no result line):
    version; the gram pass (kernel 2, on the tensor cores in bf16 mode)
    also at 2,048 x 2,048 (a streamed 1-D strip, whose plans split both
    products), each time with its plans and a bit-identical second launch;
-   the gram and tsq passes (kernels 2 and 3) held half by half;
+   the gram and tsq passes (kernels 2 and 3) held half by half; the right
+   product (kernel 4: the narrow kernel at L <= 16, else the 2-D right
+   product's f32 store, which must equal kernel 5 bit for bit) also on
+   that strip at L = 10 and L = 128;
 4. the four 2-D (wide-sample) kernels the same way at 65,536 x 16,384,
    L = 128, and at 70,001 x 16,389; kernels 5, 6 and 7 at 2,048 x 11,264
    (a streamed strip at the 2-D switch width: their thinnest grids), 5
@@ -42,7 +45,8 @@ no result line):
    262,144 x 2,048 (L = 128; 10 for the right product) and at 70,001 x
    2,504 (container width 2,560), the exact three (10-12) at 65,536 x
    10,000 (container width 10,112), the width of phase 11, and the gram
-   pass (kernel 10) at 2,048 x 2,048, as kernel 2 in phase 3;
+   pass (kernel 10) and the right product (kernel 11, L = 10 and 128) at
+   2,048 x 2,048, as kernels 2 and 4 in phase 3;
 10. the dense main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
    on the genotypes of phase 5 unpacked to int8 on the card: launch
    counts 3 / 1 / 1 / 1 for kernels 9 / 10 / 12 / 11 and none of 1-8, the
@@ -150,7 +154,7 @@ SOURCES = {
     "fused_gram_q8_packed": (CSRC + "q8_kernels.cu", PK + "977"),
     "fused_gram_apply_packed": (CSRC + "exact_kernels.cu", PK + "492"),
     "fused_tsq_packed": (CSRC + "exact_kernels.cu", PK + "564"),
-    "fused_right_apply_packed": (CSRC + "exact_kernels.cu", PK + "529"),
+    "fused_right_apply_packed": (CSRC + "right1d_kernels.cu", PK + "529"),
     "fused_right_apply_2d_packed": (CSRC + "right2d_kernels.cu", PK + "675"),
     "fused_left_apply_2d_packed": (CSRC + "wide_kernels.cu", PK + "723"),
     "right_apply_2d_q8": (CSRC + "q8_right2d_kernels.cu", PK + "1096"),
@@ -158,7 +162,7 @@ SOURCES = {
     "fused_gram_q8": (CSRC + "dense_kernels.cu", PK + "847"),
     "fused_gram_apply": (CSRC + "dense_kernels.cu", PK + "144"),
     "fused_tsq": (CSRC + "dense_kernels.cu", PK + "215"),
-    "fused_right_apply": (CSRC + "dense_kernels.cu", PK + "181"),
+    "fused_right_apply": (CSRC + "right1d_kernels.cu", PK + "181"),
     "fused_right_apply_2d": (CSRC + "right2d_kernels.cu", PK + "296"),
     "fused_left_apply_2d": (CSRC + "wide_kernels.cu", PK + "346"),
     "right_apply_2d_q8_i8": (CSRC + "q8_right2d_kernels.cu", PK + "1096"),
@@ -174,7 +178,9 @@ RIGHT_MMA = ("fused_right_apply_2d_packed", "fused_right_apply_2d")
 GRAM_MMA = ("fused_gram_apply_packed", "fused_gram_apply")  # bf16 mode
 Q8_RIGHT_MMA = ("right_apply_2d_q8", "right_apply_2d_q8_i8")
 TSQ_MMA = ("fused_tsq_packed", "fused_tsq")  # bf16 mode
-BITWISE_RERUN = LEFT_MMA + RIGHT_MMA + GRAM_MMA + Q8_RIGHT_MMA + TSQ_MMA
+# bf16 mode: the narrow kernel (L <= 16), else the 2-D right product's store.
+RIGHT1D_MMA = ("fused_right_apply_packed", "fused_right_apply")
+BITWISE_RERUN = LEFT_MMA + RIGHT_MMA + GRAM_MMA + Q8_RIGHT_MMA + TSQ_MMA + RIGHT1D_MMA
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
 # device memory rate, and tensor-core rates for the operand type of each
@@ -334,10 +340,10 @@ def median_ms(torch, fn, reps):
     return times[len(times) // 2]
 
 
-def kernel_cases(torch, d, n, seed, device, names, ell=128):
+def kernel_cases(torch, d, n, seed, device, names, ell=128, right1d_ell=10):
     """Inputs for each kernel of `names` at one shape: {name: (args,
-    kwargs)}; `ell` the columns of B of the 2-D right products (the others
-    take 128, the 1-D right products 10)."""
+    kwargs)}; `ell` the columns of B of the 2-D right products,
+    `right1d_ell` those of the 1-D ones (the others take 128)."""
     from genomic_pca_tpu_torch.ops.kernels import (
         fused_right_apply_2d_packed_plain, quantize_rows,
     )
@@ -377,7 +383,7 @@ def kernel_cases(torch, d, n, seed, device, names, ell=128):
         "fused_gram_apply_packed": lambda: ((packed, mean, inv, b128),
                                             {"precision": "bf16"}),
         "fused_tsq_packed": lambda: ((packed, mean, inv, b128), {"precision": "bf16"}),
-        "fused_right_apply_packed": lambda: ((packed, mean, inv, basis(10)),
+        "fused_right_apply_packed": lambda: ((packed, mean, inv, basis(right1d_ell)),
                                              {"precision": "bf16"}),
         "fused_right_apply_2d_packed": lambda: ((packed, mean, inv, b_right),
                                                 {"precision": "bf16"}),
@@ -392,7 +398,7 @@ def kernel_cases(torch, d, n, seed, device, names, ell=128):
                                   {"tile_d": 1024}),
         "fused_gram_apply": lambda: ((geno, mean, inv, b_d), {"precision": "bf16"}),
         "fused_tsq": lambda: ((geno, mean, inv, b_d), {"precision": "bf16"}),
-        "fused_right_apply": lambda: ((geno, mean, inv, basis(10)[:n_d]),
+        "fused_right_apply": lambda: ((geno, mean, inv, basis(right1d_ell)[:n_d]),
                                       {"precision": "bf16"}),
         "fused_right_apply_2d": lambda: ((geno, mean, inv, b_right[:n_d]),
                                          {"precision": "bf16"}),
@@ -516,16 +522,17 @@ def check_tsq(torch, name, args, got):
 
 
 def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
-                  ties_allowed=False):
+                  ties_allowed=False, right1d_ell=10):
     """Each kernel of `names` against its plain version at D x N (see TOL;
     `ties_allowed`: the gram passes' W ties, see `check_gram`), its plans
     and a second launch's bits where it has them, and CUDA-event times of
-    kernel, plain version and library call."""
+    kernel, plain version and library call.  A 1-D right product wider
+    than the narrow kernel must equal the 2-D one (its route) bit for bit."""
     from genomic_pca_tpu_torch.ops import kernels as tk
 
     results = {}
     for name, (args, kw) in kernel_cases(torch, d, n, seed, device, names,
-                                         ell).items():
+                                         ell, right1d_ell).items():
         kern = getattr(tk, WRAPPER.get(name, name))
         plain = tk.PLAIN[name]
 
@@ -565,6 +572,20 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
                            else "a block each") + f"), the samples "
                         f"in {rs} range(s); W^T W tile {wt}, grid {wg}, the rows in "
                         f"{wr} range(s); workspace {work / 2**20:.2f} MiB")
+            elif name in RIGHT1D_MMA and tk.right1d_route(ell, "bf16") == "narrow":
+                tile, blocks, splits, chunk, work = tk.right_narrow_plan(
+                    d, tk._samples(tk.aligned_rows(args[0])), ell, args[0].dtype)
+                plan = (f"narrow kernel: tile {tile} (rows x columns), {blocks} "
+                        f"blocks, the samples in {splits} range(s) of chunks of "
+                        f"{chunk}; workspace {work / 2**20:.2f} MiB")
+            elif name in RIGHT1D_MMA:
+                wide = getattr(tk, RIGHT_MMA[RIGHT1D_MMA.index(name)])
+                if not torch.equal(got, wide(*args, **kw)):
+                    raise AssertionError(f"{name}: the wide route differs from "
+                                         "the 2-D right product's bits")
+                tile, grid, splits = tk.right2d_plan(d, args[3].shape[0], ell)
+                plan = (f"wide route (the 2-D right product's bits): tile {tile}, "
+                        f"grid {grid}, the samples in {splits} range(s)")
             elif name in Q8_RIGHT_MMA:
                 tile, grid, splits = tk.q8_right2d_plan(
                     d, tk._samples(tk.aligned_rows(args[0])), ell)
@@ -1194,6 +1215,11 @@ def main() -> int:
     # A streamed 1-D strip of the gram pass: both products' plans split.
     check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5,
                   ("fused_gram_apply_packed",), ties_allowed=True)
+    # The streamed strip's right products: the loadings (L = 10, the narrow
+    # kernel's samples split) and the tsq pass's (L = 128, the wide route).
+    for right1d_ell in (10, 128):
+        check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5,
+                      ("fused_right_apply_packed",), right1d_ell=right1d_ell)
 
     # 4. The 2-D kernels at the wide shape and a ragged one; both modes.
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
@@ -1253,6 +1279,9 @@ def main() -> int:
                   ("fused_gram_apply", "fused_tsq", "fused_right_apply"))
     check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5, ("fused_gram_apply",),
                   ties_allowed=True)
+    for right1d_ell in (10, 128):
+        check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5,
+                      ("fused_right_apply",), right1d_ell=right1d_ell)
     torch.cuda.empty_cache()
 
     # 10. The dense main path on the genotypes of the packed one.

@@ -3,7 +3,11 @@
 // container and `transform_device`).  They replace, in
 // genomic_pca_tpu/ops/pallas_kernels.py:
 //
-//   fused_right_apply (:181, pallas_call :197)  -> gp_right_dense
+//   fused_right_apply (:181, pallas_call :197)  -> f32 mode gp_right_dense;
+//                                                  bf16 mode the tensor-core
+//                                                  products of
+//                                                  right1d_kernels.cu (L <= 16)
+//                                                  or right2d_kernels.cu
 //   fused_gram_apply  (:144, pallas_call :160)  -> gp_gram_dense (bf16 mode:
 //                                                  the tensor-core products
 //                                                  of gram.cuh); f32 mode
@@ -32,8 +36,8 @@
 // 1.4e11 at L = 128, about 7 ms at the 21 TFLOP/s the packed right kernel
 // reaches.  So the kernels are bound by the FMA and dp4a issue rates, as
 // the packed ones are, and the 4x bytes cost little.  The gram and tsq
-// passes' bf16 mode runs on the tensor cores (gram.cuh); the loadings
-// product and the q8 pass are later work.
+// passes' bf16 mode runs on the tensor cores (gram.cuh), and so does the
+// right product's (right1d_kernels.cu); the q8 pass is later work.
 //
 // Exact passes: valid = (g != -127); bf16 mode standardises as
 // bf16(bf16(g * bf16(inv)) + bf16(-mean * inv)) (pallas_kernels.py

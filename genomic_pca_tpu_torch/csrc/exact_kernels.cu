@@ -5,8 +5,9 @@
 // instantiated for the PLINK 2-bit layout; W^T W (wtw_kernel) takes no
 // genotypes and also serves the dense tsq pass (dense_kernels.cu).  The
 // contractions over the variant axis split it across block layers with f32
-// atomics.  They serve f32 mode ("HIGHEST" in the reference) and the
-// loadings product fused_right_apply_packed.  In bf16 mode the gram pass
+// atomics.  They serve f32 mode ("HIGHEST" in the reference); in bf16 mode
+// the right product fused_right_apply_packed is right1d_kernels.cu's (L <=
+// 16) or right2d_kernels.cu's, and the gram pass
 // fused_gram_apply_packed (pallas_kernels.py :492, pallas_call :508; body
 // _gram_packed_kernel :447) is gp_gram_packed and the tsq pass
 // fused_tsq_packed (:564, pallas_call :580; body _tsq_packed_kernel :472)

@@ -368,6 +368,63 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// Shared-memory matrix descriptor of an operand without swizzle (layout
+// 0): core matrices of 8 rows x 16 bytes, rows 16 bytes apart; lbo the
+// byte offset between the two core matrices along K, sbo between groups
+// of 8 rows along M or N (the K-major "interleave" layout).
+__device__ __forceinline__ uint64_t desc_plain(uint32_t saddr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// d (64 x 16 f32) = A (64 x 16) B (16 x 16) (+ d when scale_d): A bf16 in
+// registers (the RS form), B bf16 K-major in shared memory.  A fragment
+// of warp w of the warpgroup, lane = 4 r + q: a[0] row 16 w + r, K slots
+// 2q, 2q + 1 (the lower K in the low half), a[1] row + 8 the same slots,
+// a[2] row 16 w + r slots 2q + 8, 2q + 9, a[3] row + 8 those.  The
+// accumulator: d[4j + 2h + e] is row 16 w + r + 8h, column 8j + 2q + e.
+// A register it reads may not be rewritten before the wgmma completes.
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// Keeps registers live, and their reads unmoved, up to this point: an A
+// fragment until the wgmma that reads it is known complete.
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i]) :: "memory");
+}
+
+__device__ __forceinline__ void fence_regs(float (&d)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global memory into shared memory by the bulk copy engine;
+// they count towards the barrier's transaction.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // tot += acc once every MMA in flight has landed in acc.
 __device__ __forceinline__ void fold(float (&acc)[64], float (&tot)[64]) {
   wgmma_wait<0>();
@@ -582,6 +639,40 @@ __device__ __forceinline__ uint2 dense_pairs(RowScale s) {
                     bf16x2_bits(__float2bfloat162_rn(s.sh)));
 }
 
+// The bf16 values of one packed byte (samples 4j..4j+3, codes c_p in bits
+// 2p..2p+1) from its row's packed_values v: (samples 0 and 1, samples 2
+// and 3), each pair one prmt of the 8 bytes {v01, v23} whose selector
+// nibbles are 2 c, 2 c + 1 for each of its two codes.  The codes go one
+// to a byte first, so that one multiply-add makes both selectors.
+__device__ __forceinline__ uint2 packed_byte(uint32_t byte, uint2 v) {
+  uint32_t t = (byte | (byte << 12)) & 0x000F000Fu;  // samples 0-1, 2-3
+  t = (t | (t << 6)) & 0x03030303u;                 // code of sample p in byte p
+  const uint32_t sel = t * 0x22u + 0x10101010u;
+  return make_uint2(__byte_perm(v.x, v.y, sel), __byte_perm(v.x, v.y, sel >> 16));
+}
+
+// The bf16 values of one dense word (int8 samples 4j..4j+3 in bytes 0-3)
+// from its row's dense_pairs p = (scale, shift): (samples 0 and 1,
+// samples 2 and 3).  Any int8 dosage, so arithmetic: four bytes to f32 by
+// the 2^23 magic bias, packed to two bf16x2 words (exact), then a bf16x2
+// multiply and add - two roundings, as the reference's dense tile rounds
+// - and the -127 sentinel masked.
+__device__ __forceinline__ uint2 dense_word(uint32_t w, uint2 p) {
+  const uint32_t u = w ^ 0x80808080u;  // byte + 128, unsigned
+  // bits 0x4B0000xx = 2^23 + xx: minus 2^23 + 128 is the signed dosage.
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.0f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.0f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.0f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.0f;
+  const uint32_t lo = add_bf16x2(mul_bf16x2(bf16x2_bits(__floats2bfloat162_rn(f0, f1)), p.x), p.y);
+  const uint32_t hi = add_bf16x2(mul_bf16x2(bf16x2_bits(__floats2bfloat162_rn(f2, f3)), p.x), p.y);
+  // Bit 7 of each byte of `kept` is set where the byte is not -127;
+  // prmt's sign-replicating selectors spread it over the bf16 lane.
+  const uint32_t x = w ^ 0x81818181u;
+  const uint32_t kept = ((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x;
+  return make_uint2(lo & prmt(kept, 0u, 0x9988u), hi & prmt(kept, 0u, 0xBBAAu));
+}
+
 // Words of codes a row: 16 nibble pairs packed, the two pairs dense.
 template <class Rows>
 constexpr int kCodeWords = Rows::kGroupBytes == 1 ? 16 : 2;
@@ -660,10 +751,7 @@ struct WarpCodes {
 // rows past the matrix have zero codes and give 0.
 //
 //   PackedRows: two code reads a byte.
-//   DenseRows: any int8 dosage, so arithmetic: four bytes to f32 by the
-//     2^23 magic bias, packed to two bf16x2 words (exact), then a bf16x2
-//     multiply and add - two roundings, as the reference's dense tile
-//     rounds - and the -127 sentinel masked.
+//   DenseRows: dense_word.
 template <class Rows, class Codes>
 __device__ __forceinline__ void decode_rows_with(const uint8_t* raw,
                                                  uint8_t* tile, int r0,
@@ -690,24 +778,7 @@ __device__ __forceinline__ void decode_rows_with(const uint8_t* raw,
       out[rr] = make_uint2(codes.nibble(rr, in[rr] & 15), codes.nibble(rr, in[rr] >> 4));
   } else {
 #pragma unroll
-    for (int rr = 0; rr < kWarpRows; ++rr) {
-      const uint2 p = codes.pairs(rr);
-      const uint32_t sc = p.x, sh = p.y;
-      const uint32_t w = in[rr];
-      const uint32_t u = w ^ 0x80808080u;  // byte + 128, unsigned
-      // bits 0x4B0000xx = 2^23 + xx: minus 2^23 + 128 is the signed dosage.
-      const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.0f;
-      const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.0f;
-      const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.0f;
-      const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.0f;
-      const uint32_t lo = add_bf16x2(mul_bf16x2(bf16x2_bits(__floats2bfloat162_rn(f0, f1)), sc), sh);
-      const uint32_t hi = add_bf16x2(mul_bf16x2(bf16x2_bits(__floats2bfloat162_rn(f2, f3)), sc), sh);
-      // Bit 7 of each byte of `kept` is set where the byte is not -127;
-      // prmt's sign-replicating selectors spread it over the bf16 lane.
-      const uint32_t x = w ^ 0x81818181u;
-      const uint32_t kept = ((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x;
-      out[rr] = make_uint2(lo & prmt(kept, 0u, 0x9988u), hi & prmt(kept, 0u, 0xBBAAu));
-    }
+    for (int rr = 0; rr < kWarpRows; ++rr) out[rr] = dense_word(in[rr], codes.pairs(rr));
   }
 #pragma unroll
   for (int rr = 0; rr < kWarpRows; ++rr)

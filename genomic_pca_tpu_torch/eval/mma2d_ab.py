@@ -1,8 +1,9 @@
 """A/B timing of the tensor-core products between source trees, on one
 GPU: the left products A^T W (kernels 6 and 14), the right products A B
 (kernels 5 and 13), the 1-D gram pass A^T bf16(A B) (kernels 2 and 10),
-the q8 right products G0 bq (kernels 7 and 7i) and the 1-D tsq pass
-bf16(A B)^T bf16(A B) (kernels 3 and 12).
+the q8 right products G0 bq (kernels 7 and 7i), the 1-D tsq pass
+bf16(A B)^T bf16(A B) (kernels 3 and 12) and the 1-D right products A B
+(kernels 4 and 11).
 
     python -m genomic_pca_tpu_torch.eval.mma2d_ab TAG [--lines LINE ...]
 
@@ -13,13 +14,13 @@ through its own wrapper and C calls, so they also time a tree whose
 wrapper predates this script: run this file with that tree first on
 PYTHONPATH,
 
-    PYTHONPATH=<tree> python <this file> TAG --lines q8right tsq
+    PYTHONPATH=<tree> python <this file> TAG --lines q8right tsq right1d
 
 It first holds each product of each layout to its plain version at small
 shapes (ragged ones, for the right products a strip whose samples split,
 for the left ones and the gram pass a matrix whose rows split), with a
 second launch equal bit for bit (the q8 products bit for bit to plain); a
-tree that disagrees exits 2 and is not timed.  Then it prints five lines
+tree that disagrees exits 2 and is not timed.  Then it prints these lines
 (`--lines` picks some),
 
     [TAG] left packed <ms> dense <ms> thin packed <ms> thin dense <ms>
@@ -33,6 +34,8 @@ tree that disagrees exits 2 and is not timed.  Then it prints five lines
           <ms> call <ms> dense <ms> call <ms> int_mm <ms> thin int_mm <ms>
     [TAG] tsq packed <ms> call <ms> dense <ms> call <ms> wtw <ms> fma
           packed <ms> dense <ms> multi_dot packed <ms> dense <ms>
+    [TAG] right1d <layout> <D>x<N> L=<L> fma <ms> narrow <ms> wide <ms>
+          call <ms> matmul <ms>        (one line a shape and width)
 
 the mean time of back-to-back launches of the C entries (the wrappers'
 host work excluded: W and B already bf16, bq already transposed), L = 128
@@ -64,7 +67,12 @@ kernels); and `torch.linalg.multi_dot([B^T, A^T, A, B])` on A and B
 already standardized and rounded to bf16.  Its check holds the pass to
 a float64 W^T W over the pass's own W (`tsq_reference`): the tensor-core
 right product's, or in a tree without the tsq entry (before the
-tensor-core pass) the FMA right loop's.  Exits 1 without a CUDA device.
+tensor-core pass) the FMA right loop's.  The right1d line times kernels 4
+and 11 in bf16 mode at L = 10, 16, 32 and 128 (`right1d_ms`: the FMA loop,
+the narrow kernel, the 2-D kernel's f32 store, the wrapper call and
+`torch.matmul`) at 262,144 x 2,048 (both layouts, 20 launches), 65,536 x
+10,000 (dense, 20) and the streamed strip 2,048 x 2,048 (both, 200): the
+crossover of the narrow and wide routes.  Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -90,6 +98,8 @@ NAMES = {
     ("q8right", "dense"): "right_apply_2d_q8_i8",
     ("tsq", "packed"): "fused_tsq_packed",
     ("tsq", "dense"): "fused_tsq",
+    ("right1d", "packed"): "fused_right_apply_packed",
+    ("right1d", "dense"): "fused_right_apply",
 }
 CHECKS = {
     "left": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
@@ -97,11 +107,19 @@ CHECKS = {
     "gram": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
     "q8right": ((40, 256, 10), (300, 2100, 130), (2000, 4096, 128)),
     "tsq": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
+    "right1d": ((40, 256, 10), (300, 2100, 16), (2048, 2048, 10), (4096, 1024, 1),
+                (4096, 1024, 32), (4096, 1024, 128)),
 }
 LAYOUTS = ("packed", "dense")
 # The products each printed line times (the gram line also its halves).
 LINES = {"left": ("left",), "right": ("right",), "gram": ("gram", "right", "left"),
-         "q8right": ("q8right",), "tsq": ("tsq",)}
+         "q8right": ("q8right",), "tsq": ("tsq",), "right1d": ("right1d",)}
+# The right1d line's shapes (layout, D, N, launches) and widths: the 1-D
+# main shape, the dense EigenSNP finalize's loadings and a streamed strip.
+RIGHT1D_SHAPES = (("packed", 262_144, 2_048, 20), ("dense", 262_144, 2_048, 20),
+                  ("dense", 65_536, 10_000, 20), ("packed", 2_048, 2_048, 200),
+                  ("dense", 2_048, 2_048, 200))
+RIGHT1D_ELLS = (10, 16, 32, 128)
 
 
 def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
@@ -375,6 +393,35 @@ def multi_dot_ms(layout: str, d: int, n: int, reps: int) -> float:
     return mean_ms(lambda: torch.linalg.multi_dot([bt, at, a, b]), reps)
 
 
+def right1d_ms(layout: str, d: int, n: int, ell: int, reps: int) -> dict:
+    """Mean ms of `reps` back-to-back 1-D right products A B (kernels 4 and
+    11, bf16) at D x N x `ell` on random bytes: "fma" the f32 FMA loop
+    (gp_right_* in bf16 mode), "narrow" the C call of right_narrow_mma_kernel
+    a wrapper call makes (None in a tree without it), "wide" the C call of
+    right2d_mma_kernel's f32 store (the 2-D wrapper's), each replayed with
+    the arguments it was given; "call" the 1-D wrapper itself; "matmul"
+    `torch.matmul(A, B)` on A and B already standardized and rounded to
+    bf16 (a yardstick only: the port never calls it)."""
+    g, mean, inv, b = operands(layout, d, n, ell)
+    packed = layout == "packed"
+    out = torch.empty((d, ell), device=g.device)
+    ms = {"fma": replay_ms([(tk._ENTRY[g.dtype]["right"],
+                             (g, mean, inv, b, out, d, n // 4, ell, 1, 0))], reps,
+                           f"right1d {layout}: the FMA loop")}
+    ms["narrow"] = (replay_ms(captured_launches(tk._launch_right_narrow, g, mean, inv, b),
+                              reps, f"right1d {layout}: narrow")
+                    if "gp_right_narrow_packed" in build.SIGNATURES else None)
+    wide = tk.fused_right_apply_2d_packed if packed else tk.fused_right_apply_2d
+    ms["wide"] = replay_ms(captured_launches(wide, g, mean, inv, b), reps,
+                           f"right1d {layout}: wide")
+    fn = tk.fused_right_apply_packed if packed else tk.fused_right_apply
+    ms["call"] = mean_ms(lambda: fn(g, mean, inv, b), reps)
+    a = tk.standardize(g, mean, inv, "bf16").to(torch.bfloat16)
+    bb = b.to(torch.bfloat16)
+    ms["matmul"] = mean_ms(lambda: torch.matmul(a, bb), reps)
+    return ms
+
+
 def int_mm_ms(d: int, n: int, reps: int) -> float:
     """Mean ms of `torch._int_mm(G0, bq)` at D x N, L = 128, on operands
     already decoded: G0 int8 row-major, bq int8 column-major (as cuBLASLt
@@ -467,6 +514,13 @@ def main(argv=None) -> int:
         dots = " ".join(f"{lay} {multi_dot_ms(lay, d, n, 20):.4f}" for lay in LAYOUTS)
         print(f"[{a.tag}] tsq {calls} wtw {'-' if wtw is None else f'{wtw:.4f}'} "
               f"fma {fma} multi_dot {dots}", flush=True)
+    if "right1d" in a.lines:
+        for layout, d, n, reps in RIGHT1D_SHAPES:
+            for ell in RIGHT1D_ELLS:
+                ms = right1d_ms(layout, d, n, ell, reps)
+                print(f"[{a.tag}] right1d {layout} {d}x{n} L={ell} " + " ".join(
+                    f"{k} {'-' if v is None else f'{v:.4f}'}" for k, v in ms.items()),
+                    flush=True)
     return 0
 
 

@@ -42,6 +42,9 @@ SIGNATURES = {
     "gp_gram_plan": [_I, _I, _I, _I, _I, _P],
     "gp_tsq_plan": [_I, _I, _I, _I, _I, _P],
     "gp_wtw_plan": [_I, _I, _I, _P],
+    "gp_right_narrow_plan": [_I, _I, _I, _I, _I, _P],
+    "gp_right_narrow_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gp_right_narrow_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_right2d_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_right2d_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_right2d_w_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

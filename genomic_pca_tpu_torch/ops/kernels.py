@@ -241,11 +241,13 @@ _ENTRY = {
                   "gram": "gp_gram_packed", "tsq": "gp_tsq_packed",
                   "q8_w": "gp_q8_w", "q8_left": "gp_q8_left",
                   "left2d": "gp_left2d_packed", "right2d": "gp_right2d_packed",
+                  "right_narrow": "gp_right_narrow_packed",
                   "q8_right2d": "gp_q8_right2d", "q8_left2d": "gp_q8_left2d"},
     torch.int8: {"right": "gp_right_dense", "left": "gp_left_dense",
                  "gram": "gp_gram_dense", "tsq": "gp_tsq_dense",
                  "q8_w": "gp_q8_w_dense", "q8_left": "gp_q8_left_dense",
                  "left2d": "gp_left2d_dense", "right2d": "gp_right2d_dense",
+                 "right_narrow": "gp_right_narrow_dense",
                  "q8_right2d": "gp_q8_right2d_dense", "q8_left2d": "gp_q8_left2d_dense"},
 }
 
@@ -335,13 +337,41 @@ def _check_common(geno, mean, inv_std, b, precision, dtype=torch.uint8):
     return geno, mean, inv_std, b
 
 
-def _launch_right(geno, mean, inv_std, b, bf16: bool, round_out: bool):
+def _launch_right(geno, mean, inv_std, b):
+    """A B (D, L) f32 through the f32 FMA loop (gp_right_packed /
+    gp_right_dense) in f32 mode: the exact passes' f32 mode ("HIGHEST" in
+    the reference)."""
     d = geno.shape[0]
     ell = b.shape[1]
     out = torch.empty((d, ell), dtype=torch.float32, device=geno.device)
     _launch(geno.device, _ENTRY[geno.dtype]["right"], geno, mean, inv_std, b,
-            out, d, _samples(geno) // 4, ell, int(bf16), int(round_out))
+            out, d, _samples(geno) // 4, ell, 0, 0)
     return out
+
+
+# The widest B the narrow kernel takes in one column block, and so the
+# widest it serves: past it (no n32 form) a bf16 call takes the 2-D right
+# product's f32 store (PERF.md, the crossover of the two routes).
+NARROW_MAX_L = 16
+
+
+def right1d_route(ell: int, precision: str) -> str:
+    """The kernel a CUDA call of the 1-D right products (kernels 4 and 11)
+    launches for B of `ell` columns: "narrow" (right_narrow_mma_kernel,
+    bf16, ell <= NARROW_MAX_L), "wide" (right2d_mma_kernel's f32 store,
+    bf16) or "fma" (the f32 FMA loop, f32 mode)."""
+    if not _bf16(precision):
+        return "fma"
+    return "narrow" if ell <= NARROW_MAX_L else "wide"
+
+
+def _launch_right1d(geno, mean, inv_std, b, precision):
+    route = right1d_route(b.shape[1], precision)
+    if route == "fma":
+        return _launch_right(geno, mean, inv_std, b)
+    if route == "wide":
+        return _launch_right2d(geno, mean, inv_std, b)
+    return _launch_right_narrow(geno, mean, inv_std, b)
 
 
 def _launch_gram(geno, mean, inv_std, b, bf16: bool):
@@ -352,7 +382,7 @@ def _launch_gram(geno, mean, inv_std, b, bf16: bool):
     loop, then A^T W split-K with f32 atomics."""
     d, n, ell, dev = geno.shape[0], _samples(geno), b.shape[1], geno.device
     if not bf16:
-        w = _launch_right(geno, mean, inv_std, b, False, False)
+        w = _launch_right(geno, mean, inv_std, b)
         out = torch.zeros((n, ell), dtype=torch.float32, device=dev)
         splits, rows = _split(dev, -(-n // 64) * -(-ell // 64), -(-d // 16), 16)
         _launch(dev, _ENTRY[geno.dtype]["left"], geno, mean, inv_std, w, out, d,
@@ -379,7 +409,7 @@ def _launch_tsq(geno, mean, inv_std, b, bf16: bool):
     atomics (gp_wtw) - a dispatch on the precision, not a fallback."""
     d, n, ell, dev = geno.shape[0], _samples(geno), b.shape[1], geno.device
     if not bf16:
-        w = _launch_right(geno, mean, inv_std, b, False, False)
+        w = _launch_right(geno, mean, inv_std, b)
         out = torch.zeros((ell, ell), dtype=torch.float32, device=dev)
         splits, rows = _split(dev, (-(-ell // 64)) ** 2, -(-d // 16), 16)
         _launch(dev, "gp_wtw", w, out, d, ell, splits, rows)
@@ -436,11 +466,18 @@ def _launch_q8(geno, inv_std, u, bq, sb, csum, tile_d):
 # The four kernels of the packed 1-D mode.
 #
 # fused_right_apply_packed replaces genomic_pca_tpu/ops/pallas_kernels.py
-# fused_right_apply_packed (:529, pallas_call :545).  On the H100 it reads
-# D*N4 bytes and does 2*D*N*L operations; with L = 128 it is bound by the
-# f32 FMA rate of a register-tiled loop (no tensor cores yet).  Design:
-# one block per 64 x 64 output tile, decode + standardize of each byte in
-# the shared-memory load, no intermediate in device memory.
+# fused_right_apply_packed (:529, pallas_call :545; body
+# _right_packed_kernel :464): A B with out f32, not rounded.  It computes
+# the loadings A V_k of every resident 1-D core (L = k = 10) and, in the
+# host-streamed container, each strip's A B (L = 128 in its tsq pass).  A
+# dispatch on the precision and B's width (`right1d_route`): in bf16 mode
+# L <= 16 launches right_narrow_mma_kernel (csrc/right1d_kernels.cu; see
+# `_launch_right_narrow`), wider B right2d_mma_kernel's f32 store (kernel
+# 5's: the same function, so its bits); f32 mode the f32 FMA loop
+# right_kernel.  At 262,144 x 2,048, L = 10 it is bound on an H100 by its
+# 134 MB of genotype bytes (0.04 ms): the narrow kernel decodes each byte
+# in the consumers' registers into the A fragments of wgmma m64n16k16 (A
+# from registers), with no decoded tile and no empty columns.
 
 
 def fused_right_apply_packed(packed, mean, inv_std, b, precision="bf16"):
@@ -449,7 +486,7 @@ def fused_right_apply_packed(packed, mean, inv_std, b, precision="bf16"):
     if _route(packed) == "plain":
         return fused_right_apply_packed_plain(packed, mean, inv_std, b, precision)
     LAUNCHES["fused_right_apply_packed"] += 1
-    return _launch_right(packed, mean, inv_std, b, _bf16(precision), False)
+    return _launch_right1d(packed, mean, inv_std, b, precision)
 
 
 # fused_gram_apply_packed replaces pallas_kernels.py fused_gram_apply_packed
@@ -532,12 +569,15 @@ def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
 # of four int8 samples per thread where the packed one reads a byte.  Each
 # pass reads D*N bytes, four times the packed bytes; the right product and
 # the q8 pass stay bound by the FMA / dp4a issue rate (2*D*N*L operations
-# per product), the gram and tsq passes run on the tensor cores in bf16
-# mode.
+# per product), the gram, tsq and right products run on the tensor cores
+# in bf16 mode.
 #
 # fused_right_apply replaces pallas_kernels.py fused_right_apply (:181,
-# pallas_call :197; body _right_kernel :112): one block per 64 x 64
-# output tile, standardize in the shared-memory load.
+# pallas_call :197; body _right_kernel :112): the packed product's routes
+# over int8 rows (right_narrow_mma_kernel<DenseRows>, the bf16x2 decode of
+# the 2-D kernels in the consumers' registers), bound by its D*N bytes
+# (0.16 ms at 262,144 x 2,048).  It also computes the loadings of the
+# dense EigenSNP finalize (65,536 x 10,000, L = 10).
 
 
 def fused_right_apply(geno, mean, inv_std, b, precision="bf16"):
@@ -547,7 +587,7 @@ def fused_right_apply(geno, mean, inv_std, b, precision="bf16"):
     if _route(geno) == "plain":
         return fused_right_apply_plain(geno, mean, inv_std, b, precision)
     LAUNCHES["fused_right_apply"] += 1
-    return _launch_right(geno, mean, inv_std, b, _bf16(precision), False)
+    return _launch_right1d(geno, mean, inv_std, b, precision)
 
 
 # fused_gram_apply replaces pallas_kernels.py fused_gram_apply (:144,
@@ -662,6 +702,7 @@ fused_right_apply_2d_packed_plain = fused_right_apply_packed_plain
 # to bf16 once in the wrapper (`mma_operand`), as `_round_bf16` rounds it
 # in the plain versions.
 
+@functools.lru_cache(maxsize=None)
 def _sms(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -736,6 +777,51 @@ def right2d_plan(d: int, n_samples: int, ell: int, sms: int = None) -> tuple:
     return (p[0], p[1]), (p[2], p[3]), p[4]
 
 
+def right_narrow_plan(d: int, n_samples: int, ell: int, dtype=torch.uint8,
+                      sms: int = None) -> tuple:
+    """(tile, blocks, splits, chunk, workspace bytes) of the narrow right
+    product over `d` rows of `n_samples` samples (the genotype rows'
+    width) of the layout `dtype` (uint8 packed, int8 dense) and `ell`
+    columns of B on `sms` SMs (default: the current CUDA device's), as
+    launch_right_narrow launches it: tile (rows, columns), the persistent
+    grid's blocks, the ranges the samples split into where the tiles are
+    fewer than the SMs, the samples of a chunk (the unit of
+    `right_narrow_operand`'s order), and the bytes of the workspace the C
+    call takes (B in that order, then the ranges' slab).  Read from the
+    built library (`gp_right_narrow_plan`)."""
+    group = 1 if dtype == torch.uint8 else 4
+    p = _library_plan("gp_right_narrow_plan", 6, ctypes.c_longlong, d,
+                      n_samples * group // 4, group, ell, _current_sms(sms))
+    return (p[0], p[1]), p[2], p[3], p[4], p[5]
+
+
+def right_narrow_operand(b: torch.Tensor, chunk: int, samples: int = None) -> torch.Tensor:
+    """B (N, L) as the narrow right product reads it (built on the card by
+    narrow_operand_kernel in the same C call; this states the order and
+    serves the tests): bf16, rounded to
+    nearest even once, zero-padded to a multiple of 16 columns and to
+    whole chunks of `chunk` samples past max(N, `samples`) (TMA fills
+    bytes past a row with zeros, which decode to dosage 2 packed: they
+    must meet zero rows of B), in column blocks of 16, each a run of K
+    steps of 16 samples stored as the K-major 16 x 16 operand of wgmma (two
+    8-column groups 256 bytes apart, two 8-sample halves 128 bytes apart,
+    a column's 8 samples in 16 bytes).  Step m of chunk s holds in K slots
+    {2q, 2q + 1, 2q + 8, 2q + 9} the samples s chunk + (chunk / 4) q + 4 m +
+    {0, 1, 2, 3}: those of the byte (packed) or word (dense) that lane q
+    of a row decodes.  Shape (column blocks, K steps, 256)."""
+    n, ell = b.shape
+    n_pad = -(-max(n, samples or 0) // chunk) * chunk
+    blocks = max(1, -(-ell // 16))
+    bp = torch.nn.functional.pad(b, (0, 16 * blocks - ell, 0, n_pad - n))
+    # (chunk s, lane q, step m, K half kh, sample pair pl, column block c,
+    # column group nh, column n8): sample p = 2 kh + pl, column 16 c + 8 nh + n8.
+    x = bp.view(n_pad // chunk, 4, chunk // 16, 2, 2, blocks, 2, 8)
+    out = torch.empty((blocks, n_pad // 16, 256), dtype=torch.bfloat16, device=b.device)
+    out.view(blocks, n_pad // chunk, chunk // 16, 2, 2, 8, 4, 2).copy_(
+        x.permute(5, 0, 2, 6, 3, 7, 1, 4))
+    return out
+
+
 def mma_operand(x: torch.Tensor) -> torch.Tensor:
     """W of the left product or B of the right, (K, L) f32, as the
     tensor-core products read it: bf16, rounded to nearest even once (the
@@ -766,13 +852,52 @@ def aligned_rows(geno: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t`, or a copy where its base is not 16-byte aligned (TMA)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _mma_operands(geno, mean, inv_std, x):
     """The operands of a tensor-core product as its TMA loads read them:
     `aligned_rows` of the genotypes, the moments (copied where
     misaligned), and W or B through `mma_operand`."""
-    mean, inv_std = (t if t.data_ptr() % 16 == 0 else t.clone()
-                     for t in (mean, inv_std))
-    return aligned_rows(geno), mean, inv_std, mma_operand(x)
+    return aligned_rows(geno), _aligned(mean), _aligned(inv_std), mma_operand(x)
+
+
+def _launch_right2d(geno, mean, inv_std, b):
+    """A B (D, L) f32 through right2d_mma_kernel's f32 store, with a slab
+    of partials where `right2d_plan` splits the samples."""
+    d, (n, ell), dev = geno.shape[0], b.shape, geno.device
+    out = torch.empty((d, ell), dtype=torch.float32, device=dev)
+    if not out.numel():
+        return out
+    geno, mean, inv_std, b = _mma_operands(geno, mean, inv_std, b)
+    sms = _sms(dev)
+    splits = right2d_plan(d, n, ell, sms)[2]
+    slab = (torch.empty((splits, d, ell), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    _launch(dev, _ENTRY[geno.dtype]["right2d"], geno, mean, inv_std, b, out, slab, d,
+            _samples(geno) // 4, n, ell, b.shape[1], sms)
+    return out
+
+
+def _launch_right_narrow(geno, mean, inv_std, b):
+    """A B (D, L) f32, L <= NARROW_MAX_L, through one C call: B cast and
+    permuted on the card into `right_narrow_operand`'s order, then
+    right_narrow_mma_kernel (and the sum of its slab where the plan splits
+    the samples), in one workspace of the size the plan reports (read once
+    per shape)."""
+    d, (n, ell), dev = geno.shape[0], b.shape, geno.device
+    out = torch.empty((d, ell), dtype=torch.float32, device=dev)
+    if not out.numel():
+        return out
+    geno = aligned_rows(geno)
+    width, sms = _samples(geno), _sms(dev)
+    work = torch.empty(right_narrow_plan(d, width, ell, geno.dtype, sms)[4],
+                       dtype=torch.uint8, device=dev)
+    _launch(dev, _ENTRY[geno.dtype]["right_narrow"], geno, _aligned(mean),
+            _aligned(inv_std), b, out, work, d, width // 4, n, ell, sms)
+    return out
 
 
 def _left2d(geno, mean, inv_std, w, precision, dtype, name):
@@ -815,19 +940,8 @@ def _right2d(geno, mean, inv_std, b, precision, dtype, name):
         return PLAIN[name](geno, mean, inv_std, b, precision)
     LAUNCHES[name] += 1
     if not _bf16(precision):
-        return _launch_right(geno, mean, inv_std, b, False, False)
-    d, (n, ell), dev = geno.shape[0], b.shape, geno.device
-    out = torch.empty((d, ell), dtype=torch.float32, device=dev)
-    if not out.numel():
-        return out
-    geno, mean, inv_std, b = _mma_operands(geno, mean, inv_std, b)
-    sms = _sms(dev)
-    splits = right2d_plan(d, n, ell, sms)[2]
-    slab = (torch.empty((splits, d, ell), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
-    _launch(dev, _ENTRY[dtype]["right2d"], geno, mean, inv_std, b, out, slab, d,
-            _samples(geno) // 4, n, ell, b.shape[1], sms)
-    return out
+        return _launch_right(geno, mean, inv_std, b)
+    return _launch_right2d(geno, mean, inv_std, b)
 
 
 def fused_left_apply_2d_packed(packed, mean, inv_std, w, precision="bf16"):

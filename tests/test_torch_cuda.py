@@ -746,3 +746,143 @@ def test_streaming_on_cuda_matches_cpu(cuda_device, packed, mode):
                 assert tel["copy_seconds"] > 0 and tel["compute_wait_seconds"] >= 0
     for a, c in zip(got["cpu"], got["cuda"]):
         np.testing.assert_allclose(c, a, rtol=1e-4, atol=1e-4 * np.abs(a).max())
+
+
+# ---------------------------------------------------------------------------
+# The 1-D right products 4 and 11 in bf16 mode: the narrow kernel (L <= 16)
+# and the wide route (right2d_mma_kernel's f32 store).
+
+RIGHT1D = {"packed": "fused_right_apply_packed", "dense": "fused_right_apply"}
+RIGHT2D = {"packed": "fused_right_apply_2d_packed", "dense": "fused_right_apply_2d"}
+
+
+def _device_case(device, layout, d, n, ell, seed):
+    """Genotypes made on the card (packed: random bytes, a quarter of the
+    codes missing; dense: dosages {0, 1, 2}, 2% missing, 1% odd dosages in
+    [-100, 100)), moments with an inert row, and B (4 ceil(n / 4), ell)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    if layout == "packed":
+        geno = torch.randint(0, 256, (d, -(-n // 4)), generator=gen, device=device,
+                             dtype=torch.uint8)
+    else:
+        geno = torch.randint(0, 3, (d, n), generator=gen, device=device,
+                             dtype=torch.int8)
+        u = torch.rand((d, n), generator=gen, device=device)
+        odd = torch.randint(-100, 100, (d, n), generator=gen, device=device,
+                            dtype=torch.int8)
+        geno = torch.where(u < 0.01, odd, torch.where(u > 0.98, -127, geno))
+    mu = torch.rand((d, 1), generator=gen, device=device) * 2
+    inv = torch.rand((d, 1), generator=gen, device=device) + 0.5
+    inv[min(5, d - 1)] = 0.0
+    n_b = tk._samples(geno)
+    b = torch.randn((n_b, ell), generator=gen, device=device) / n ** 0.5
+    return geno, mu, inv, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ell", [1, 3, 8, 10, 16])
+@pytest.mark.parametrize("d,n", [(262_144, 2_048), (65_536, 10_000), (2_048, 2_048),
+                                 (70_001, 2_504)])
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_right_narrow_kernel_matches_plain_and_repeats(cuda_device, monkeypatch, layout,
+                                                       d, n, ell):
+    """Kernels 4 and 11 in bf16 mode with L <= 16: one C call of
+    right_narrow_mma_kernel, within 1e-5 of max|plain| (the same bf16
+    operands, f32 sums in another order), and a second launch bit for bit
+    (no atomics; the 2,048 x 2,048 strip splits its samples, whose slab is
+    added in a fixed order).  The 1-D main shape, the dense EigenSNP
+    finalize's, a streamed strip and a ragged shape (70,001 rows, 2,504
+    samples: 626 packed bytes a row, copied to 640)."""
+    geno, mu, inv, b = _device_case(cuda_device, layout, d, n, ell, d + n + ell)
+    name = RIGHT1D[layout]
+    entries = _spy_entries(monkeypatch)
+    got, ref = _launch_twice(name, (geno, mu, inv, b), "bf16")
+    assert entries == [tk._ENTRY[geno.dtype]["right_narrow"]] * 2
+    assert got.shape == ref.shape == (d, ell)
+    err = float((got - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max()), err
+    splits = tk.right_narrow_plan(d, tk._samples(tk.aligned_rows(geno)), ell,
+                                  geno.dtype)[2]
+    assert (splits > 1) == (d == 2_048)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(2_048, 2_048), (4_096, 1_024), (300, 2_100)])
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_right_1d_wide_route_is_the_2d_right_product(cuda_device, monkeypatch, layout,
+                                                     d, n):
+    """A bf16 call with L = 128 (the streamed tsq pass's) takes
+    right2d_mma_kernel's f32 store: it equals kernels 5 / 13 on the same
+    inputs bit for bit, split or not, and makes their C call."""
+    geno, mu, inv, b = _device_case(cuda_device, layout, d, n, 128, d + n)
+    entries = _spy_entries(monkeypatch)
+    got, ref = _launch_twice(RIGHT1D[layout], (geno, mu, inv, b), "bf16")
+    assert entries == [tk._ENTRY[geno.dtype]["right2d"]] * 2
+    assert torch.equal(got, getattr(tk, RIGHT2D[layout])(geno, mu, inv, b))
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_right_narrow_plan(cuda_device):
+    """The tile, blocks, sample splits, chunk and workspace the library
+    launches the narrow kernel with on 132 SMs: 256 rows x 16 columns a
+    tile; a chunk is 128 bytes of a row (512 samples packed, 128 dense).
+    At 262,144 x 2,048 its 1,024 tiles take a persistent grid of 132
+    blocks; at 65,536 x 10,000 (dense) 256 tiles; a strip of 2,048 rows has
+    8 tiles, so the samples split into as many ranges as there are chunks,
+    up to 16; wider B adds a column block of 16 a tile.  The workspace is
+    B in the kernel's order (512 bytes a K step of 16 samples and column
+    block), then the ranges' f32 slab."""
+    u8, i8 = torch.uint8, torch.int8
+    assert tk.right_narrow_plan(262_144, 2_048, 10, u8, 132) == (
+        (256, 16), 132, 1, 512, 128 * 512)
+    assert tk.right_narrow_plan(262_144, 2_048, 10, i8, 132) == (
+        (256, 16), 132, 1, 128, 128 * 512)
+    assert tk.right_narrow_plan(65_536, 10_000, 10, i8, 132) == (
+        (256, 16), 132, 1, 128, 79 * 8 * 512)
+    assert tk.right_narrow_plan(2_048, 2_048, 10, u8, 132) == (
+        (256, 16), 8, 4, 512, 128 * 512 + 4 * 2_048 * 10 * 4)
+    assert tk.right_narrow_plan(2_048, 2_048, 10, i8, 132) == (
+        (256, 16), 8, 16, 128, 128 * 512 + 16 * 2_048 * 10 * 4)
+    assert tk.right_narrow_plan(2_048, 2_048, 32, i8, 132) == (
+        (256, 16), 16, 8, 128, 2 * 128 * 512 + 8 * 2_048 * 32 * 4)
+    assert tk.right_narrow_plan(70_001, 2_560, 16, u8, 132) == (
+        (256, 16), 132, 1, 512, 5 * 32 * 512)
+    assert tk.right_narrow_plan(100, 256, 1, u8, 1) == ((256, 16), 1, 1, 512, 32 * 512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ell", [10, 40])
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_right_narrow_launch_follows_its_plan(cuda_device, layout, ell):
+    """The C entry builds B in the workspace in `right_narrow_operand`'s
+    order, bit for bit, refuses a call without a workspace, and with the
+    workspace the plan sizes (the slab after B where it splits the
+    samples) gives the wrapper's result; 1,030 samples of B against rows
+    of 2,048 (their pad meets zero rows of B), L = 10 and 40 (3 column
+    blocks)."""
+    for d, want_split in ((2_048, True), (65_536, False)):
+        geno, mu, inv, b = _device_case(cuda_device, layout, d, 2_048, ell, d)
+        b = b[:1_030].contiguous()
+        b_full = torch.zeros((tk._samples(geno), ell), device=cuda_device)
+        b_full[:1_030] = b
+        n = tk._samples(geno)
+        _, _, splits, chunk, work_bytes = tk.right_narrow_plan(d, n, ell, geno.dtype)
+        assert (splits > 1) == want_split
+        op = tk.right_narrow_operand(b, chunk, n)
+        assert work_bytes == op.numel() * 2 + (splits * d * ell * 4 if splits > 1 else 0)
+        out = torch.empty((d, ell), device=cuda_device)
+        entry = tk._ENTRY[geno.dtype]["right_narrow"]
+        args = (geno, mu, inv, b, out)
+        tail = (d, n // 4, 1_030, ell, tk._sms(cuda_device))
+        with pytest.raises(RuntimeError, match="failed"):
+            tk._launch(cuda_device, entry, *args, None, *tail)
+        work = torch.empty(work_bytes, dtype=torch.uint8, device=cuda_device)
+        tk._launch(cuda_device, entry, *args, work, *tail)
+        assert torch.equal(work[:op.numel() * 2].view(torch.bfloat16).view(op.shape), op)
+        name = RIGHT1D[layout]
+        if ell <= 16:
+            assert torch.equal(out, getattr(tk, name)(geno, mu, inv, b_full))
+        ref = tk.PLAIN[name](geno, mu, inv, b_full, "bf16")
+        assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
