@@ -17,14 +17,16 @@ no result line):
    product's f32 store, which must equal kernel 5 bit for bit) also on
    that strip at L = 10 and L = 128;
 4. the four 2-D (wide-sample) kernels the same way at 65,536 x 16,384,
-   L = 128, and at 70,001 x 16,389; kernels 5, 6 and 7 at 2,048 x 11,264
-   (a streamed strip at the 2-D switch width: their thinnest grids), 5
-   and 7 at 2,000 x 16,384 (an EigenSNP strip, whose samples split) and 5
-   at 65,536 x 16,384 with L = 10 (the loadings launch), each tensor-core
-   product with its tile, grid (and sample split) and a bit-identical
-   second launch; the 1-D gram and q8 passes against the 2-D ones at the
-   wide shape; `q8_power_pass_2d` against a float64 replay of its
-   quantization model;
+   L = 128, and at 70,001 x 16,389; kernels 5-8 at 2,048 x 11,264 (a
+   streamed strip at the 2-D switch width: their thinnest grids; 8's rows
+   split), 5, 7 and 8 at 2,000 x 16,384 (an EigenSNP strip, whose samples
+   split), 8 at row tiles of 64 on both strips and at 262,144 x 2,048
+   (the 1-D width), and 5 at 65,536 x 16,384 with L = 10 (the loadings
+   launch), each tensor-core product with its tile, grid (and split) and
+   a bit-identical second launch, 7 and 8 bit for bit to their plain
+   versions (8 at its plan's row ranges); the 1-D gram and q8 passes
+   against the 2-D ones at the wide shape; `q8_power_pass_2d` against a
+   float64 replay of its quantization model;
 5. the 1-D main path, `streamed_pca(ShardedMatrix.from_packed_rows(...),
    k=10, n_power_iter=4, compute_loadings=True)` over structured
    genotypes of 262,144 x 2,048: launch counts 3 / 1 / 1 / 1 for q8 /
@@ -62,9 +64,9 @@ no result line):
    `fused_left_apply_2d`, 7i and 8i, the int8 branches of
    `right_apply_2d_q8` / `left_apply_2d_q8`) against their plain versions
    at 65,536 x 16,384 (1 GiB of int8), L = 128, and at 70,001 x 16,389
-   (container width 16,512), and 13, 14 and 7i at the thin shapes of
-   phase 4 and 13 at L = 10, each with a bit-identical second launch, as
-   5, 6 and 7 in phase 4;
+   (container width 16,512), and 13, 14, 7i and 8i at the thin shapes of
+   phase 4 (8i also at row tiles of 64 and at 262,144 x 2,048) and 13 at
+   L = 10, each with a bit-identical second launch, as 5-8 in phase 4;
 13. the dense 2-D main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
    on the genotypes of phase 6 unpacked to int8 on the card (131,072 x
    16,384, 2 GiB): launch counts 3 / 3 / 3 / 1 for 7i / 8i / 13 / 14 and
@@ -113,7 +115,10 @@ SEED = 20260
 # row tile or tail (17 rows of 70,001 move the Gram by about 2.4e-4)
 # fails.  right_apply_2d_q8 sums integers exactly in int32 (a split's
 # slab too) and converts once, as its plain version: it must equal it bit
-# for bit.  The gram passes are also
+# for bit.  left_apply_2d_q8 folds each row tile's exact int32 sum into f32
+# in tile order, each range of its plan apart and the ranges' slab added
+# in order, as its plain version does at the plan's ranges: bit for bit
+# too.  The gram passes are also
 # held half by half (`check_gram`): their W against the plain right
 # product, and the pass against the plain left product of that W rounded
 # to bf16; the tsq passes likewise (`check_tsq`), their W^T W half against
@@ -126,7 +131,7 @@ TOL = {
     "fused_right_apply_2d_packed": 1e-5,
     "fused_left_apply_2d_packed": 1e-5,
     "right_apply_2d_q8": 0.0,
-    "left_apply_2d_q8": 1e-5,
+    "left_apply_2d_q8": 0.0,
     "fused_gram_q8": 1e-5,
     "fused_gram_apply": 1e-5,
     "fused_tsq": 1e-5,
@@ -134,7 +139,7 @@ TOL = {
     "fused_right_apply_2d": 1e-5,
     "fused_left_apply_2d": 1e-5,
     "right_apply_2d_q8_i8": 0.0,
-    "left_apply_2d_q8_i8": 1e-5,
+    "left_apply_2d_q8_i8": 0.0,
 }
 KERNELS_1D = ("fused_gram_q8_packed", "fused_gram_apply_packed",
               "fused_tsq_packed", "fused_right_apply_packed")
@@ -158,7 +163,7 @@ SOURCES = {
     "fused_right_apply_2d_packed": (CSRC + "right2d_kernels.cu", PK + "675"),
     "fused_left_apply_2d_packed": (CSRC + "wide_kernels.cu", PK + "723"),
     "right_apply_2d_q8": (CSRC + "q8_right2d_kernels.cu", PK + "1096"),
-    "left_apply_2d_q8": (CSRC + "wide_kernels.cu", PK + "1139"),
+    "left_apply_2d_q8": (CSRC + "q8_left2d_kernels.cu", PK + "1139"),
     "fused_gram_q8": (CSRC + "dense_kernels.cu", PK + "847"),
     "fused_gram_apply": (CSRC + "dense_kernels.cu", PK + "144"),
     "fused_tsq": (CSRC + "dense_kernels.cu", PK + "215"),
@@ -166,7 +171,7 @@ SOURCES = {
     "fused_right_apply_2d": (CSRC + "right2d_kernels.cu", PK + "296"),
     "fused_left_apply_2d": (CSRC + "wide_kernels.cu", PK + "346"),
     "right_apply_2d_q8_i8": (CSRC + "q8_right2d_kernels.cu", PK + "1096"),
-    "left_apply_2d_q8_i8": (CSRC + "wide_kernels.cu", PK + "1139"),
+    "left_apply_2d_q8_i8": (CSRC + "q8_left2d_kernels.cu", PK + "1139"),
 }
 ZERO_LAUNCHES = dict.fromkeys(
     KERNELS_1D + KERNELS_2D + KERNELS_DENSE + KERNELS_DENSE_2D, 0)
@@ -177,10 +182,12 @@ LEFT_MMA = ("fused_left_apply_2d_packed", "fused_left_apply_2d")
 RIGHT_MMA = ("fused_right_apply_2d_packed", "fused_right_apply_2d")
 GRAM_MMA = ("fused_gram_apply_packed", "fused_gram_apply")  # bf16 mode
 Q8_RIGHT_MMA = ("right_apply_2d_q8", "right_apply_2d_q8_i8")
+Q8_LEFT_MMA = ("left_apply_2d_q8", "left_apply_2d_q8_i8")
 TSQ_MMA = ("fused_tsq_packed", "fused_tsq")  # bf16 mode
 # bf16 mode: the narrow kernel (L <= 16), else the 2-D right product's store.
 RIGHT1D_MMA = ("fused_right_apply_packed", "fused_right_apply")
-BITWISE_RERUN = LEFT_MMA + RIGHT_MMA + GRAM_MMA + Q8_RIGHT_MMA + TSQ_MMA + RIGHT1D_MMA
+BITWISE_RERUN = (LEFT_MMA + RIGHT_MMA + GRAM_MMA + Q8_RIGHT_MMA + TSQ_MMA + RIGHT1D_MMA
+                 + Q8_LEFT_MMA)
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
 # device memory rate, and tensor-core rates for the operand type of each
@@ -340,10 +347,12 @@ def median_ms(torch, fn, reps):
     return times[len(times) // 2]
 
 
-def kernel_cases(torch, d, n, seed, device, names, ell=128, right1d_ell=10):
+def kernel_cases(torch, d, n, seed, device, names, ell=128, right1d_ell=10,
+                 q8_tile=1024):
     """Inputs for each kernel of `names` at one shape: {name: (args,
     kwargs)}; `ell` the columns of B of the 2-D right products,
-    `right1d_ell` those of the 1-D ones (the others take 128)."""
+    `right1d_ell` those of the 1-D ones (the others take 128); `q8_tile`
+    the row tile of the 2-D q8 left products' z8."""
     from genomic_pca_tpu_torch.ops.kernels import (
         fused_right_apply_2d_packed_plain, quantize_rows,
     )
@@ -372,8 +381,8 @@ def kernel_cases(torch, d, n, seed, device, names, ell=128, right1d_ell=10):
     b128 = basis(128)
     b_right = b128 if ell == 128 else basis(ell)
     bq, sb, csum = quantize_basis(b128)
-    # z8 / sz of a 2-D q8 pass, quantized per row tile of 1,024.
-    z8, sz = quantize_rows(torch.randn((d, 128), generator=gen, device=device), 1024)
+    # z8 / sz of a 2-D q8 pass, quantized per row tile of q8_tile.
+    z8, sz = quantize_rows(torch.randn((d, 128), generator=gen, device=device), q8_tile)
     geno = (dense_from_packed(torch, packed[:, : n_d // 4])
             if set(names) & set(KERNELS_DENSE + KERNELS_DENSE_2D) else None)
     b_d = b128[:n_d]
@@ -393,7 +402,7 @@ def kernel_cases(torch, d, n, seed, device, names, ell=128, right1d_ell=10):
              fused_right_apply_2d_packed_plain(packed, mean, inv, b128)),
             {"precision": "bf16"}),
         "right_apply_2d_q8": lambda: ((packed, bq), {}),
-        "left_apply_2d_q8": lambda: ((packed, z8, sz), {"tile_d": 1024}),
+        "left_apply_2d_q8": lambda: ((packed, z8, sz), {"tile_d": q8_tile}),
         "fused_gram_q8": lambda: ((geno, inv, mean * inv, *quantize_basis(b_d)),
                                   {"tile_d": 1024}),
         "fused_gram_apply": lambda: ((geno, mean, inv, b_d), {"precision": "bf16"}),
@@ -406,7 +415,7 @@ def kernel_cases(torch, d, n, seed, device, names, ell=128, right1d_ell=10):
             (geno, mean, inv, fused_right_apply_2d_packed_plain(geno, mean, inv, b_d)),
             {"precision": "bf16"}),
         "right_apply_2d_q8_i8": lambda: ((geno, quantize_basis(b_d)[0]), {}),
-        "left_apply_2d_q8_i8": lambda: ((geno, z8, sz), {"tile_d": 1024}),
+        "left_apply_2d_q8_i8": lambda: ((geno, z8, sz), {"tile_d": q8_tile}),
     }
     return {name: cases[name]() for name in names}
 
@@ -437,8 +446,9 @@ def bound_of(torch, name, args, out):
 def library_call(torch, name, args):
     """(label, fn) of the one PyTorch call that computes a kernel's
     product on the same inputs already decoded (and standardized in bf16),
-    or None where no single call does (the q8 passes and the per-tile
-    scaled left q8 products).  A yardstick only: the port never calls it."""
+    or None where no single call does (the q8 passes: two integer
+    products with a requantization between).  A yardstick only: the port
+    never calls it."""
     from genomic_pca_tpu_torch.ops import kernels as tk
 
     geno = args[0]
@@ -446,6 +456,15 @@ def library_call(torch, name, args):
         g0 = tk.dosages_g0(geno).contiguous()
         bq = args[1].t().contiguous().t()  # column-major, as cuBLASLt takes it
         return "torch._int_mm(G0, bq)", lambda: torch._int_mm(g0, bq)
+    if name in Q8_LEFT_MMA:
+        # sum_t sz[t] G0_t^T z8_t = G0^T Z, Z = z8 with each row scaled by
+        # its tile's sz: one f32 product (TF32 off), equal up to rounding.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        z8, sz = args[1], args[2]
+        g0t = tk.dosages_g0(geno).to(torch.float32).t()
+        z = z8.to(torch.float32) * sz.repeat_interleave(
+            -(-z8.shape[0] // sz.shape[0]))[: z8.shape[0], None]
+        return "torch.matmul(G0^T, Z)", lambda: torch.matmul(g0t, z)
     if name in Q8_KERNELS:
         return None
     a = tk.standardize(geno, args[1], args[2], "bf16").to(torch.bfloat16)
@@ -522,25 +541,31 @@ def check_tsq(torch, name, args, got):
 
 
 def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
-                  ties_allowed=False, right1d_ell=10):
+                  ties_allowed=False, right1d_ell=10, q8_tile=1024):
     """Each kernel of `names` against its plain version at D x N (see TOL;
-    `ties_allowed`: the gram passes' W ties, see `check_gram`), its plans
-    and a second launch's bits where it has them, and CUDA-event times of
+    `ties_allowed`: the gram passes' W ties, see `check_gram`; the q8 left
+    products' plain version at their plan's row ranges), its plans and a
+    second launch's bits where it has them, and CUDA-event times of
     kernel, plain version and library call.  A 1-D right product wider
     than the narrow kernel must equal the 2-D one (its route) bit for bit."""
     from genomic_pca_tpu_torch.ops import kernels as tk
 
     results = {}
     for name, (args, kw) in kernel_cases(torch, d, n, seed, device, names,
-                                         ell, right1d_ell).items():
+                                         ell, right1d_ell, q8_tile).items():
         kern = getattr(tk, WRAPPER.get(name, name))
         plain = tk.PLAIN[name]
+        plain_kw = kw
+        if name in Q8_LEFT_MMA:
+            q8_plan = tk.q8_left2d_plan(d, tk._samples(tk.aligned_rows(args[0])),
+                                        args[1].shape[1], q8_tile)
+            plain_kw = dict(kw, ranges=q8_plan[2])
 
         def run_k():
             return kern(*args, **kw)
 
         def run_p():
-            return plain(*args, **kw)
+            return plain(*args, **plain_kw)
 
         got, ref = run_k(), run_p()
         torch.cuda.synchronize()
@@ -586,6 +611,11 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
                 tile, grid, splits = tk.right2d_plan(d, args[3].shape[0], ell)
                 plan = (f"wide route (the 2-D right product's bits): tile {tile}, "
                         f"grid {grid}, the samples in {splits} range(s)")
+            elif name in Q8_LEFT_MMA:
+                tile, grid, ranges, work = q8_plan
+                plan = (f"tile {tile} (samples x columns), grid {grid}, row tiles of "
+                        f"{q8_tile}, the rows in {len(ranges)} range(s) from tiles "
+                        f"{list(ranges)}; workspace {work / 2**20:.2f} MiB")
             elif name in Q8_RIGHT_MMA:
                 tile, grid, splits = tk.q8_right2d_plan(
                     d, tk._samples(tk.aligned_rows(args[0])), ell)
@@ -1225,14 +1255,21 @@ def main() -> int:
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
                                  KERNELS_2D))
     check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_2D)
-    # The thinnest grids of kernels 5, 6 and 7: a streamed strip at the
-    # switch width, an EigenSNP strip (5's and 7's samples split), and the
-    # loadings launch of kernel 5 (L = k = 10).
+    # The thinnest grids of kernels 5-8: a streamed strip at the switch
+    # width (8's rows split), an EigenSNP strip (5's and 7's samples split,
+    # 8's last row tile ragged), 8 at row tiles of 64 on both, 8 at the
+    # 1-D width (its rows split 8 ways; on no path yet), and the loadings
+    # launch of kernel 5 (L = k = 10).
     check_kernels(torch, 2_048, 11_264, SEED + 10, device, 5,
                   ("fused_right_apply_2d_packed", "fused_left_apply_2d_packed",
-                   "right_apply_2d_q8"))
+                   "right_apply_2d_q8", "left_apply_2d_q8"))
     check_kernels(torch, 2_000, 16_384, SEED + 11, device, 5,
-                  ("fused_right_apply_2d_packed", "right_apply_2d_q8"))
+                  ("fused_right_apply_2d_packed", "right_apply_2d_q8",
+                   "left_apply_2d_q8"))
+    for d, n in ((2_048, 11_264), (2_000, 16_384)):
+        check_kernels(torch, d, n, SEED + 11, device, 3, ("left_apply_2d_q8",),
+                      q8_tile=64)
+    check_kernels(torch, 262_144, 2_048, SEED + 13, device, 3, ("left_apply_2d_q8",))
     check_kernels(torch, 65_536, 16_384, SEED + 6, device, 3,
                   ("fused_right_apply_2d_packed",), ell=10)
     compare_modes(torch, np, 65_536, 16_384, SEED + 6, device, 5)
@@ -1310,9 +1347,14 @@ def main() -> int:
                                  KERNELS_DENSE_2D))
     check_kernels(torch, 70_001, 16_389, SEED + 7, device, 3, KERNELS_DENSE_2D)
     check_kernels(torch, 2_048, 11_264, SEED + 10, device, 5,
-                  ("fused_right_apply_2d", "fused_left_apply_2d", "right_apply_2d_q8_i8"))
+                  ("fused_right_apply_2d", "fused_left_apply_2d", "right_apply_2d_q8_i8",
+                   "left_apply_2d_q8_i8"))
     check_kernels(torch, 2_000, 16_384, SEED + 11, device, 5,
-                  ("fused_right_apply_2d", "right_apply_2d_q8_i8"))
+                  ("fused_right_apply_2d", "right_apply_2d_q8_i8", "left_apply_2d_q8_i8"))
+    for d, n in ((2_048, 11_264), (2_000, 16_384)):
+        check_kernels(torch, d, n, SEED + 11, device, 3, ("left_apply_2d_q8_i8",),
+                      q8_tile=64)
+    check_kernels(torch, 262_144, 2_048, SEED + 13, device, 3, ("left_apply_2d_q8_i8",))
     check_kernels(torch, 65_536, 16_384, SEED + 6, device, 3,
                   ("fused_right_apply_2d",), ell=10)
     torch.cuda.empty_cache()

@@ -7,7 +7,7 @@
 //   - wgmma: the B128 shared-memory matrix descriptor,
 //     m64n128k16.f32.bf16.bf16 with B MN-major and A MN-major (the left
 //     product) or K-major (the right product), and m64n128k32.s32.s8.s8
-//     with both operands K-major (the q8 right product);
+//     with both operands K-major (the q8 right and left products);
 //   - the warp roles both products share (consumers, producer, loader);
 //   - decode_rows_with<Rows>: 16 rows of raw genotype groups -> bf16 rows
 //     of a (64 rows x 128 samples) operand tile, from per-row codes built

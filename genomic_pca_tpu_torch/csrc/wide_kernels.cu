@@ -1,5 +1,5 @@
-// Wide-sample (2-D mode) kernels: A^T W and sum_t sz_t G0_t^T z8_t, for
-// both genotype layouts.
+// Wide-sample (2-D mode) kernels: the left products A^T W, for both
+// genotype layouts.
 //
 // They replace the 2-D tiled TPU kernels of genomic_pca_tpu/ops/
 // pallas_kernels.py, which the JAX container picks once no full-width
@@ -9,22 +9,19 @@
 //                        _left2d_packed_kernel :657) -> gp_left2d_packed
 //   fused_left_apply_2d        (:346, pallas_call :363; body
 //                        _left2d_kernel :278)        -> gp_left2d_dense
-//   left_apply_2d_q8   (:1139, pallas_call :1158), packed -> gp_q8_left2d
-//                                      int8 (_clean_i8) -> gp_q8_left2d_dense
 //
 // The mode's right products are in their own sources: A B is
 // right2d_mma_kernel of right2d_kernels.cu in bf16 mode (gp_right2d_packed
 // / gp_right2d_dense) and right_kernel of packed_common.cuh unrounded in
 // f32 mode (gp_right_packed / gp_right_dense); G0 bq is
 // q8_right2d_mma_kernel of q8_right2d_kernels.cu (gp_q8_right2d /
-// gp_q8_right2d_dense).
+// gp_q8_right2d_dense); sum_t sz_t G0_t^T z8_t is q8_left2d_mma_kernel of
+// q8_left2d_kernels.cu (gp_q8_left2d / gp_q8_left2d_dense).
 //
 // Each kernel is a template over the genotype layout (PackedRows,
 // DenseRows of packed_common.cuh), as the 1-D main loops are: a packed
 // byte and an aligned dense 32-bit word both hold a group of four samples,
 // so the loaders read one group per thread and the loops are the same.
-// The dense q8 left product takes G0 = max(g, 0) per byte
-// (DenseRows::dosage), so the -127 sentinel is raw 0.
 //
 // The left products A^T W (kernels 6 and 14), bf16 mode: left2d_mma_kernel.
 // On an H100 at 65,536 x 16,384 x 128 the packed one is bound by the bf16
@@ -290,82 +287,6 @@ left2d_mma_kernel(const __grid_constant__ LeftMmaMaps maps, int groups,
   }
 }
 
-// out (N, L) = sum over row tiles t of sz[t] (G0_t^T z8_t).  Inside a
-// tile the product is summed exactly in int32 (2 * 127 * tile_d < 2^31);
-// sums under different scales cannot be added as integers, so at every
-// tile boundary the int32 sum is scaled by that tile's sz and added to
-// the f32 accumulator, in tile order.
-template <class Rows>
-__global__ void __launch_bounds__(kThreads)
-q8_left2d_kernel(Rows g, const int8_t* __restrict__ z8,
-                 const float* __restrict__ sz, float* __restrict__ out, int D,
-                 int L, int tile_d) {
-  // Byte k of word row [m] holds variant row k of the chunk; the odd row
-  // stride keeps the column reads of the inner loop off one bank.
-  __shared__ int Aw[kBM][kQR / 4 + 1];
-  __shared__ int Bw[kBN][kQR / 4 + 1];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int s0 = blockIdx.x * kBM, l0 = blockIdx.y * kBN;
-  const int n_tiles = (D + tile_d - 1) / tile_d;
-  const int N = 4 * g.groups;
-  const int ak = tid >> 4, aq = tid & 15;  // A loader: row, group
-  const int jg = (s0 >> 2) + aq;
-  int8_t* A8 = reinterpret_cast<int8_t*>(&Aw[0][0]);
-  int8_t* B8 = reinterpret_cast<int8_t*>(&Bw[0][0]);
-  constexpr int kRow = 4 * (kQR / 4 + 1);  // bytes per padded word row
-
-  float facc[4][4] = {};
-  for (int t = 0; t < n_tiles; ++t) {
-    const int tstart = t * tile_d;
-    const int tend = min(D, tstart + tile_d);
-    const float scale = sz[t];
-    int iacc[4][4] = {};
-    for (int dc = tstart; dc < tend; dc += kQR) {
-      const int d = dc + ak;
-      uint32_t v = Rows::kMissing;  // all missing -> dosage 0
-      if (d < tend && jg < g.groups) v = g.group(d, jg);
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        A8[(aq * 4 + p) * kRow + ak] = (int8_t)Rows::dosage(v, p);
-      for (int e = tid; e < kQR * kBN; e += kThreads) {
-        const int k = e / kBN, n = e % kBN;
-        const int dd = dc + k, l = l0 + n;
-        B8[n * kRow + k] = (dd < tend && l < L) ? z8[(size_t)dd * L + l] : 0;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kw = 0; kw < kQR / 4; ++kw) {
-        int a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = Aw[ty + 16 * i][kw];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bw[tx + 16 * j][kw];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            iacc[i][j] = __dp4a(a[i], b[j], iacc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        facc[i][j] = __fadd_rn(facc[i][j], __fmul_rn((float)iacc[i][j], scale));
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = s0 + ty + 16 * i;
-    if (s >= N) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = l0 + tx + 16 * j;
-      if (c < L) out[(size_t)s * L + c] = facc[i][j];
-    }
-  }
-}
-
 // Launchers shared by the packed and dense entry points.
 
 // The launch of left2d_mma_kernel over D rows, rows of `groups` groups
@@ -436,15 +357,6 @@ int launch_left2d(Rows g, const void* mean, const void* inv_std, const void* w,
                            ranges, sms, st);
 }
 
-template <class Rows>
-int launch_q8_left2d(Rows g, const void* z8, const void* sz, void* out, int D,
-                     int L, int tile_d, void* stream) {
-  q8_left2d_kernel<Rows><<<grid_of(4 * g.groups, L), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      g, (const int8_t*)z8, (const float*)sz, (float*)out, D, L, tile_d);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace gp
 
 extern "C" {
@@ -477,20 +389,6 @@ int gp_left2d_plan(int D, int n4, int L, int sms, int* plan) {
   plan[3] = (int)p.grid.y;
   plan[4] = (int)p.grid.z;
   return 0;
-}
-
-// out (N, L) = sum_t sz[t] G0_t^T z8_t.
-int gp_q8_left2d(const void* packed, const void* z8, const void* sz, void* out,
-                 int D, int n4, int L, int tile_d, void* stream) {
-  return gp::launch_q8_left2d(gp::PackedRows{(const uint8_t*)packed, n4}, z8,
-                              sz, out, D, L, tile_d, stream);
-}
-
-int gp_q8_left2d_dense(const void* geno, const void* z8, const void* sz,
-                       void* out, int D, int n4, int L, int tile_d,
-                       void* stream) {
-  return gp::launch_q8_left2d(gp::DenseRows{(const int8_t*)geno, n4}, z8, sz,
-                              out, D, L, tile_d, stream);
 }
 
 }  // extern "C"

@@ -2,24 +2,26 @@
 GPU: the left products A^T W (kernels 6 and 14), the right products A B
 (kernels 5 and 13), the 1-D gram pass A^T bf16(A B) (kernels 2 and 10),
 the q8 right products G0 bq (kernels 7 and 7i), the 1-D tsq pass
-bf16(A B)^T bf16(A B) (kernels 3 and 12) and the 1-D right products A B
-(kernels 4 and 11).
+bf16(A B)^T bf16(A B) (kernels 3 and 12), the 1-D right products A B
+(kernels 4 and 11) and the q8 left products sum_t sz[t] G0_t^T z8_t
+(kernels 8 and 8i).
 
     python -m genomic_pca_tpu_torch.eval.mma2d_ab TAG [--lines LINE ...]
 
 Run it from the root of each tree to compare (the kernels build from that
 tree's `csrc/`), alternating the trees on one card, so that they share its
-clocks and power limit.  The q8 and tsq lines time a tree's kernel
+clocks and power limit.  The q8, tsq and right1d lines time a tree's kernel
 through its own wrapper and C calls, so they also time a tree whose
 wrapper predates this script: run this file with that tree first on
 PYTHONPATH,
 
-    PYTHONPATH=<tree> python <this file> TAG --lines q8right tsq right1d
+    PYTHONPATH=<tree> python <this file> TAG --lines q8right tsq right1d q8left
 
 It first holds each product of each layout to its plain version at small
 shapes (ragged ones, for the right products a strip whose samples split,
 for the left ones and the gram pass a matrix whose rows split), with a
-second launch equal bit for bit (the q8 products bit for bit to plain); a
+second launch equal bit for bit (the q8 products bit for bit to plain; the
+q8 left ones to 1e-5 of the tile-ordered fold, see `q8left_agrees`); a
 tree that disagrees exits 2 and is not timed.  Then it prints these lines
 (`--lines` picks some),
 
@@ -36,6 +38,8 @@ tree that disagrees exits 2 and is not timed.  Then it prints these lines
           packed <ms> dense <ms> multi_dot packed <ms> dense <ms>
     [TAG] right1d <layout> <D>x<N> L=<L> fma <ms> narrow <ms> wide <ms>
           call <ms> matmul <ms>        (one line a shape and width)
+    [TAG] q8left <D>x<N> packed <ms> call <ms> dense <ms> call <ms> matmul
+          <ms> int_mm <ms> pass packed <ms> dense <ms>   (one line a shape)
 
 the mean time of back-to-back launches of the C entries (the wrappers'
 host work excluded: W and B already bf16, bq already transposed), L = 128
@@ -72,7 +76,20 @@ and 11 in bf16 mode at L = 10, 16, 32 and 128 (`right1d_ms`: the FMA loop,
 the narrow kernel, the 2-D kernel's f32 store, the wrapper call and
 `torch.matmul`) at 262,144 x 2,048 (both layouts, 20 launches), 65,536 x
 10,000 (dense, 20) and the streamed strip 2,048 x 2,048 (both, 200): the
-crossover of the narrow and wide routes.  Exits 1 without a CUDA device.
+crossover of the narrow and wide routes.  The q8left line times kernels 8
+and 8i (L = 128, row tiles of 1,024) at 65,536 x 16,384 (20 launches),
+the streamed strip 2,048 x 11,264 (200) and the 1-D width 262,144 x 2,048
+(20): the C calls a wrapper call makes (replayed: since the tensor-core
+kernel, the z8 transpose, the kernel and the sum of its row split), the
+wrapper call itself ("call"), and as yardsticks on operands already
+decoded `torch.matmul(G0^T, Z)` in f32 (TF32 off; Z = z8 with each row
+scaled by its tile's sz: the same function up to f32 rounding) and
+`torch._int_mm(G0^T, z8)` (the int8 rate, without the scales), and the
+whole 2-D q8 power pass (`q8_power_pass_2d`: kernel 7 / 7i, the torch
+requantization, kernel 8 / 8i; "pass").  Its check
+holds the kernel to a tile-ordered fold at the plan's ranges (one range
+in a tree without the plan) and prints whether it is bit for bit.  Exits
+1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -100,6 +117,8 @@ NAMES = {
     ("tsq", "dense"): "fused_tsq",
     ("right1d", "packed"): "fused_right_apply_packed",
     ("right1d", "dense"): "fused_right_apply",
+    ("q8left", "packed"): "left_apply_2d_q8",
+    ("q8left", "dense"): "left_apply_2d_q8_i8",
 }
 CHECKS = {
     "left": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
@@ -109,17 +128,23 @@ CHECKS = {
     "tsq": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
     "right1d": ((40, 256, 10), (300, 2100, 16), (2048, 2048, 10), (4096, 1024, 1),
                 (4096, 1024, 32), (4096, 1024, 128)),
+    "q8left": ((40, 256, 10), (300, 2100, 130), (2000, 4096, 128), (4096, 1024, 128)),
 }
 LAYOUTS = ("packed", "dense")
 # The products each printed line times (the gram line also its halves).
 LINES = {"left": ("left",), "right": ("right",), "gram": ("gram", "right", "left"),
-         "q8right": ("q8right",), "tsq": ("tsq",), "right1d": ("right1d",)}
+         "q8right": ("q8right",), "tsq": ("tsq",), "right1d": ("right1d",),
+         "q8left": ("q8left",)}
 # The right1d line's shapes (layout, D, N, launches) and widths: the 1-D
 # main shape, the dense EigenSNP finalize's loadings and a streamed strip.
 RIGHT1D_SHAPES = (("packed", 262_144, 2_048, 20), ("dense", 262_144, 2_048, 20),
                   ("dense", 65_536, 10_000, 20), ("packed", 2_048, 2_048, 200),
                   ("dense", 2_048, 2_048, 200))
 RIGHT1D_ELLS = (10, 16, 32, 128)
+# The q8left line's shapes (D, N, launches): the 2-D kernel shape, a
+# streamed strip at the 2-D switch width and the 1-D width.
+Q8LEFT_SHAPES = ((65_536, 16_384, 20), (2_048, 11_264, 200), (262_144, 2_048, 20))
+Q8LEFT_TILE = 1024
 
 
 def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
@@ -136,6 +161,8 @@ def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
     rng = np.random.default_rng(seed)
     if product == "q8right":
         return q8right_agrees(layout, d, n, ell, device, rng)
+    if product == "q8left":
+        return q8left_agrees(layout, d, n, ell, device, rng)
     g = rng.integers(0, 3, size=(d, n)).astype(np.int8)
     if layout == "dense":
         odd = rng.random(g.shape) < 0.02
@@ -177,6 +204,51 @@ def q8right_agrees(layout: str, d: int, n: int, ell: int, device, rng) -> bool:
     got, again = tk.right_apply_2d_q8(*args), tk.right_apply_2d_q8(*args)
     ref = tk.PLAIN[NAMES["q8right", layout]](*args)
     return bool(torch.equal(got, ref)) and bool(torch.equal(got, again))
+
+
+def tile_ordered(geno, z8, sz, tile_d, ranges=(0,)):
+    """sum_t sz[t] G0_t^T z8_t folded in tile order from zeros (f32, one
+    rounding a multiply and one an add), each range of row tiles apart and
+    the ranges added in order: the order of `left_apply_2d_q8_plain` since
+    the tensor-core kernel, written out here so that an older tree, whose
+    plain version sums the tiles in torch's order, is held to it too."""
+    g0 = tk.dosages_g0(geno).to(torch.float32)
+    d = g0.shape[0]
+    bounds = [*ranges, -(-d // tile_d)]
+    total = None
+    for lo, hi in zip(bounds, bounds[1:]):
+        part = torch.zeros((g0.shape[1], z8.shape[1]), device=geno.device)
+        for t in range(lo, hi):
+            rows = slice(t * tile_d, min(d, (t + 1) * tile_d))
+            part = part + (g0[rows].T @ z8[rows].to(torch.float32)) * sz[t]
+        total = part if total is None else total + part
+    return total
+
+
+def q8left_agrees(layout: str, d: int, n: int, ell: int, device, rng,
+                  tile_d: int = 64) -> bool:
+    """Kernel 8 or 8i against `tile_ordered` at the plan's row ranges (one
+    range on the CPU or in a tree without `q8_left2d_plan`) to 1e-5 of
+    max|ref|, on dosages {0, 1, 2} with 5% missing, a random z8 and
+    scales, and a second launch equal bit for bit; prints whether the
+    kernel is bit for bit."""
+    g = rng.integers(0, 3, size=(d, n)).astype(np.int8)
+    g[rng.random(g.shape) < 0.05] = -127
+    geno = pack_int8_rows(g) if layout == "packed" else g
+    z8 = rng.integers(-127, 128, size=(d, ell)).astype(np.int8)
+    sz = rng.uniform(0.01, 0.1, size=-(-d // tile_d)).astype(np.float32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (geno, z8, sz)]
+    got, again = (tk.left_apply_2d_q8(*args, tile_d), tk.left_apply_2d_q8(*args, tile_d))
+    ranges = (0,)
+    if device.type == "cuda" and hasattr(tk, "q8_left2d_plan"):
+        ranges = tk.q8_left2d_plan(d, tk._samples(tk.aligned_rows(args[0])), ell,
+                                   tile_d)[2]
+    ref = tile_ordered(*args, tile_d, ranges)[: got.shape[0]]
+    exact = bool(torch.equal(got, ref))
+    print(f"q8left {layout} D={d} N={n} L={ell} tile {tile_d} ranges {len(ranges)}: "
+          f"bit for bit {exact}", flush=True)
+    err = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+    return err <= 1e-5 and bool(torch.equal(got, again))
 
 
 def pass_w(geno, mean, inv_std, b, fma: bool = False):
@@ -422,6 +494,50 @@ def right1d_ms(layout: str, d: int, n: int, ell: int, reps: int) -> dict:
     return ms
 
 
+def q8left_ms(layout: str, d: int, n: int, reps: int, call: bool) -> float:
+    """Mean ms of `reps` back-to-back q8 left products (L = 128, row tiles
+    of Q8LEFT_TILE): the C calls a wrapper call makes, replayed with the
+    arguments it passed, or (`call`) the wrapper itself."""
+    g = operands(layout, d, n)[0]
+    z8 = torch.randint(-127, 128, (d, 128), device=g.device, dtype=torch.int8)
+    sz = torch.rand(-(-d // Q8LEFT_TILE), device=g.device) + 0.01
+    if call:
+        return mean_ms(lambda: tk.left_apply_2d_q8(g, z8, sz, Q8LEFT_TILE), reps)
+    return replay_ms(captured_launches(tk.left_apply_2d_q8, g, z8, sz, Q8LEFT_TILE),
+                     reps, f"q8left {layout}")
+
+
+def q8left_library_ms(d: int, n: int, reps: int) -> tuple:
+    """Mean ms of `torch.matmul(G0^T, Z)` in f32 with TF32 off (Z = z8 with
+    each row scaled by its tile's sz: the q8 left product up to f32
+    rounding) and of `torch._int_mm(G0^T, z8)` (int8, G0^T row-major, z8
+    column-major, without the scales), on operands already decoded.
+    Yardsticks only: the port never calls them."""
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g0t = torch.randint(0, 3, (n, d), device=dev, dtype=torch.int8)
+    z8 = torch.randint(-127, 128, (128, d), device=dev, dtype=torch.int8).t()
+    sz = torch.rand(-(-d // Q8LEFT_TILE), device=dev) + 0.01
+    a = g0t.to(torch.float32)
+    z = z8.to(torch.float32) * sz.repeat_interleave(Q8LEFT_TILE)[:d, None]
+    mm = mean_ms(lambda: torch.matmul(a, z), reps)
+    del a, z
+    return mm, mean_ms(lambda: torch._int_mm(g0t, z8), reps)
+
+
+def q8pass_ms(layout: str, d: int, n: int, reps: int) -> float:
+    """Mean ms of `reps` back-to-back 2-D q8 power passes
+    (`q8_power_pass_2d`, L = 128, row tiles of Q8LEFT_TILE) on random
+    bytes and a random basis."""
+    from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
+
+    g, mean, inv, b = operands(layout, d, n)
+    bq, sb, csum = quantize_basis(b)
+    u = mean * inv
+    return mean_ms(lambda: tk.q8_power_pass_2d(g, inv, u, bq, sb, csum,
+                                               tile_d=Q8LEFT_TILE), reps)
+
+
 def int_mm_ms(d: int, n: int, reps: int) -> float:
     """Mean ms of `torch._int_mm(G0, bq)` at D x N, L = 128, on operands
     already decoded: G0 int8 row-major, bq int8 column-major (as cuBLASLt
@@ -514,6 +630,14 @@ def main(argv=None) -> int:
         dots = " ".join(f"{lay} {multi_dot_ms(lay, d, n, 20):.4f}" for lay in LAYOUTS)
         print(f"[{a.tag}] tsq {calls} wtw {'-' if wtw is None else f'{wtw:.4f}'} "
               f"fma {fma} multi_dot {dots}", flush=True)
+    if "q8left" in a.lines:
+        for d, n, reps in Q8LEFT_SHAPES:
+            calls = " ".join(f"{lay} {q8left_ms(lay, d, n, reps, False):.4f} call "
+                             f"{q8left_ms(lay, d, n, reps, True):.4f}" for lay in LAYOUTS)
+            mm, imm = q8left_library_ms(d, n, reps)
+            passes = " ".join(f"{lay} {q8pass_ms(lay, d, n, reps):.4f}" for lay in LAYOUTS)
+            print(f"[{a.tag}] q8left {d}x{n} {calls} matmul {mm:.4f} int_mm {imm:.4f} "
+                  f"pass {passes}", flush=True)
     if "right1d" in a.lines:
         for layout, d, n, reps in RIGHT1D_SHAPES:
             for ell in RIGHT1D_ELLS:

@@ -39,6 +39,7 @@ SIGNATURES = {
     "gp_left2d_plan": [_I, _I, _I, _I, _P],
     "gp_right2d_plan": [_I, _I, _I, _I, _P],
     "gp_q8_right2d_plan": [_I, _I, _I, _I, _P],
+    "gp_q8_left2d_plan": [_I, _I, _I, _I, _I, _P],
     "gp_gram_plan": [_I, _I, _I, _I, _I, _P],
     "gp_tsq_plan": [_I, _I, _I, _I, _I, _P],
     "gp_wtw_plan": [_I, _I, _I, _P],
@@ -61,14 +62,14 @@ SIGNATURES = {
     "gp_q8_left": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_left2d_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_right2d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gp_q8_left2d": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gp_q8_left2d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_right_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_w_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gp_q8_left_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_left2d_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_right2d_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "gp_q8_left2d_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gp_q8_left2d_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -189,12 +189,30 @@ def _row_tiles(x: torch.Tensor, tile_d: int) -> torch.Tensor:
     )
 
 
-def left_apply_2d_q8_plain(geno, z8, sz, tile_d):
-    """sum_t sz[t] (G0_t^T z8_t), each tile's integer product exact."""
-    g_t = _row_tiles(dosages_g0(geno), tile_d)
+def left_apply_2d_q8_plain(geno, z8, sz, tile_d, ranges=(0,)):
+    """sum_t sz[t] (G0_t^T z8_t), folded in tile order (the reference
+    kernel's order) as the card's kernel folds it: each tile's integer
+    product exact, then out = out + P_t * sz[t] from zeros, one f32
+    rounding for the multiply and one for the add.  `ranges` holds the first row tile of each range
+    of rows (`q8_left2d_plan`'s): each range folds its tiles so from zeros,
+    and the ranges' partials are added in range order, as
+    sum_splits_kernel adds the kernel's slab."""
+    g0 = dosages_g0(geno)
+    d, n = g0.shape
     dt = _exact_int_dtype(2 * 127 * tile_d)
-    t_int = g_t.to(dt).transpose(1, 2) @ _row_tiles(z8, tile_d).to(dt)
-    return (t_int.to(torch.float32) * sz[:, None, None]).sum(dim=0)
+    bounds = [*ranges, -(-d // tile_d)]
+    if bounds[0] != 0 or any(a >= b for a, b in zip(bounds, bounds[1:])):
+        raise ValueError(f"ranges must be increasing first tiles from 0 below "
+                         f"{bounds[-1]}, got {tuple(ranges)}")
+    total = None
+    for lo, hi in zip(bounds, bounds[1:]):
+        part = torch.zeros((n, z8.shape[1]), dtype=torch.float32, device=geno.device)
+        for t in range(lo, hi):
+            rows = slice(t * tile_d, min(d, (t + 1) * tile_d))
+            prod = (g0[rows].to(dt).T @ z8[rows].to(dt)).to(torch.float32)
+            part = part + prod * sz[t]
+        total = part if total is None else total + part
+    return total
 
 
 def quantize_rows(z: torch.Tensor, tile_d: int):
@@ -1036,13 +1054,52 @@ def right_apply_2d_q8(geno, bq):
 
 
 # left_apply_2d_q8 replaces pallas_kernels.py left_apply_2d_q8 (:1139,
-# pallas_call :1158), both branches (kernel 8 packed, 8i int8, counted
-# apart): sum_t sz[t] (G0_t^T z8_t) with z8 quantized per row tile of
-# `tile_d`.  Bound by the dp4a instruction rate.  One block per (64
-# samples x 64 columns) output tile loops over all row tiles: the int32
-# sum of a tile is exact, and is scaled by that tile's sz and added to
-# the f32 accumulator at every tile boundary (sums under different scales
-# cannot be added as integers).  No atomics, fixed sum order.
+# pallas_call :1158; body _left2d_q8_kernel :1073), both branches (kernel
+# 8 packed, 8i int8, counted apart): sum_t sz[t] (G0_t^T z8_t) with z8
+# quantized per row tile of `tile_d`.  Bound on an H100 at 65,536 x 16,384
+# x 128 by the int8 tensor-core rate packed (2*D*N*L operations, 0.139 ms)
+# and by its 1 GiB of bytes dense (0.33 ms).  Design (q8_left2d_mma_kernel,
+# csrc/q8_left2d_kernels.cu): kernel 7's pipeline turned over - one block
+# per 128 samples x 128 columns loops over its rows in chunks of 128; a
+# loader warp's TMA loads bring the raw rows and the tiles of z8^T (built
+# on the card in the same C call, `q8_left_operand` states it); a producer
+# warp decodes and transposes each chunk into G0^T (samples x rows); two
+# consumer warpgroups run s8 wgmma into int32, one row tile at a time, and
+# fold each tile into an f32 total in tile order (the plain version's
+# order, bit for bit).  Where the sample blocks are fewer than the SMs the
+# rows split into ranges of whole tiles whose f32 slabs are added in a
+# fixed order (`q8_left2d_plan`).  On the card `tile_d` must be a multiple
+# of 32 (a K step of the MMA); the plain version takes any.
+
+
+def q8_left2d_plan(d: int, n_samples: int, ell: int, tile_d: int, sms: int = None) -> tuple:
+    """(tile, grid, ranges, workspace bytes) of the q8 left product over
+    `d` rows, `n_samples` samples (the genotype rows' width), `ell` columns
+    of z8 and row tiles of `tile_d` on `sms` SMs (default: the current CUDA
+    device's), as launch_q8_left2d launches it: tile (samples, columns),
+    grid (sample blocks, column blocks), the first row tile of each range
+    of rows (one range unless the blocks are fewer than the SMs; the
+    `ranges` of `left_apply_2d_q8_plain`), and the bytes of the workspace
+    the C call takes (z8^T as `q8_left_operand` gives it, padded to 256
+    bytes, then the ranges' slab).  Read from the built library
+    (`gp_q8_left2d_plan`)."""
+    p = _library_plan("gp_q8_left2d_plan", 7, ctypes.c_longlong, d, n_samples, ell,
+                      tile_d, _current_sms(sms))
+    return (p[0], p[1]), (p[2], p[3]), tuple(range(0, p[4] * p[5], p[5])), p[6]
+
+
+def q8_left_operand(z8: torch.Tensor) -> torch.Tensor:
+    """z8 (D, L) int8 as the q8 left product reads it (built on the card
+    by transpose_z8_kernel in the same C call, at the head of the
+    workspace; this states the layout and serves the tests): transposed,
+    (L_pad, D_pad) int8 contiguous, L and D padded to multiples of 16 so
+    that a row is whole 16-byte units, every pad entry 0, so that rows past
+    D (whose packed bytes TMA fills with zeros, dosage 2) add nothing."""
+    d, ell = z8.shape
+    out = torch.zeros((-(-ell // 16) * 16, -(-d // 16) * 16), dtype=torch.int8,
+                      device=z8.device)
+    out[:ell, :d] = z8.T
+    return out
 
 
 def left_apply_2d_q8(geno, z8, sz, tile_d):
@@ -1061,12 +1118,21 @@ def left_apply_2d_q8(geno, z8, sz, tile_d):
     sz = _require(sz, "sz", torch.float32, (-(-d // tile_d),), dev)
     if _route(geno) == "plain":
         return left_apply_2d_q8_plain(geno, z8, sz, tile_d)
+    if tile_d % 32:
+        raise ValueError(f"the q8 left kernel folds whole K steps of 32 rows: "
+                         f"tile_d must be a multiple of 32, got {tile_d}")
     LAUNCHES[_Q8_2D_NAME[dtype][1]] += 1
     ell = z8.shape[1]
-    out = torch.empty((n, ell), dtype=torch.float32, device=dev)
-    _launch(dev, _ENTRY[dtype]["q8_left2d"], geno, z8, sz, out, d, n // 4, ell,
-            tile_d)
-    return out
+    if not (d and n and ell):
+        return torch.zeros((n, ell), dtype=torch.float32, device=dev)
+    geno, sms = aligned_rows(geno), _sms(dev)
+    samples = _samples(geno)
+    work = torch.empty(q8_left2d_plan(d, samples, ell, tile_d, sms)[3], dtype=torch.uint8,
+                       device=dev)
+    out = torch.empty((samples, ell), dtype=torch.float32, device=dev)
+    _launch(dev, _ENTRY[dtype]["q8_left2d"], geno, z8, sz, out, work, d, samples // 4,
+            ell, tile_d, sms)
+    return out[:n]
 
 
 def q8_power_pass_2d(geno, inv_std, u, bq, sb, csum, tile_d=1024):

@@ -395,8 +395,9 @@ def test_tsq_1d_kernel_matches_plain_and_repeats(cuda_device, monkeypatch, layou
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,n,tile_d", [(300, 250, 64), (2048, 512, 1024)])
 def test_wide_q8_kernels_match_plain_and_quant_model(cuda_device, d, n, tile_d):
-    """Kernel 7 bit for bit (exact integer sums); kernel 8 to 1e-5 (f32
-    sum order over tiles); the whole pass against the plain pass on the
+    """Kernels 7 and 8 bit for bit (exact integer sums; 8 folds its tiles
+    in order, as its plain version at the plan's row ranges); the whole
+    pass against the plain pass on the
     card (the same glue, so the same z8: 1e-5) and against the float64
     replay of the quantization model.  Against the replay a z that sits
     at an 8-bit rounding boundary in f32 can round the other way in
@@ -414,9 +415,7 @@ def test_wide_q8_kernels_match_plain_and_quant_model(cuda_device, d, n, tile_d):
     z8 = torch.randint(-127, 128, (d, 128), dtype=torch.int8, device=cuda_device)
     sz = torch.rand(-(-d // tile_d), device=cuda_device) + 0.01
     got = tk.left_apply_2d_q8(packed, z8, sz, tile_d)
-    ref = tk.left_apply_2d_q8_plain(packed, z8, sz, tile_d)
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(got, _q8_left_plain(packed, z8, sz, tile_d))
     out, ru = tk.q8_power_pass_2d(*args, tile_d=tile_d)
     assert tk.LAUNCHES["right_apply_2d_q8"] == 2
     assert tk.LAUNCHES["left_apply_2d_q8"] == 2
@@ -509,6 +508,112 @@ def test_q8_right_2d_sums_past_2_24_are_exact_with_and_without_a_split(cuda_devi
     np.testing.assert_array_equal(got.cpu().numpy(), exact.astype(np.float32))
     np.testing.assert_array_equal(one.cpu().numpy(), exact.astype(np.float32))
     assert torch.equal(got, tk.right_apply_2d_q8_plain(geno, b))
+
+
+def _q8_left_plain(geno, z8, sz, tile_d):
+    """The plain q8 left product at the row ranges the kernel's plan splits
+    these rows into: the kernel's order, so its bits."""
+    ranges = tk.q8_left2d_plan(geno.shape[0], tk._samples(tk.aligned_rows(geno)),
+                               z8.shape[1], tile_d)[2]
+    return tk.left_apply_2d_q8_plain(geno, z8, sz, tile_d, ranges)
+
+
+def _q8_left_case(rng, d, n, ell, tile_d, layout):
+    """Unstructured dosages {0, 1, 2} with 5% missing and row 7 all missing
+    (the -127 sentinel dense), packed or int8, a random z8 (D, L) and
+    per-tile scales."""
+    g = rng.integers(0, 3, size=(d, n)).astype(np.int8)
+    g[rng.random(g.shape) < 0.05] = -127
+    g[min(7, d - 1)] = -127
+    z8 = rng.integers(-127, 128, size=(d, ell)).astype(np.int8)
+    sz = rng.uniform(0.01, 0.1, size=-(-d // tile_d)).astype(np.float32)
+    return (pack_int8_rows(g) if layout == "packed" else g), z8, sz
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+@pytest.mark.parametrize("d,n,ell,tile_d", [
+    (200, 1_100, 10, 32), (300, 2_100, 130, 64),  # ragged rows and samples
+    (2_000, 16_384, 128, 1024),  # an EigenSNP strip: a ragged last row tile
+    (2_048, 11_264, 128, 1024), (2_048, 11_264, 128, 64),  # rows split in 2
+    (4_100, 2_048, 128, 64),  # the 1-D width: rows split 8 ways, ragged
+])
+def test_q8_left_2d_kernel_matches_plain_bit_for_bit(cuda_device, layout, d, n, ell,
+                                                    tile_d):
+    """Kernels 8 and 8i (s8 wgmma, each row tile's int32 sum folded into
+    f32 in tile order, ranges of whole tiles added in order) equal their
+    plain versions at the plan's ranges bit for bit, at rows, samples and
+    tiles that are not whole chunks (TMA's zero fill decodes to dosage 2
+    packed: those rows must meet zero columns of z8^T, those samples must
+    not be stored), at row tiles of 32, 64 and 1,024 and at split strips;
+    a second launch repeats the bits; each branch counts under its own
+    key."""
+    geno, z8, sz = _on(cuda_device, *_q8_left_case(np.random.default_rng(16), d, n,
+                                                   ell, tile_d, layout))
+    tk.reset_launch_counts()
+    got = tk.left_apply_2d_q8(geno, z8, sz, tile_d)
+    again = tk.left_apply_2d_q8(geno, z8, sz, tile_d)
+    torch.cuda.synchronize()
+    name = "left_apply_2d_q8" if layout == "packed" else "left_apply_2d_q8_i8"
+    assert tk.LAUNCHES == dict(ZERO, **{name: 2})
+    assert got.shape == (n, ell)
+    assert torch.equal(got, _q8_left_plain(geno, z8, sz, tile_d))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_q8_left_2d_refuses_a_tile_of_partial_k_steps(cuda_device, layout):
+    """On the card the row tile must be whole K steps of 32 rows: 48 raises
+    ValueError before any launch, with no fallback to the plain version."""
+    geno, z8, sz = _on(cuda_device, *_q8_left_case(np.random.default_rng(17), 96, 256,
+                                                   128, 48, layout))
+    tk.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tk.left_apply_2d_q8(geno, z8, sz, 48)
+    assert tk.LAUNCHES == ZERO
+
+
+@pytest.mark.cuda
+def test_q8_left_2d_plan(cuda_device):
+    """The q8 left product's tile, grid, row ranges (first row tile of
+    each) and workspace bytes (z8^T, then the slab) as the library reports
+    them: one range at the 2-D kernel shape and the EigenSNP strip, two at
+    the streamed strip of the switch width, eight at the 1-D width."""
+    assert tk.q8_left2d_plan(65_536, 16_384, 128, 1024, 132) == (
+        (128, 128), (128, 1), (0,), 128 * 65_536)
+    assert tk.q8_left2d_plan(131_072, 16_384, 128, 1024, 132)[1:3] == ((128, 1), (0,))
+    assert tk.q8_left2d_plan(2_000, 16_384, 128, 1024, 132) == (
+        (128, 128), (128, 1), (0,), 128 * 2_000)
+    assert tk.q8_left2d_plan(2_048, 11_264, 128, 1024, 132) == (
+        (128, 128), (88, 1), (0, 1), 128 * 2_048 + 4 * 2 * 11_264 * 128)
+    assert tk.q8_left2d_plan(262_144, 2_048, 128, 1024, 132) == (
+        (128, 128), (16, 1), tuple(range(0, 256, 32)),
+        128 * 262_144 + 4 * 8 * 2_048 * 128)
+    assert tk.q8_left2d_plan(2_048, 2_048, 128, 1024, 132)[2] == (0, 1)
+    assert tk.q8_left2d_plan(300, 2_112, 130, 64, 132)[1:3] == ((17, 2), (0, 2, 4))
+    assert tk.q8_left2d_plan(262_144, 2_048, 128, 1024, 1)[2] == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_q8_left_2d_builds_z8t_as_the_operand_states(cuda_device, layout):
+    """The C call builds z8^T at the head of its workspace as
+    `q8_left_operand` states it (zero pads), and the result is the
+    wrapper's."""
+    d, n, ell, tile_d = 300, 2_100, 130, 64
+    geno, z8, sz = _on(cuda_device, *_q8_left_case(np.random.default_rng(18), d, n, ell,
+                                                   tile_d, layout))
+    rows = tk.aligned_rows(geno)
+    samples = tk._samples(rows)
+    work_bytes = tk.q8_left2d_plan(d, samples, ell, tile_d)[3]
+    work = torch.full((work_bytes,), 0x5A, dtype=torch.uint8, device=cuda_device)
+    out = torch.empty((samples, ell), dtype=torch.float32, device=cuda_device)
+    tk._launch(cuda_device, tk._ENTRY[geno.dtype]["q8_left2d"], rows, z8, sz, out, work,
+               d, samples // 4, ell, tile_d, tk._sms(cuda_device))
+    op = tk.q8_left_operand(z8)
+    assert torch.equal(work[: op.numel()].view(torch.int8).view(op.shape), op)
+    assert torch.equal(out[:n], tk.left_apply_2d_q8(geno, z8, sz, tile_d))
 
 
 @pytest.mark.cuda
@@ -653,8 +758,8 @@ def test_dense_2d_exact_kernel_matches_plain(cuda_device, precision):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,n,tile_d", [(300, 252, 64), (2048, 512, 1024)])
 def test_dense_2d_q8_kernels_match_plain_and_quant_model(cuda_device, d, n, tile_d):
-    """Kernel 7i bit for bit (exact integer sums, the sentinel as raw 0),
-    8i to 1e-5 (f32 sum order over tiles), the whole dense 2-D pass
+    """Kernels 7i and 8i bit for bit (exact integer sums, the sentinel as
+    raw 0; 8i at its plan's row ranges), the whole dense 2-D pass
     against the plain pass and the float64 replay (1e-3 of max|T|, as the
     packed 2-D pass); each branch counts under its own key."""
     g, iv, u, bq, sb, csum = q8_case(np.random.default_rng(12), d, n, 128,
@@ -667,9 +772,7 @@ def test_dense_2d_q8_kernels_match_plain_and_quant_model(cuda_device, d, n, tile
     z8 = torch.randint(-127, 128, (d, 128), dtype=torch.int8, device=cuda_device)
     sz = torch.rand(-(-d // tile_d), device=cuda_device) + 0.01
     got = tk.left_apply_2d_q8(geno, z8, sz, tile_d)
-    ref = tk.left_apply_2d_q8_plain(geno, z8, sz, tile_d)
-    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
-                               rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    assert torch.equal(got, _q8_left_plain(geno, z8, sz, tile_d))
     out, ru = tk.q8_power_pass_2d(*args, tile_d=tile_d)
     assert tk.LAUNCHES == dict(ZERO, right_apply_2d_q8_i8=2, left_apply_2d_q8_i8=2)
     t = (out - ru).cpu().numpy()
