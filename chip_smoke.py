@@ -15,7 +15,10 @@ no result line):
    the gram and tsq passes (kernels 2 and 3) held half by half; the right
    product (kernel 4: the narrow kernel at L <= 16, else the 2-D right
    product's f32 store, which must equal kernel 5 bit for bit) also on
-   that strip at L = 10 and L = 128;
+   that strip at L = 10 and L = 128; the q8 pass (kernel 1: one C call of
+   7's s8 product, the requantization and 8's) at all three shapes, its
+   `out` bit for bit the plain pass at its plan's row ranges, T = out - ru
+   to TOL, with its plan and a bit-identical second launch;
 4. the four 2-D (wide-sample) kernels the same way at 65,536 x 16,384,
    L = 128, and at 70,001 x 16,389; kernels 5-8 at 2,048 x 11,264 (a
    streamed strip at the 2-D switch width: their thinnest grids; 8's rows
@@ -26,7 +29,9 @@ no result line):
    a bit-identical second launch, 7 and 8 bit for bit to their plain
    versions (8 at its plan's row ranges); the 1-D gram and q8 passes
    against the 2-D ones at the wide shape; `q8_power_pass_2d` against a
-   float64 replay of its quantization model;
+   float64 replay of its quantization model, and (`check_q8_pass_2d`, the
+   q8 pass's one C call) bit for bit against 7, the torch requantization
+   and 8 composed, at 65,536 x 16,384 and 2,048 x 11,264;
 5. the 1-D main path, `streamed_pca(ShardedMatrix.from_packed_rows(...),
    k=10, n_power_iter=4, compute_loadings=True)` over structured
    genotypes of 262,144 x 2,048: launch counts 3 / 1 / 1 / 1 for q8 /
@@ -47,8 +52,8 @@ no result line):
    262,144 x 2,048 (L = 128; 10 for the right product) and at 70,001 x
    2,504 (container width 2,560), the exact three (10-12) at 65,536 x
    10,000 (container width 10,112), the width of phase 11, and the gram
-   pass (kernel 10) and the right product (kernel 11, L = 10 and 128) at
-   2,048 x 2,048, as kernels 2 and 4 in phase 3;
+   pass (kernel 10), the right product (kernel 11, L = 10 and 128) and the
+   q8 pass (kernel 9) at 2,048 x 2,048, as kernels 2, 4 and 1 in phase 3;
 10. the dense main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
    on the genotypes of phase 5 unpacked to int8 on the card: launch
    counts 3 / 1 / 1 / 1 for kernels 9 / 10 / 12 / 11 and none of 1-8, the
@@ -66,7 +71,8 @@ no result line):
    at 65,536 x 16,384 (1 GiB of int8), L = 128, and at 70,001 x 16,389
    (container width 16,512), and 13, 14, 7i and 8i at the thin shapes of
    phase 4 (8i also at row tiles of 64 and at 262,144 x 2,048) and 13 at
-   L = 10, each with a bit-identical second launch, as 5-8 in phase 4;
+   L = 10, each with a bit-identical second launch, as 5-8 in phase 4; the
+   dense 2-D q8 pass against 7i and 8i composed, as in phase 4;
 13. the dense 2-D main path, `streamed_pca(ShardedMatrix.from_arrays(...))`
    on the genotypes of phase 6 unpacked to int8 on the card (131,072 x
    16,384, 2 GiB): launch counts 3 / 3 / 3 / 1 for 7i / 8i / 13 / 14 and
@@ -107,8 +113,9 @@ FILESET = ROOT / "build" / "chip_smoke_eigensnp"  # phase 8's, kept for 14
 SEED = 20260
 
 # Kernel vs plain, both on the card, as max|kernel - plain| / max|plain|.
-# q8: the same integers and the same z, only the f32 sums over tiles and
-# splits run in another order.  bf16: the same rounded operands; W is
+# q8 passes: T = out - ru, whose `out` must also equal the plain pass at
+# the plan's row ranges bit for bit; only ru sums in another order.
+# bf16: the same rounded operands; W is
 # rounded to bf16 after a sum taken in another order, so a few entries
 # move by one bf16 ulp of W.  On an H100 the 1-D four stay at or below
 # 1.3e-6 at both shapes; the bound is about ten times that, so a dropped
@@ -156,7 +163,7 @@ WRAPPER = {"right_apply_2d_q8_i8": "right_apply_2d_q8",
 CSRC = "genomic_pca_tpu_torch/csrc/"
 PK = "genomic_pca_tpu/ops/pallas_kernels.py:"
 SOURCES = {
-    "fused_gram_q8_packed": (CSRC + "q8_kernels.cu", PK + "977"),
+    "fused_gram_q8_packed": (CSRC + "q8_pass.cuh", PK + "977"),
     "fused_gram_apply_packed": (CSRC + "exact_kernels.cu", PK + "492"),
     "fused_tsq_packed": (CSRC + "exact_kernels.cu", PK + "564"),
     "fused_right_apply_packed": (CSRC + "right1d_kernels.cu", PK + "529"),
@@ -164,7 +171,7 @@ SOURCES = {
     "fused_left_apply_2d_packed": (CSRC + "wide_kernels.cu", PK + "723"),
     "right_apply_2d_q8": (CSRC + "q8_right2d_kernels.cu", PK + "1096"),
     "left_apply_2d_q8": (CSRC + "q8_left2d_kernels.cu", PK + "1139"),
-    "fused_gram_q8": (CSRC + "dense_kernels.cu", PK + "847"),
+    "fused_gram_q8": (CSRC + "q8_pass.cuh", PK + "847"),
     "fused_gram_apply": (CSRC + "dense_kernels.cu", PK + "144"),
     "fused_tsq": (CSRC + "dense_kernels.cu", PK + "215"),
     "fused_right_apply": (CSRC + "right1d_kernels.cu", PK + "181"),
@@ -183,11 +190,13 @@ RIGHT_MMA = ("fused_right_apply_2d_packed", "fused_right_apply_2d")
 GRAM_MMA = ("fused_gram_apply_packed", "fused_gram_apply")  # bf16 mode
 Q8_RIGHT_MMA = ("right_apply_2d_q8", "right_apply_2d_q8_i8")
 Q8_LEFT_MMA = ("left_apply_2d_q8", "left_apply_2d_q8_i8")
+# The q8 passes: one C call of 7, the requantization and 8 (csrc/q8_pass.cuh).
+Q8_PASS = ("fused_gram_q8_packed", "fused_gram_q8")
 TSQ_MMA = ("fused_tsq_packed", "fused_tsq")  # bf16 mode
 # bf16 mode: the narrow kernel (L <= 16), else the 2-D right product's store.
 RIGHT1D_MMA = ("fused_right_apply_packed", "fused_right_apply")
 BITWISE_RERUN = (LEFT_MMA + RIGHT_MMA + GRAM_MMA + Q8_RIGHT_MMA + TSQ_MMA + RIGHT1D_MMA
-                 + Q8_LEFT_MMA)
+                 + Q8_LEFT_MMA + Q8_PASS)
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
 # device memory rate, and tensor-core rates for the operand type of each
@@ -560,6 +569,10 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
             q8_plan = tk.q8_left2d_plan(d, tk._samples(tk.aligned_rows(args[0])),
                                         args[1].shape[1], q8_tile)
             plain_kw = dict(kw, ranges=q8_plan[2])
+        if name in Q8_PASS:
+            q8_plan = tk.q8_pass_plan(d, tk._samples(tk.aligned_rows(args[0])),
+                                      args[3].shape[1], kw["tile_d"])
+            plain_kw = dict(kw, ranges=q8_plan[1][2])
 
         def run_k():
             return kern(*args, **kw)
@@ -572,8 +585,11 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
         bound_ms, bound_by = bound_of(torch, name, args, got)
         ell = (got[0] if isinstance(got, tuple) else got).shape[-1]
         if name in BITWISE_RERUN:
-            if not torch.equal(got, run_k()):
+            again = run_k()
+            if not all(map(torch.equal, got if isinstance(got, tuple) else (got,),
+                           again if isinstance(again, tuple) else (again,))):
                 raise AssertionError(f"{name}: a second launch gave other bits")
+            del again
             if name in LEFT_MMA:
                 tile, grid, ranges = tk.left2d_plan(d, got.shape[0], ell)
                 plan = (f"tile {tile} (samples x columns), grid {grid}, the rows "
@@ -616,6 +632,16 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
                 plan = (f"tile {tile} (samples x columns), grid {grid}, row tiles of "
                         f"{q8_tile}, the rows in {len(ranges)} range(s) from tiles "
                         f"{list(ranges)}; workspace {work / 2**20:.2f} MiB")
+            elif name in Q8_PASS:
+                (rt, rg, rs), (lt, lg, lr), work = q8_plan
+                if not torch.equal(got[0], ref[0]):
+                    raise AssertionError(f"{name}: out differs from the plain pass at "
+                                         "the plan's row ranges")
+                plan = (f"right tile {rt} (rows x columns), grid {rg}, the samples in "
+                        f"{rs} range(s); left tile {lt} (samples x columns), grid {lg}, "
+                        f"the rows in {len(lr)} range(s) from tiles {list(lr)}; "
+                        f"workspace {work / 2**20:.2f} MiB; out bit for bit the plain "
+                        "pass at those ranges")
             elif name in Q8_RIGHT_MMA:
                 tile, grid, splits = tk.q8_right2d_plan(
                     d, tk._samples(tk.aligned_rows(args[0])), ell)
@@ -688,7 +714,7 @@ def compare_modes(torch, np, d, n, seed, device, reps):
             packed, mean, inv, tk.fused_right_apply_2d_packed(packed, mean, inv, b)),
         "q8 1-D (kernel 1)": lambda: tk.fused_gram_q8_packed(
             packed, inv, u, bq, sb, csum, tile_d=tile),
-        "q8 2-D (kernels 7, 8 + glue)": lambda: tk.q8_power_pass_2d(
+        "q8 2-D (kernels 7, 8)": lambda: tk.q8_power_pass_2d(
             packed, inv, u, bq, sb, csum, tile_d=tile),
     }
     times = {}
@@ -719,6 +745,38 @@ def compare_modes(torch, np, d, n, seed, device, reps):
     if not rel <= 1e-3:
         raise AssertionError("q8_power_pass_2d disagrees with its quantization model")
     return times
+
+
+def check_q8_pass_2d(torch, d, n, seed, device, dense=False):
+    """`q8_power_pass_2d` (the q8 pass's one C call, csrc/q8_pass.cuh)
+    against the composition of the 2-D q8 products' own wrappers with the
+    requantization in torch between them (kernel 7 / 7i, `q8_requant_plain`,
+    kernel 8 / 8i): `out` bit for bit, ru within 1e-5 of sum |u y| (its sum
+    order is the card's own), one launch counted for each product."""
+    from genomic_pca_tpu_torch.ops import kernels as tk
+    from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
+
+    name = "fused_right_apply_2d" if dense else "fused_right_apply_2d_packed"
+    (geno, mean, inv, b), _ = kernel_cases(torch, d, n, seed, device, [name])[name]
+    bq, sb, csum = quantize_basis(b)
+    u = mean * inv
+    tk.reset_launch_counts()
+    out, ru = tk.q8_power_pass_2d(geno, inv, u, bq, sb, csum, tile_d=1024)
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    w = tk.right_apply_2d_q8(geno, bq)
+    z8, sz, ru_c = tk.q8_requant_plain(w, inv, u, sb, csum, 1024)
+    out_c = tk.left_apply_2d_q8(geno, z8, sz, 1024)
+    y = inv * (w * sb) - u * csum
+    allow = 1e-5 * (u * y).abs().sum(0, keepdim=True)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(tk._Q8_2D_NAME[geno.dtype], 1)
+    same, ru_err = bool(torch.equal(out, out_c)), float(((ru - ru_c).abs() / allow).max())
+    log(f"[q8 pass 2-D] {'dense' if dense else 'packed'} D={d} N={n}: out bit for bit "
+        f"the composition of 7, the torch requantization and 8: {same}; ru within "
+        f"{ru_err:.3f} of its allowance; launches {launches}")
+    if not same or ru_err > 1 or launches != want:
+        raise AssertionError("q8_power_pass_2d differs from the composition of its "
+                             "products")
 
 
 # ---------------------------------------------------------------------------
@@ -1250,6 +1308,9 @@ def main() -> int:
     for right1d_ell in (10, 128):
         check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5,
                       ("fused_right_apply_packed",), right1d_ell=right1d_ell)
+    # The streamed strip's q8 pass: the right product's samples split, the
+    # left product's rows in 2 ranges.
+    check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5, ("fused_gram_q8_packed",))
 
     # 4. The 2-D kernels at the wide shape and a ragged one; both modes.
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
@@ -1273,6 +1334,8 @@ def main() -> int:
     check_kernels(torch, 65_536, 16_384, SEED + 6, device, 3,
                   ("fused_right_apply_2d_packed",), ell=10)
     compare_modes(torch, np, 65_536, 16_384, SEED + 6, device, 5)
+    for d, n in ((65_536, 16_384), (2_048, 11_264)):
+        check_q8_pass_2d(torch, d, n, SEED + 14, device)
     torch.cuda.empty_cache()
 
     # 5-6. The main path in each mode.
@@ -1319,6 +1382,7 @@ def main() -> int:
     for right1d_ell in (10, 128):
         check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5,
                       ("fused_right_apply",), right1d_ell=right1d_ell)
+    check_kernels(torch, 2_048, 2_048, SEED + 12, device, 5, ("fused_gram_q8",))
     torch.cuda.empty_cache()
 
     # 10. The dense main path on the genotypes of the packed one.
@@ -1357,6 +1421,8 @@ def main() -> int:
     check_kernels(torch, 262_144, 2_048, SEED + 13, device, 3, ("left_apply_2d_q8_i8",))
     check_kernels(torch, 65_536, 16_384, SEED + 6, device, 3,
                   ("fused_right_apply_2d",), ell=10)
+    for d, n in ((65_536, 16_384), (2_048, 11_264)):
+        check_q8_pass_2d(torch, d, n, SEED + 14, device, dense=True)
     torch.cuda.empty_cache()
 
     # 13. The dense 2-D main path on the genotypes of the packed 2-D one.

@@ -18,32 +18,21 @@
 //                                                  of gram.cuh); f32 mode
 //                                                  gp_right_dense, then gp_wtw
 //                                                  (exact_kernels.cu)
-//   fused_gram_q8     (:847, pallas_call :863)  -> gp_q8_w_dense, then
-//                                                  gp_q8_left_dense
+//   fused_gram_q8     (:847, pallas_call :863)  -> gp_q8_pass_dense
+//                                                  (q8_kernels.cu)
 //
-// The TPU kernels carry one VMEM accumulator through a sequential grid of
-// row tiles.  Here every pass runs the main loops of packed_common.cuh,
-// the designs of the packed kernels (one block per 64 x 64 output tile;
-// contractions over the variant axis split across block layers with f32
-// atomics; q8 in two kernels because a tile's scale max|z| is needed
-// before z8 exists), instantiated for DenseRows: the tile loader reads one
-// aligned 32-bit word (four samples) per thread where the packed loader
-// reads one byte.
-//
-// Bound on an H100: each pass reads D*N bytes, four times the packed bytes
-// (512 MiB at 262,144 x 2,048: about 0.16 ms at 3.35 TB/s), against
-// 2*D*N*L operations per product in f32 FMAs (exact) or dp4a lanes (q8):
-// 1.4e11 at L = 128, about 7 ms at the 21 TFLOP/s the packed right kernel
-// reaches.  So the kernels are bound by the FMA and dp4a issue rates, as
-// the packed ones are, and the 4x bytes cost little.  The gram and tsq
-// passes' bf16 mode runs on the tensor cores (gram.cuh), and so does the
-// right product's (right1d_kernels.cu); the q8 pass is later work.
+// The f32 mode's passes run the FMA loops of packed_common.cuh (one block
+// per 64 x 64 output tile; contractions over the variant axis split across
+// block layers with f32 atomics), instantiated for DenseRows: the tile
+// loader reads one aligned 32-bit word (four samples) per thread where the
+// packed loader reads one byte.  Each pass reads D*N bytes, four times the
+// packed bytes (512 MiB at 262,144 x 2,048: about 0.16 ms at 3.35 TB/s);
+// the FMA loops are bound by their issue rate, the bf16 passes run on the
+// tensor cores.
 //
 // Exact passes: valid = (g != -127); bf16 mode standardises as
 // bf16(bf16(g * bf16(inv)) + bf16(-mean * inv)) (pallas_kernels.py
-// :72-78), f32 mode as g * inv + (-mean * inv) (:79-82).  q8: G0 =
-// max(g, 0) per byte with __vmaxs4, fed to __dp4a as it is; the -127
-// sentinel becomes raw 0.
+// :72-78), f32 mode as g * inv + (-mean * inv) (:79-82).
 //
 // Every entry point launches on the given stream and returns
 // cudaGetLastError() so that a refused launch is never silent.
@@ -85,24 +74,6 @@ int gp_left_dense(const void* geno, const void* mean, const void* inv_std,
                   int splits, int rows_per_split, void* stream) {
   return gp::launch_left(gp::DenseRows{(const int8_t*)geno, n4}, mean, inv_std,
                          w, out, D, L, bf16, splits, rows_per_split, stream);
-}
-
-// The first half of the q8 pass: z, ru and the per-tile max|z|.
-int gp_q8_w_dense(const void* geno, const void* inv_std, const void* u,
-                  const void* bq, const void* sb, const void* csum, void* z,
-                  void* tile_max, void* ru, int D, int n4, int L, int tile_d,
-                  void* stream) {
-  return gp::launch_q8_w(gp::DenseRows{(const int8_t*)geno, n4}, inv_std, u,
-                         bq, sb, csum, z, tile_max, ru, D, L, tile_d, stream);
-}
-
-// The second half: sum_t sz_t G0_t^T z8_t, split-K over tile ranges.
-int gp_q8_left_dense(const void* geno, const void* z, const void* tile_max,
-                     void* out, int D, int n4, int L, int tile_d, int splits,
-                     int tiles_per_split, void* stream) {
-  return gp::launch_q8_left(gp::DenseRows{(const int8_t*)geno, n4}, z,
-                            tile_max, out, D, L, tile_d, splits,
-                            tiles_per_split, stream);
 }
 
 }  // extern "C"

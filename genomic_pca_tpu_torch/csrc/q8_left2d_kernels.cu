@@ -28,8 +28,10 @@
 //     form), K = rows: A = G0^T, the decoded chunk stored [samples][rows]
 //     with the 128-byte swizzle (128 rows = one swizzle row a sample), and
 //     B = z8^T (L, D_pad), built on the card in the same C call
-//     (transpose_z8_kernel, zero in every pad entry) and read in 128-row x
-//     128-column boxes by TMA with the 128-byte swizzle;
+//     (transpose_z8_kernel, zero in every pad entry; in the q8 pass,
+//     q8_pass.cuh, the requantization writes it and gp_q8_left2d_t takes
+//     it ready-made) and read in 128-row x 128-column boxes by TMA with
+//     the 128-byte swizzle;
 //   - the transpose is the producer's: a loader warp's TMA loads bring
 //     each chunk's raw rows (packed 32 bytes, dense 128 bytes a row) into
 //     a raw ring, and a producer warp turns a whole chunk into its A slot:
@@ -331,8 +333,9 @@ q8_left2d_mma_kernel(const __grid_constant__ Q8LeftMaps maps, const float* __res
   }
 }
 
-// z8t (lp, dp) = z8^T of z8 (D, L) int8, zero in every entry past D or L:
-// 64 x 64 tiles through shared memory, bytes in, words out.
+// dst (lp, dp) = src^T of src (D, L) int8 row-major, zero in every entry
+// past D or L: 64 x 64 tiles through shared memory, bytes in, words out.
+// Builds z8^T here and, in the q8 pass (q8_pass.cuh), bq^T.
 __global__ void __launch_bounds__(256)
 transpose_z8_kernel(const int8_t* __restrict__ z8, int8_t* __restrict__ z8t, int D,
                     int L, int dp, int lp) {
@@ -349,6 +352,14 @@ transpose_z8_kernel(const int8_t* __restrict__ z8, int8_t* __restrict__ z8t, int
     if (l < lp && d < dp)
       *reinterpret_cast<uint32_t*>(z8t + (size_t)l * dp + d) = tile[lr][wc];
   }
+}
+
+// dp a multiple of 4 (a word of the output), dst 4-byte aligned.
+inline int launch_transpose_i8(const int8_t* src, int8_t* dst, int D, int L, int dp,
+                               int lp, cudaStream_t st) {
+  transpose_z8_kernel<<<dim3((dp + 63) / 64, (lp + 63) / 64), 256, 0, st>>>(src, dst, D, L,
+                                                                          dp, lp);
+  return (int)cudaGetLastError();
 }
 
 // The launch of q8_left2d_mma_kernel over D rows of N samples and L
@@ -390,27 +401,21 @@ inline int q8_left_rows_map(CUtensorMap* map, DenseRows g, int D) {
   return i8_map(map, g.p, 4 * g.groups, D, kQ8LChunk);
 }
 
-// z8 (D, L) int8, sz (T,) f32, out (N, L) f32; work: z8^T then the slab,
-// of the plan's bytes.  tile_d must be a multiple of kQ8LStep.
+// z8t (pad16(L), pad16(D)) int8 = z8^T as q8_left_operand states it, sz
+// (T,) f32, out (N, L) f32; slab (ranges, N, L) f32 where the plan splits
+// the rows (else unused).  tile_d must be a multiple of kQ8LStep.
 template <class Rows>
-int launch_q8_left2d(Rows g, const void* z8, const void* sz, float* out, void* work,
-                     int D, int L, int tile_d, int sms, void* stream) {
+int launch_q8_left2d_t(Rows g, const int8_t* z8t, const void* sz, float* out, float* slab,
+                       int D, int L, int tile_d, int sms, cudaStream_t st) {
   if (tile_d <= 0 || tile_d % kQ8LStep) return (int)cudaErrorInvalidValue;
   const int N = 4 * g.groups;
   if (D <= 0 || L <= 0 || N <= 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
   const Q8LeftPlan p = q8_left2d_plan(D, N, L, tile_d, sms);
   const int splits = (int)p.grid.z;
-  const int dp = (int)pad16(D), lp = (int)pad16(L);
-  int8_t* z8t = static_cast<int8_t*>(work);
-  float* slab = reinterpret_cast<float*>(static_cast<uint8_t*>(work) + p.z8t_bytes);
-  transpose_z8_kernel<<<dim3((dp + 63) / 64, (lp + 63) / 64), 256, 0, st>>>(
-      (const int8_t*)z8, z8t, D, L, dp, lp);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
+  if (splits > 1 && slab == nullptr) return (int)cudaErrorInvalidValue;
   Q8LeftMaps maps;
   memset(&maps, 0, sizeof(maps));
-  rc = i8_map(&maps.b, z8t, dp, L, kMmaCols);
+  int rc = i8_map(&maps.b, z8t, (int)pad16(D), L, kMmaCols);
   if (rc == 0) rc = q8_left_rows_map(&maps.rows, g, D);
   if (rc != 0) return rc;
   constexpr int smem = Q8LeftSmem<Rows>::kBytes;
@@ -422,6 +427,25 @@ int launch_q8_left2d(Rows g, const void* z8, const void* sz, float* out, void* w
   rc = (int)cudaGetLastError();
   if (rc != 0 || splits == 1) return rc;
   return launch_sum_splits(static_cast<const float*>(slab), out, N, L, L, splits, sms, st);
+}
+
+// z8 (D, L) int8, sz (T,) f32, out (N, L) f32; work: z8^T then the slab,
+// of the plan's bytes.  tile_d must be a multiple of kQ8LStep.
+template <class Rows>
+int launch_q8_left2d(Rows g, const void* z8, const void* sz, float* out, void* work,
+                     int D, int L, int tile_d, int sms, void* stream) {
+  if (tile_d <= 0 || tile_d % kQ8LStep) return (int)cudaErrorInvalidValue;
+  const int N = 4 * g.groups;
+  if (D <= 0 || L <= 0 || N <= 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Q8LeftPlan p = q8_left2d_plan(D, N, L, tile_d, sms);
+  int8_t* z8t = static_cast<int8_t*>(work);
+  float* slab = reinterpret_cast<float*>(static_cast<uint8_t*>(work) + p.z8t_bytes);
+  const int rc = launch_transpose_i8((const int8_t*)z8, z8t, D, L, (int)pad16(D),
+                                     (int)pad16(L), st);
+  if (rc != 0) return rc;
+  return launch_q8_left2d_t(g, z8t, sz, out, p.grid.z > 1 ? slab : nullptr, D, L, tile_d,
+                            sms, st);
 }
 
 }  // namespace gp
@@ -443,6 +467,32 @@ int gp_q8_left2d_dense(const void* geno, const void* z8, const void* sz, void* o
                        void* stream) {
   return gp::launch_q8_left2d(gp::DenseRows{(const int8_t*)geno, n4}, z8, sz,
                               (float*)out, work, D, L, tile_d, sms, stream);
+}
+
+// The same product over z8^T made ready (pad16(L), pad16(D)) int8 as
+// q8_left_operand states it; slab (ranges, 4 n4, L) f32 where
+// gp_q8_left2d_plan splits the rows, else unused.  The q8 pass's left step.
+int gp_q8_left2d_t(const void* packed, const void* z8t, const void* sz, void* out,
+                   void* slab, int D, int n4, int L, int tile_d, int sms, void* stream) {
+  return gp::launch_q8_left2d_t(gp::PackedRows{(const uint8_t*)packed, n4},
+                                (const int8_t*)z8t, sz, (float*)out, (float*)slab, D, L,
+                                tile_d, sms, (cudaStream_t)stream);
+}
+
+int gp_q8_left2d_t_dense(const void* geno, const void* z8t, const void* sz, void* out,
+                         void* slab, int D, int n4, int L, int tile_d, int sms,
+                         void* stream) {
+  return gp::launch_q8_left2d_t(gp::DenseRows{(const int8_t*)geno, n4},
+                                (const int8_t*)z8t, sz, (float*)out, (float*)slab, D, L,
+                                tile_d, sms, (cudaStream_t)stream);
+}
+
+// dst (lp, dp) int8 = src^T of src (rows, cols) int8, zero past rows or
+// cols; dp a multiple of 4, dst 4-byte aligned.
+int gp_transpose_i8(const void* src, void* dst, int rows, int cols, int dp, int lp,
+                    void* stream) {
+  return gp::launch_transpose_i8((const int8_t*)src, (int8_t*)dst, rows, cols, dp, lp,
+                                 (cudaStream_t)stream);
 }
 
 // The tile (samples, columns), grid (x, y), row ranges (grid z), row tiles

@@ -3,8 +3,8 @@ GPU: the left products A^T W (kernels 6 and 14), the right products A B
 (kernels 5 and 13), the 1-D gram pass A^T bf16(A B) (kernels 2 and 10),
 the q8 right products G0 bq (kernels 7 and 7i), the 1-D tsq pass
 bf16(A B)^T bf16(A B) (kernels 3 and 12), the 1-D right products A B
-(kernels 4 and 11) and the q8 left products sum_t sz[t] G0_t^T z8_t
-(kernels 8 and 8i).
+(kernels 4 and 11), the q8 left products sum_t sz[t] G0_t^T z8_t
+(kernels 8 and 8i) and the 1-D q8 power pass (kernels 1 and 9).
 
     python -m genomic_pca_tpu_torch.eval.mma2d_ab TAG [--lines LINE ...]
 
@@ -15,14 +15,15 @@ through its own wrapper and C calls, so they also time a tree whose
 wrapper predates this script: run this file with that tree first on
 PYTHONPATH,
 
-    PYTHONPATH=<tree> python <this file> TAG --lines q8right tsq right1d q8left
+    PYTHONPATH=<tree> python <this file> TAG --lines q8right tsq right1d q8left q8pass
 
 It first holds each product of each layout to its plain version at small
 shapes (ragged ones, for the right products a strip whose samples split,
 for the left ones and the gram pass a matrix whose rows split), with a
 second launch equal bit for bit (the q8 products bit for bit to plain; the
-q8 left ones to 1e-5 of the tile-ordered fold, see `q8left_agrees`); a
-tree that disagrees exits 2 and is not timed.  Then it prints these lines
+q8 left ones to 1e-5 of the tile-ordered fold, see `q8left_agrees`; the
+q8 pass to 1e-5, see `q8pass_agrees`); a tree that disagrees exits 2 and
+is not timed.  Then it prints these lines
 (`--lines` picks some),
 
     [TAG] left packed <ms> dense <ms> thin packed <ms> thin dense <ms>
@@ -40,6 +41,8 @@ tree that disagrees exits 2 and is not timed.  Then it prints these lines
           call <ms> matmul <ms>        (one line a shape and width)
     [TAG] q8left <D>x<N> packed <ms> call <ms> dense <ms> call <ms> matmul
           <ms> int_mm <ms> pass packed <ms> dense <ms>   (one line a shape)
+    [TAG] q8pass <D>x<N> packed <ms> call <ms> dense <ms> call <ms> int_mm2
+          <ms>                                          (one line a shape)
 
 the mean time of back-to-back launches of the C entries (the wrappers'
 host work excluded: W and B already bf16, bq already transposed), L = 128
@@ -88,8 +91,17 @@ scaled by its tile's sz: the same function up to f32 rounding) and
 whole 2-D q8 power pass (`q8_power_pass_2d`: kernel 7 / 7i, the torch
 requantization, kernel 8 / 8i; "pass").  Its check
 holds the kernel to a tile-ordered fold at the plan's ranges (one range
-in a tree without the plan) and prints whether it is bit for bit.  Exits
-1 without a CUDA device.
+in a tree without the plan) and prints whether it is bit for bit.  The
+q8pass line times kernels 1 and 9 (L = 128, row tiles of 1,024) at the
+1-D main shape 262,144 x 2,048 (20 launches) and a streamed strip of
+2,048 x 2,048 (200): the C calls a wrapper call makes (replayed: since
+the one-call pass gp_q8_pass_*, before it the __dp4a pair gp_q8_w* then
+gp_q8_left*), the wrapper call itself ("call"), and as a yardstick only
+two `torch._int_mm` on operands already decoded (G0 bq, then G0^T z8:
+the pass's integer products without its scales and requantization,
+"int_mm2").  Its check holds the pass's T = out - ru to the plain pass
+at the plan's row ranges (one range in a tree without `q8_pass_plan`)
+and prints whether `out` is bit for bit.  Exits 1 without a CUDA device.
 """
 
 from __future__ import annotations
@@ -119,6 +131,8 @@ NAMES = {
     ("right1d", "dense"): "fused_right_apply",
     ("q8left", "packed"): "left_apply_2d_q8",
     ("q8left", "dense"): "left_apply_2d_q8_i8",
+    ("q8pass", "packed"): "fused_gram_q8_packed",
+    ("q8pass", "dense"): "fused_gram_q8",
 }
 CHECKS = {
     "left": ((40, 256, 10), (2100, 384, 130), (4096, 1024, 128)),
@@ -129,12 +143,13 @@ CHECKS = {
     "right1d": ((40, 256, 10), (300, 2100, 16), (2048, 2048, 10), (4096, 1024, 1),
                 (4096, 1024, 32), (4096, 1024, 128)),
     "q8left": ((40, 256, 10), (300, 2100, 130), (2000, 4096, 128), (4096, 1024, 128)),
+    "q8pass": ((70, 256, 10), (300, 2100, 130), (2048, 2048, 128), (4100, 2048, 128)),
 }
 LAYOUTS = ("packed", "dense")
 # The products each printed line times (the gram line also its halves).
 LINES = {"left": ("left",), "right": ("right",), "gram": ("gram", "right", "left"),
          "q8right": ("q8right",), "tsq": ("tsq",), "right1d": ("right1d",),
-         "q8left": ("q8left",)}
+         "q8left": ("q8left",), "q8pass": ("q8pass",)}
 # The right1d line's shapes (layout, D, N, launches) and widths: the 1-D
 # main shape, the dense EigenSNP finalize's loadings and a streamed strip.
 RIGHT1D_SHAPES = (("packed", 262_144, 2_048, 20), ("dense", 262_144, 2_048, 20),
@@ -145,6 +160,9 @@ RIGHT1D_ELLS = (10, 16, 32, 128)
 # streamed strip at the 2-D switch width and the 1-D width.
 Q8LEFT_SHAPES = ((65_536, 16_384, 20), (2_048, 11_264, 200), (262_144, 2_048, 20))
 Q8LEFT_TILE = 1024
+# The q8pass line's shapes (D, N, launches): the 1-D main shape and a
+# streamed strip.
+Q8PASS_SHAPES = ((262_144, 2_048, 20), (2_048, 2_048, 200))
 
 
 def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
@@ -163,6 +181,8 @@ def agrees(product: str, layout: str, d: int, n: int, ell: int, device,
         return q8right_agrees(layout, d, n, ell, device, rng)
     if product == "q8left":
         return q8left_agrees(layout, d, n, ell, device, rng)
+    if product == "q8pass":
+        return q8pass_agrees(layout, d, n, ell, device, rng)
     g = rng.integers(0, 3, size=(d, n)).astype(np.int8)
     if layout == "dense":
         odd = rng.random(g.shape) < 0.02
@@ -249,6 +269,50 @@ def q8left_agrees(layout: str, d: int, n: int, ell: int, device, rng,
           f"bit for bit {exact}", flush=True)
     err = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
     return err <= 1e-5 and bool(torch.equal(got, again))
+
+
+def q8_pass_args(g, device, rng, ell: int):
+    """(genotypes, inv_std, u, bq, sb, csum) of a q8 pass over the dosages
+    `g` (packed if uint8) on `device`: random moments and a random basis
+    quantized as the power loop quantizes it."""
+    from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
+
+    d = g.shape[0]
+    n = 4 * g.shape[1] if g.dtype == np.uint8 else g.shape[1]
+    iv = rng.uniform(0.5, 2.0, (d, 1)).astype(np.float32)
+    u = rng.uniform(0.0, 2.0, (d, 1)).astype(np.float32)
+    b = rng.standard_normal((n, ell)).astype(np.float32) / n ** 0.5
+    geno, iv, u, b = (torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                      for a in (g, iv, u, b))
+    return (geno, iv, u, *quantize_basis(b))
+
+
+def q8pass_agrees(layout: str, d: int, n: int, ell: int, device, rng,
+                  tile_d: int = 64) -> bool:
+    """Kernel 1 or 9 against the plain pass at the plan's row ranges (one
+    range on the CPU or in a tree without `q8_pass_plan`): T = out - ru to
+    1e-5 of max|T|, on dosages {0, 1, 2} with 5% missing, and, in a tree
+    with the plan (no atomics), a second launch equal bit for bit; prints
+    whether `out` is bit for bit."""
+    g = rng.integers(0, 3, size=(d, n)).astype(np.int8)
+    g[rng.random(g.shape) < 0.05] = -127
+    args = q8_pass_args(pack_int8_rows(g) if layout == "packed" else g, device, rng, ell)
+    name = NAMES["q8pass", layout]
+    fn, plain = getattr(tk, name), tk.PLAIN[name]
+    (out, ru), (out2, ru2) = fn(*args, tile_d=tile_d), fn(*args, tile_d=tile_d)
+    planned = device.type == "cuda" and hasattr(tk, "q8_pass_plan")
+    kw = {}
+    if planned:
+        kw["ranges"] = tk.q8_pass_plan(d, tk._samples(tk.aligned_rows(args[0])), ell,
+                                       tile_d)[1][2]
+    out_p, ru_p = plain(*args, tile_d=tile_d, **kw)
+    print(f"q8pass {layout} D={d} N={n} L={ell} tile {tile_d} ranges "
+          f"{len(kw.get('ranges', (0,)))}: out bit for bit {bool(torch.equal(out, out_p))}",
+          flush=True)
+    t, t_p = out - ru, out_p - ru_p
+    err = float((t - t_p).abs().max()) / max(float(t_p.abs().max()), 1e-30)
+    repeats = bool(torch.equal(out, out2)) and bool(torch.equal(ru, ru2))
+    return err <= 1e-5 and (repeats or not planned)
 
 
 def pass_w(geno, mean, inv_std, b, fma: bool = False):
@@ -538,6 +602,34 @@ def q8pass_ms(layout: str, d: int, n: int, reps: int) -> float:
                                                tile_d=Q8LEFT_TILE), reps)
 
 
+def q8pass1d_ms(layout: str, d: int, n: int, reps: int, call: bool) -> float:
+    """Mean ms of `reps` back-to-back 1-D q8 passes (kernels 1 / 9, L =
+    128, row tiles of Q8LEFT_TILE) on random bytes: the C calls a wrapper
+    call makes, replayed with the arguments it passed, or (`call`) the
+    wrapper itself."""
+    g = operands(layout, d, n)[0]
+    args = q8_pass_args(g.cpu().numpy(), g.device, np.random.default_rng(0), 128)
+    fn = getattr(tk, NAMES["q8pass", layout])
+    if call:
+        return mean_ms(lambda: fn(*args, tile_d=Q8LEFT_TILE), reps)
+    return replay_ms(captured_launches(lambda: fn(*args, tile_d=Q8LEFT_TILE)), reps,
+                     f"q8pass {layout}")
+
+
+def int_mm2_ms(d: int, n: int, reps: int) -> float:
+    """Mean ms of `torch._int_mm(G0, bq)` then `torch._int_mm(G0^T, z8)` at
+    D x N, L = 128, on operands already decoded (the row-major left operand
+    and the column-major right one cuBLASLt takes): the q8 pass's two
+    integer products without its scales and requantization.  A yardstick
+    only: the port never calls it."""
+    dev = torch.device("cuda")
+    g0 = torch.randint(0, 3, (d, n), device=dev, dtype=torch.int8)
+    g0t = g0.t().contiguous()
+    bq = torch.randint(-127, 128, (128, n), device=dev, dtype=torch.int8).t()
+    z8 = torch.randint(-127, 128, (128, d), device=dev, dtype=torch.int8).t()
+    return mean_ms(lambda: (torch._int_mm(g0, bq), torch._int_mm(g0t, z8)), reps)
+
+
 def int_mm_ms(d: int, n: int, reps: int) -> float:
     """Mean ms of `torch._int_mm(G0, bq)` at D x N, L = 128, on operands
     already decoded: G0 int8 row-major, bq int8 column-major (as cuBLASLt
@@ -638,6 +730,12 @@ def main(argv=None) -> int:
             passes = " ".join(f"{lay} {q8pass_ms(lay, d, n, reps):.4f}" for lay in LAYOUTS)
             print(f"[{a.tag}] q8left {d}x{n} {calls} matmul {mm:.4f} int_mm {imm:.4f} "
                   f"pass {passes}", flush=True)
+    if "q8pass" in a.lines:
+        for d, n, reps in Q8PASS_SHAPES:
+            calls = " ".join(f"{lay} {q8pass1d_ms(lay, d, n, reps, False):.4f} call "
+                             f"{q8pass1d_ms(lay, d, n, reps, True):.4f}" for lay in LAYOUTS)
+            print(f"[{a.tag}] q8pass {d}x{n} {calls} int_mm2 "
+                  f"{int_mm2_ms(d, n, reps):.4f}", flush=True)
     if "right1d" in a.lines:
         for layout, d, n, reps in RIGHT1D_SHAPES:
             for ell in RIGHT1D_ELLS:

@@ -40,6 +40,7 @@ SIGNATURES = {
     "gp_right2d_plan": [_I, _I, _I, _I, _P],
     "gp_q8_right2d_plan": [_I, _I, _I, _I, _P],
     "gp_q8_left2d_plan": [_I, _I, _I, _I, _I, _P],
+    "gp_q8_pass_plan": [_I, _I, _I, _I, _I, _P],
     "gp_gram_plan": [_I, _I, _I, _I, _I, _P],
     "gp_tsq_plan": [_I, _I, _I, _I, _I, _P],
     "gp_wtw_plan": [_I, _I, _I, _P],
@@ -58,18 +59,16 @@ SIGNATURES = {
     "gp_right_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_wtw": [_P, _P, _I, _I, _I, _I, _P],
-    "gp_q8_w": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gp_q8_left": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_left2d_packed": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_right2d": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_q8_left2d": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_right_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_left_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gp_q8_w_dense": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gp_q8_left_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_left2d_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gp_q8_right2d_dense": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_q8_left2d_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "gp_q8_pass_packed": [_P] * 9 + [_I] * 6 + [_P],
+    "gp_q8_pass_dense": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -225,22 +225,27 @@ def quantize_rows(z: torch.Tensor, tile_d: int):
     return z8.reshape(-1, z.shape[1])[: z.shape[0]].to(torch.int8), sz
 
 
-def _q8_pass(right, left, geno, inv_std, u, bq, sb, csum, tile_d):
-    """One quantized power pass from its two integer products: W = G0 bq,
-    the corrections y = s (W sb) - u csum and z = s y, z quantized per row
-    tile, then G0^T z8 scaled per tile.  Returns (out, ru = sum u y)."""
-    w = right(geno, bq)
+def q8_requant_plain(w, inv_std, u, sb, csum, tile_d):
+    """The step between the two integer products of a q8 pass: from W = G0
+    bq (D, L) f32, y = s (W sb) - u csum and z = s y (each operation
+    rounded on its own), z quantized per row tile of `tile_d`
+    (`quantize_rows`).  Returns (z8 (D, L) int8, sz (T,) f32, ru = sum u y
+    (1, L)); the card's requantization kernel gives the same z8 and sz bits
+    and ru in its own sum order."""
     y = inv_std * (w * sb) - u * csum
-    z = inv_std * y
-    z8, sz = quantize_rows(z, tile_d)
-    return left(geno, z8, sz, tile_d), (u * y).sum(dim=0, keepdim=True)
+    z8, sz = quantize_rows(inv_std * y, tile_d)
+    return z8, sz, (u * y).sum(dim=0, keepdim=True)
 
 
-def fused_gram_q8_packed_plain(geno, inv_std, u, bq, sb, csum, tile_d=1024):
+def fused_gram_q8_packed_plain(geno, inv_std, u, bq, sb, csum, tile_d=1024,
+                               ranges=(0,)):
     """Plain q8 pass: the kernel's quantization model, integer products
-    exact."""
-    return _q8_pass(right_apply_2d_q8_plain, left_apply_2d_q8_plain, geno,
-                    inv_std, u, bq, sb, csum, tile_d)
+    exact: W = G0 bq, `q8_requant_plain`, then sum_t sz[t] G0_t^T z8_t
+    folded as `left_apply_2d_q8_plain` folds it at `ranges` (default: tile
+    order, the JAX kernel's).  Returns (out, ru)."""
+    w = right_apply_2d_q8_plain(geno, bq)
+    z8, sz, ru = q8_requant_plain(w, inv_std, u, sb, csum, tile_d)
+    return left_apply_2d_q8_plain(geno, z8, sz, tile_d, ranges), ru
 
 
 # The dense kernels compute the same functions of the same G0 and A.
@@ -257,13 +262,13 @@ fused_right_apply_plain = fused_right_apply_packed_plain
 _ENTRY = {
     torch.uint8: {"right": "gp_right_packed", "left": "gp_left_packed",
                   "gram": "gp_gram_packed", "tsq": "gp_tsq_packed",
-                  "q8_w": "gp_q8_w", "q8_left": "gp_q8_left",
+                  "q8_pass": "gp_q8_pass_packed",
                   "left2d": "gp_left2d_packed", "right2d": "gp_right2d_packed",
                   "right_narrow": "gp_right_narrow_packed",
                   "q8_right2d": "gp_q8_right2d", "q8_left2d": "gp_q8_left2d"},
     torch.int8: {"right": "gp_right_dense", "left": "gp_left_dense",
                  "gram": "gp_gram_dense", "tsq": "gp_tsq_dense",
-                 "q8_w": "gp_q8_w_dense", "q8_left": "gp_q8_left_dense",
+                 "q8_pass": "gp_q8_pass_dense",
                  "left2d": "gp_left2d_dense", "right2d": "gp_right2d_dense",
                  "right_narrow": "gp_right_narrow_dense",
                  "q8_right2d": "gp_q8_right2d_dense", "q8_left2d": "gp_q8_left2d_dense"},
@@ -463,21 +468,27 @@ def _check_q8(geno, inv_std, u, bq, sb, csum, tile_d, dtype=torch.uint8):
     )
 
 
-def _launch_q8(geno, inv_std, u, bq, sb, csum, tile_d):
-    """The two kernels of a q8 pass: (out (N, L), ru (1, L))."""
+def _launch_q8_pass(geno, inv_std, u, bq, sb, csum, tile_d, names):
+    """One q8 pass through the one C call of its layout (gp_q8_pass_packed /
+    gp_q8_pass_dense, csrc/q8_pass.cuh): (out (N, L), ru (1, L)).  Adds 1
+    to the launch count of each of `names`.  The rows are copied once where
+    they are not whole 16-byte units (`aligned_rows`); bq^T, W, z8^T and
+    the slabs live in one workspace of the size `q8_pass_plan` reports."""
     d, n, ell, dev = geno.shape[0], _samples(geno), bq.shape[1], geno.device
-    entry = _ENTRY[geno.dtype]
-    n_tiles = -(-d // tile_d)
-    z = torch.empty((d, ell), dtype=torch.float32, device=dev)
-    tile_max = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    ru = torch.zeros(ell, dtype=torch.float32, device=dev)
-    out = torch.zeros((n, ell), dtype=torch.float32, device=dev)
-    _launch(dev, entry["q8_w"], geno, inv_std, u, bq, sb, csum, z, tile_max,
-            ru, d, n // 4, ell, tile_d)
-    splits, per = _split(dev, -(-n // 64) * -(-ell // 64), n_tiles)
-    _launch(dev, entry["q8_left"], geno, z, tile_max, out, d, n // 4, ell,
-            tile_d, splits, per)
-    return out, ru.reshape(1, ell)
+    for name in names:
+        LAUNCHES[name] += 1
+    if not (d and n and ell):
+        return (torch.zeros((n, ell), dtype=torch.float32, device=dev),
+                torch.zeros((1, ell), dtype=torch.float32, device=dev))
+    geno, sms = aligned_rows(geno), _sms(dev)
+    width = _samples(geno)
+    work = torch.empty(q8_pass_plan(d, width, ell, tile_d, sms)[2], dtype=torch.uint8,
+                       device=dev)
+    out = torch.empty((width, ell), dtype=torch.float32, device=dev)
+    ru = torch.empty((1, ell), dtype=torch.float32, device=dev)
+    _launch(dev, _ENTRY[geno.dtype]["q8_pass"], geno, inv_std, u, bq, sb, csum, out, ru,
+            work, d, width // 4, n, ell, tile_d, sms)
+    return out[:n], ru
 
 
 # ---------------------------------------------------------------------------
@@ -559,14 +570,19 @@ def fused_tsq_packed(packed, mean, inv_std, b, precision="bf16"):
 
 # fused_gram_q8_packed replaces pallas_kernels.py fused_gram_q8_packed
 # (:977, pallas_call :995; body _gram_q8_packed_kernel :950, decode
-# _unpack_packed_tile_s8 :902).  Integer products on __dp4a (4 int8 lanes
-# per instruction); bound by the dp4a issue rate at L = 128.  The per-tile
-# scale max|z| over a whole (tile_d, L) tile needs a reduction before the
-# second product, so the pass is two kernels (csrc/packed_common.cuh
-# q8_w_kernel, q8_left_kernel): W -> y, z (D*L*4 bytes to device memory),
-# ru and the tile maxima; then z8 and G0^T z8 summed exactly in int32 per
-# tile, scaled, split-K f32 atomics.  `tile_d`, the quantization tile, is
-# independent of the block shape.
+# _unpack_packed_tile_s8 :902).  The per-tile scale max|z| over a whole
+# (tile_d, L) tile needs a reduction before the second product, so the
+# pass is one C call of three steps (gp_q8_pass_packed, csrc/q8_pass.cuh):
+# W = G0 bq by kernel 7's s8 wgmma (q8_right2d_mma_kernel), exact in int32
+# and stored as f32; a requantization kernel (y, z, the tile maxima, sz,
+# z8 written straight into z8^T, ru in a fixed order); then sum_t sz[t]
+# G0_t^T z8_t by kernel 8's s8 wgmma (q8_left2d_mma_kernel) with its row
+# split (8 ranges at 2,048 samples).  No atomics: the same bits every call,
+# and `out` equals the plain version at the plan's row ranges
+# (`q8_pass_plan`) bit for bit.  Bound on an H100 at 262,144 x 2,048 x 128
+# by the int8 tensor-core rate (4*D*N*L operations, 0.139 ms); the design
+# reads G twice and sends W (128 MiB) there and back.  `tile_d`, the
+# quantization tile, is a multiple of 64, independent of the block shapes.
 
 
 def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
@@ -577,18 +593,17 @@ def fused_gram_q8_packed(packed, inv_std, u, bq, sb, csum, tile_d=1024):
                                                  csum, tile_d)
     if _route(packed) == "plain":
         return fused_gram_q8_packed_plain(packed, inv_std, u, bq, sb, csum, tile_d)
-    LAUNCHES["fused_gram_q8_packed"] += 1
-    return _launch_q8(packed, inv_std, u, bq, sb, csum, tile_d)
+    return _launch_q8_pass(packed, inv_std, u, bq, sb, csum, tile_d,
+                           ("fused_gram_q8_packed",))
 
 
 # ---------------------------------------------------------------------------
-# The four kernels of the dense int8 1-D mode (csrc/dense_kernels.cu): the
-# packed kernels' designs with a loader that reads one aligned 32-bit word
-# of four int8 samples per thread where the packed one reads a byte.  Each
-# pass reads D*N bytes, four times the packed bytes; the right product and
-# the q8 pass stay bound by the FMA / dp4a issue rate (2*D*N*L operations
-# per product), the gram, tsq and right products run on the tensor cores
-# in bf16 mode.
+# The four kernels of the dense int8 1-D mode (csrc/dense_kernels.cu,
+# q8_kernels.cu): the packed kernels' designs over int8 rows.  Each pass
+# reads D*N bytes, four times the packed bytes; the q8 pass, and the gram,
+# tsq and right products in bf16 mode, run on the tensor cores, the f32
+# mode's FMA loops read one aligned 32-bit word of four samples per thread
+# where the packed ones read a byte.
 #
 # fused_right_apply replaces pallas_kernels.py fused_right_apply (:181,
 # pallas_call :197; body _right_kernel :112): the packed product's routes
@@ -648,9 +663,10 @@ def fused_tsq(geno, mean, inv_std, b, precision="bf16"):
 
 
 # fused_gram_q8 replaces pallas_kernels.py fused_gram_q8 (:847,
-# pallas_call :863; body _gram_q8_kernel :807): the packed q8 pass's two
-# kernels with G0 = max(g, 0) taken per byte by __vmaxs4, so the -127
-# sentinel is raw 0, and the word fed to __dp4a as it is.  dp4a bound.
+# pallas_call :863; body _gram_q8_kernel :807): the packed q8 pass's one C
+# call over int8 rows (gp_q8_pass_dense), kernels 7i and 8i with G0 =
+# max(g, 0), so the -127 sentinel is raw 0.  Bound on an H100 by its D*N
+# bytes (0.16 ms at 262,144 x 2,048); it reads them twice.
 # The quantization tile is the container's tile_d (1,024), where the JAX
 # container takes auto_tile_d's VMEM tile (1,024 at n_pad 2,048, 256 at
 # 4,096): that changes only how the steering passes quantize z.
@@ -663,8 +679,7 @@ def fused_gram_q8(geno, inv_std, u, bq, sb, csum, tile_d=1024):
                                                tile_d, torch.int8)
     if _route(geno) == "plain":
         return fused_gram_q8_plain(geno, inv_std, u, bq, sb, csum, tile_d)
-    LAUNCHES["fused_gram_q8"] += 1
-    return _launch_q8(geno, inv_std, u, bq, sb, csum, tile_d)
+    return _launch_q8_pass(geno, inv_std, u, bq, sb, csum, tile_d, ("fused_gram_q8",))
 
 
 # ---------------------------------------------------------------------------
@@ -1007,6 +1022,21 @@ def q8_right2d_plan(d: int, n_samples: int, ell: int, sms: int = None) -> tuple:
     return (p[0], p[1]), (p[2], p[3]), p[4]
 
 
+def q8_pass_plan(d: int, n: int, ell: int, tile_d: int, sms: int = None) -> tuple:
+    """The plans of the q8 pass (gp_q8_pass_packed / gp_q8_pass_dense) over
+    `d` rows of `n` samples (the genotype rows' width), `ell` columns and
+    row tiles of `tile_d` on `sms` SMs (default: the current CUDA
+    device's): ((tile, grid, sample splits) of its right product, as
+    `q8_right2d_plan`; (tile, grid, the first row tile of each range) of
+    its left product, as `q8_left2d_plan`, the `ranges` of
+    `fused_gram_q8_packed_plain` that give the card's bits; workspace
+    bytes), read from the built library (`gp_q8_pass_plan`)."""
+    p = _library_plan("gp_q8_pass_plan", 12, ctypes.c_longlong, d, -(-n // 4), ell,
+                      tile_d, _current_sms(sms))
+    return (((p[0], p[1]), (p[2], p[3]), p[4]),
+            ((p[5], p[6]), (p[7], p[8]), tuple(range(0, p[9] * p[10], p[10]))), p[11])
+
+
 def q8_operand(bq: torch.Tensor, samples: int = None) -> torch.Tensor:
     """bq (N, L) int8 as the q8 right product reads it: transposed, (L_pad,
     N_pad) int8 contiguous, with L padded to a multiple of 16 and N to
@@ -1090,8 +1120,9 @@ def q8_left2d_plan(d: int, n_samples: int, ell: int, tile_d: int, sms: int = Non
 
 def q8_left_operand(z8: torch.Tensor) -> torch.Tensor:
     """z8 (D, L) int8 as the q8 left product reads it (built on the card
-    by transpose_z8_kernel in the same C call, at the head of the
-    workspace; this states the layout and serves the tests): transposed,
+    in the same C call: by transpose_z8_kernel at the head of
+    `left_apply_2d_q8`'s workspace, by the requantization kernel in the q8
+    pass's; this states the layout and serves the tests): transposed,
     (L_pad, D_pad) int8 contiguous, L and D padded to multiples of 16 so
     that a row is whole 16-byte units, every pad entry 0, so that rows past
     D (whose packed bytes TMA fills with zeros, dosage 2) add nothing."""
@@ -1139,13 +1170,17 @@ def q8_power_pass_2d(geno, inv_std, u, bq, sb, csum, tile_d=1024):
     """The quantized power pass of the 2-D mode, as the reference's
     `q8_power_pass_2d` (pallas_kernels.py:1183-1222): kernels 7 and 8
     (packed) or 7i and 8i (int8) for the integer products, and between
-    them the corrections and the per-row-tile requantization in torch on
-    the small (D, L) intermediate, where the reference leaves them to XLA.
-    Same argument contract and result as `fused_gram_q8_packed`."""
+    them the corrections and the per-row-tile requantization, where the
+    reference leaves them to XLA.  The same function as the 1-D pass, so
+    the same C call (`_launch_q8_pass`), counted as one launch of each of
+    the two 2-D products.  Same argument contract and result as
+    `fused_gram_q8_packed`."""
     geno, inv_std, u, bq, sb, csum = _check_q8(geno, inv_std, u, bq, sb,
                                                csum, tile_d, None)
-    return _q8_pass(right_apply_2d_q8, left_apply_2d_q8, geno, inv_std, u,
-                    bq, sb, csum, tile_d)
+    if _route(geno) == "plain":
+        return fused_gram_q8_packed_plain(geno, inv_std, u, bq, sb, csum, tile_d)
+    return _launch_q8_pass(geno, inv_std, u, bq, sb, csum, tile_d,
+                           _Q8_2D_NAME[geno.dtype])
 
 
 # ---------------------------------------------------------------------------

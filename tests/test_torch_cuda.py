@@ -616,6 +616,135 @@ def test_q8_left_2d_builds_z8t_as_the_operand_states(cuda_device, layout):
     assert torch.equal(out[:n], tk.left_apply_2d_q8(geno, z8, sz, tile_d))
 
 
+# The one C call of a q8 pass (csrc/q8_pass.cuh), by layout.
+Q8_PASS = {"packed": ("fused_gram_q8_packed", "gp_q8_pass_packed"),
+           "dense": ("fused_gram_q8", "gp_q8_pass_dense")}
+
+
+def _q8_pass_case(rng, d, n, layout, ell=128):
+    """Inputs of a q8 pass on the card: unstructured dosages {0, 1, 2} with
+    2% missing, packed or int8, moments and a quantized random basis (as
+    the A/B script's check makes them)."""
+    from genomic_pca_tpu_torch.eval.mma2d_ab import q8_pass_args
+
+    g = rng.integers(0, 3, size=(d, n), dtype=np.int8)
+    g[rng.random(g.shape) < 0.02] = -127
+    return q8_pass_args(pack_int8_rows(g) if layout == "packed" else g,
+                        torch.device("cuda"), rng, ell)
+
+
+def _ru_allowance(args):
+    """Entry by entry 1e-5 of sum |u y| over the rows: how far two f32 sums
+    of u y in different orders may lie apart (ru's order is the card's own)."""
+    geno, iv, u, bq, sb, csum = args
+    y = iv * (tk.right_apply_2d_q8_plain(geno, bq) * sb) - u * csum
+    return 1e-5 * (u * y).abs().sum(0, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+@pytest.mark.parametrize("d,n,tile_d", [
+    (4_096, 2_048, 1024), (4_096, 2_048, 64),  # the 1-D width: rows split 8 ways
+    (70_001, 2_504, 1024),  # rows not whole 16-byte units, a ragged last tile
+    (2_048, 2_048, 1024),  # a streamed strip: the samples split, 2 row ranges
+])
+def test_q8_pass_matches_plain_bit_for_bit_and_repeats(cuda_device, monkeypatch, layout,
+                                                       d, n, tile_d):
+    """Kernels 1 and 9: one C call (kernel 7's s8 wgmma, the requantization
+    into z8^T, kernel 8's s8 wgmma with its row split) whose `out` equals
+    the plain pass at the plan's row ranges bit for bit, whose ru agrees
+    with the plain sum to f32 rounding, and whose second launch repeats
+    both bit for bit."""
+    name, entry = Q8_PASS[layout]
+    args = _q8_pass_case(np.random.default_rng(19), d, n, layout)
+    entries = _spy_entries(monkeypatch)
+    tk.reset_launch_counts()
+    fn = getattr(tk, name)
+    out, ru = fn(*args, tile_d=tile_d)
+    out2, ru2 = fn(*args, tile_d=tile_d)
+    torch.cuda.synchronize()
+    assert entries == [entry, entry]
+    assert tk.LAUNCHES == dict(ZERO, **{name: 2})
+    assert out.shape == (n, 128) and ru.shape == (1, 128)
+    ranges = tk.q8_pass_plan(d, tk._samples(tk.aligned_rows(args[0])), 128, tile_d)[1][2]
+    out_p, ru_p = tk.PLAIN[name](*args, tile_d=tile_d, ranges=ranges)
+    assert torch.equal(out, out_p)
+    assert bool(((ru - ru_p).abs() <= _ru_allowance(args)).all())
+    assert torch.equal(out, out2) and torch.equal(ru, ru2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+@pytest.mark.parametrize("d,n,tile_d", [(300, 2_100, 64), (2_048, 2_048, 1024)])
+def test_q8_pass_builds_its_operands_as_the_plain_pass(cuda_device, layout, d, n,
+                                                       tile_d):
+    """The C call's workspace holds, from its head (each part from a
+    256-byte boundary), bq^T as `q8_operand` states it, z8^T as
+    `q8_left_operand` states it and sz: the requantization's z8 and sz
+    equal `q8_requant_plain`'s on the plain W bit for bit, zero pads
+    included (300 rows: a ragged last tile; 2,100 samples: rows copied to
+    whole 16-byte units)."""
+    args = _q8_pass_case(np.random.default_rng(21), d, n, layout)
+    geno, iv, u, bq, sb, csum = args
+    rows = tk.aligned_rows(geno)
+    width = tk._samples(rows)
+    work = torch.full((tk.q8_pass_plan(d, width, 128, tile_d)[2],), 0x5A,
+                      dtype=torch.uint8, device=cuda_device)
+    out = torch.empty((width, 128), device=cuda_device)
+    ru = torch.empty((1, 128), device=cuda_device)
+    tk._launch(cuda_device, tk._ENTRY[geno.dtype]["q8_pass"], rows, iv, u, bq, sb, csum,
+               out, ru, work, d, width // 4, n, 128, tile_d, tk._sms(cuda_device))
+    z8, sz, _ = tk.q8_requant_plain(tk.right_apply_2d_q8_plain(geno, bq), iv, u, sb,
+                                    csum, tile_d)
+    at = 0
+    for want in (tk.q8_operand(bq, width), tk.q8_left_operand(z8), sz):
+        nbytes = want.numel() * want.element_size()
+        got = work[at:at + nbytes].view(want.dtype).view(want.shape)
+        assert torch.equal(got, want)
+        at += -(-nbytes // 256) * 256
+    assert torch.equal(out[:n], getattr(tk, Q8_PASS[layout][0])(*args, tile_d=tile_d)[0])
+
+
+@pytest.mark.cuda
+def test_q8_pass_plan(cuda_device):
+    """The pass's plans are its products' own plans (the right product's
+    samples split on a strip; the left product's rows in 8 ranges at 2,048
+    samples, 2 on a strip of 2,048 rows), and its workspace holds at least
+    bq^T, z8^T and W."""
+    for d, n in ((262_144, 2_048), (2_048, 2_048), (70_001, 2_560), (131_072, 16_384)):
+        right, left, work = tk.q8_pass_plan(d, n, 128, 1024, 132)
+        assert right == tk.q8_right2d_plan(d, n, 128, 132)
+        assert left == tk.q8_left2d_plan(d, n, 128, 1024, 132)[:3]
+        assert work >= 128 * n + 128 * d + 4 * d * 128
+    assert tk.q8_pass_plan(262_144, 2_048, 128, 1024, 132)[:2] == (
+        ((128, 128), (2_048, 1), 1), ((128, 128), (16, 1), tuple(range(0, 256, 32))))
+    right, left, _ = tk.q8_pass_plan(2_048, 2_048, 128, 1024, 132)
+    assert right[2] == 2 and left[2] == (0, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+@pytest.mark.parametrize("d,n", [(2_048, 11_264), (3_000, 1_024)])
+def test_q8_pass_2d_takes_the_pass_entry(cuda_device, monkeypatch, layout, d, n):
+    """`q8_power_pass_2d` runs the same one C call, counted as one launch
+    of each 2-D q8 product, and its `out` equals the composition of the 2-D
+    products' own wrappers with the requantization in torch between them
+    (kernel 7, `q8_requant_plain`, kernel 8) bit for bit."""
+    args = _q8_pass_case(np.random.default_rng(20), d, n, layout)
+    geno, iv, u, bq, sb, csum = args
+    entries = _spy_entries(monkeypatch)
+    tk.reset_launch_counts()
+    out, ru = tk.q8_power_pass_2d(*args, tile_d=1024)
+    torch.cuda.synchronize()
+    assert entries == [Q8_PASS[layout][1]]
+    names = tk._Q8_2D_NAME[geno.dtype]
+    assert tk.LAUNCHES == dict(ZERO, **dict.fromkeys(names, 1))
+    z8, sz, ru_c = tk.q8_requant_plain(tk.right_apply_2d_q8(geno, bq), iv, u, sb, csum,
+                                       1024)
+    assert torch.equal(out, tk.left_apply_2d_q8(geno, z8, sz, 1024))
+    assert bool(((ru - ru_c).abs() <= _ru_allowance(args)).all())
+
+
 @pytest.mark.cuda
 def test_pca_core_2d_on_cuda_matches_cpu(cuda_device):
     """The 2-D mode's core on the card against the CPU: kernels 5-8 ran
