@@ -46,8 +46,9 @@ no result line):
 8. the EigenSNP CLI, `python -m genomic_pca_tpu_torch --eigensnp
    --bed-file ... --ld-block-file ... -o ...` at its default settings on
    a PLINK fileset of 65,536 SNPs x 16,384 samples in 64 LD blocks, made
-   on the card; its stage split and launch counts (5 and 6 ran), and its
-   TSVs against a float64 PCA of the PCA-SNP set it kept;
+   on the card, with `--write-moments`; its stage split and launch counts
+   (5 and 6 ran), and its TSVs against a float64 PCA of the PCA-SNP set it
+   kept;
 9. the four dense int8 kernels (9-12) against their plain versions at
    262,144 x 2,048 (L = 128; 10 for the right product) and at 70,001 x
    2,504 (container width 2,560), the exact three (10-12) at 65,536 x
@@ -85,7 +86,27 @@ no result line):
    stages 1-2 through the host accessor) and (c) the same with
    `packed_pipeline=False` (dense int8 strips: kernels 13 and 14 per
    strip), each against phase 8's TSVs and its float64 oracle; each run's
-   stage split, launch counts and the upload telemetry of every pass.
+   stage split, launch counts and the upload telemetry of every pass;
+15. several ranks, one device each in a `torch.distributed` process group
+   (parallel/mesh.py): (a) a group of one rank over NCCL through phase 5's
+   1-D main path (`from_local_rows`, every pass merged by an all-reduce):
+   outputs bit for bit phase 5's, launch counts 3 / 1 / 1 / 1, and the
+   NCCL all-reduce time of one pass; (b) two ranks spawned on the one card
+   (gloo, the merges staged through pinned host memory) through the 1-D
+   main path at 262,144 x 2,048 (131,072 rows a rank) and the 2-D main
+   path at 131,072 x 16,384: on each rank the launch counts of the one-rank
+   run (3 / 1 / 1 / 1 for kernels 1-4; 3 / 3 / 3 / 1 for 7 / 8 / 5 / 6),
+   identical scores on both ranks, the float64 gate, per-PC |r| > 0.999
+   and principal cosines over the separated prefix against phases 5 / 6,
+   the wall and the all-reduce time of one pass; (c) `python -m
+   torch.distributed.run --nproc-per-node 2 -m genomic_pca_tpu_torch -d`
+   on phase 7's 65,536-variant directory (per-rank file sharding) and (d)
+   the same with `--eigensnp --write-moments` on phase 8's fileset
+   (distributed QC, each rank's range one unit, stages 1-2 per rank): its
+   moments TSV (the QC keep-mask and moments) byte for byte phase 8's,
+   rank 0's launch counts those of the one-rank run, and the TSVs against
+   phases 7 / 8's and their float64 oracles.  Two ranks on one card check
+   correctness and the collective paths, not scaling.
 
 The CLI phases hold the separated PCs to a float64 oracle.  The line
 before the last two is one JSON object with a row per kernel (its launches
@@ -109,7 +130,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
-FILESET = ROOT / "build" / "chip_smoke_eigensnp"  # phase 8's, kept for 14
+FILESET = ROOT / "build" / "chip_smoke_eigensnp"  # phase 8's, kept for 14, 15
+VCF_KEPT = ROOT / "build" / "chip_smoke_vcf"  # phase 7's second, kept for 15
 SEED = 20260
 
 # Kernel vs plain, both on the card, as max|kernel - plain| / max|plain|.
@@ -816,9 +838,11 @@ def write_vcf_dir(np, path: Path, n_samples, n_variants, n_files, n_pops,
     return geno
 
 
-def check_cli(torch, np, device, n_v, n_files, n_pops, seed, k):
+def check_cli(torch, np, device, n_v, n_files, n_pops, seed, k, keep=False):
     """`python -m genomic_pca_tpu_torch` on a generated VCF directory of
-    2,504 samples; TSV layout and PCs against a float64 oracle."""
+    2,504 samples; TSV layout and PCs against a float64 oracle.  With
+    `keep` the directory stays for phase 15, which gets (directory, the
+    CLI's scores, the float64 oracle)."""
     label = f"cli {n_v}x{n_pops}pop"
     if WORK.exists():
         shutil.rmtree(WORK)
@@ -866,15 +890,21 @@ def check_cli(torch, np, device, n_v, n_files, n_pops, seed, k):
     ev_true = ev.flip(0)[: k + 1].cpu().numpy()
     log(f"[{label}] {kept.shape[0]} variants pass the MAF gate")
     check_pcs(np, pcs, v_true, ev_true, evs * (n_s - 1), k, label)
+    if keep:
+        shutil.rmtree(VCF_KEPT, ignore_errors=True)
+        shutil.move(str(WORK), str(VCF_KEPT))
+        return VCF_KEPT / "vcf", pcs, (v_true, ev_true)
     shutil.rmtree(WORK)
+    return None
 
 
 def check_main(torch, np, device, label, d, n, k, seed, dense=False,
                oracle=None):
     """The main path on structured genotypes made on the card, twice, in
     the packed layout or (`dense`) unpacked to int8 on the card; returns
-    (launch counts of the first run, scores, float64 oracle, separated
-    prefix).  `oracle` reuses the float64 PCA of the same genotypes."""
+    (launch counts of the first run, its PcaResult, float64 oracle,
+    separated prefix).  `oracle` reuses the float64 PCA of the same
+    genotypes."""
     from genomic_pca_tpu_torch.models.pca import streamed_pca
     from genomic_pca_tpu_torch.ops import kernels as tk
     from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix, inv_std_of
@@ -924,7 +954,7 @@ def check_main(torch, np, device, label, d, n, k, seed, dense=False,
         log(f"[{label}] float64 oracle in {time.perf_counter() - t0:.1f} s")
     sep, _, _ = check_pcs(np, res.scores, *oracle,
                           res.singular_values.astype(np.float64) ** 2, k, label)
-    return launches, res.scores, oracle, sep
+    return launches, res, oracle, sep
 
 
 def write_plink_fileset(np, prefix: Path, packed, n_blocks):
@@ -971,7 +1001,7 @@ def check_eigensnp_cli(torch, np, device, d, n, n_blocks, k, seed):
     proc = subprocess.run(
         [sys.executable, "-m", "genomic_pca_tpu_torch", "--eigensnp",
          "--bed-file", str(prefix), "--ld-block-file", f"{prefix}.blocks.tsv",
-         "-o", str(out)],
+         "-o", str(out), "--write-moments"],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=900,
     )
     wall = time.perf_counter() - t0
@@ -1259,6 +1289,257 @@ def check_streamed_eigensnp(torch, np, device, fileset, k, packed_pipeline):
         raise AssertionError(f"{label}: streamed and resident runs disagree: {rs}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: several ranks.
+
+
+def time_all_reduce(torch, rows, cols, device, reps=10):
+    """Median host-clock ms of one `mesh.all_reduce_sum` of a (rows, cols)
+    f32 tensor on the card (the merge of one pass), the ranks aligned by a
+    barrier before each call."""
+    from genomic_pca_tpu_torch.parallel import mesh
+
+    t = torch.randn((rows, cols), device=device)
+    times = []
+    for _ in range(reps + 2):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh.all_reduce_sum(t)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    times = sorted(times[2:])
+    return times[len(times) // 2]
+
+
+def rank_main_path(spec):
+    """Phase 15b, on each rank of the process group: the genotypes of
+    phase 5 or 6 made on this rank's card from the same seed, this rank's
+    tile-aligned rows through `ShardedMatrix.from_local_rows`, then
+    `streamed_pca`; returns the launches and collectives of the run, its
+    wall, the all-reduce time of one pass and the outputs."""
+    import numpy as np
+    import torch
+
+    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.ops import kernels as tk
+    from genomic_pca_tpu_torch.parallel import mesh
+    from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix
+
+    dev = mesh.rank_device("cuda")
+    d, n = spec["d"], spec["n"]
+    rank, world = mesh.process_index(), mesh.process_count()
+    packed, mean, std = structured_packed(torch, d, n, 11, 0.1, 0.01, spec["seed"], dev)
+    per = -(-(-(-d // world)) // 1024) * 1024
+    lo, hi = rank * per, min(d, (rank + 1) * per)
+    rows = tuple(x[lo:hi].cpu().numpy() for x in (packed, mean, std))
+    del packed, mean, std
+    torch.cuda.empty_cache()
+
+    def read_rows(a, b):
+        if (a, b) != (lo, hi):
+            raise AssertionError(f"rank {rank} asked for rows [{a}, {b}), not "
+                                 f"[{lo}, {hi})")
+        return rows
+
+    mesh.barrier()
+    tk.reset_launch_counts()
+    mesh.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sm = ShardedMatrix.from_local_rows(read_rows, d, n, dev, packed=True)
+    res = streamed_pca(sm, k=spec["k"], n_power_iter=4, seed=7, compute_loadings=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, collectives = dict(tk.LAUNCHES), dict(mesh.COLLECTIVES)
+    return {"rank": rank, "rows": (lo, hi), "mode": sm.mode, "wall": wall,
+            "launches": launches, "collectives": collectives,
+            "all_reduce_ms": time_all_reduce(torch, sm.n_pad, 128, dev),
+            "scores": res.scores, "sigma": res.singular_values,
+            "loadings_ok": bool(res.loadings.shape == (d, spec["k"])
+                                and np.isfinite(res.loadings).all())}
+
+
+def per_pc_agreement(np, a, b, sep):
+    """(min per-PC |r|, min principal cosine) of the first `sep` PCs."""
+    rs = [abs(float(np.corrcoef(a[:, j], b[:, j])[0, 1])) for j in range(sep)]
+    qa = np.linalg.qr(a[:, :sep].astype(np.float64))[0]
+    qb = np.linalg.qr(b[:, :sep].astype(np.float64))[0]
+    return min(rs), float(np.linalg.svd(qa.T @ qb, compute_uv=False).min())
+
+
+def torchrun(args, label, timeout=900):
+    """`python -m torch.distributed.run --standalone --nproc-per-node 2
+    -m genomic_pca_tpu_torch <args>`: (rank 0's log messages, wall)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
+    env["OMP_NUM_THREADS"] = "4"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "genomic_pca_tpu_torch", *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: torch.distributed.run exit "
+                             f"{proc.returncode}:\n{proc.stderr[-6000:]}")
+    return [line.split("] ", 1)[-1] for line in proc.stderr.splitlines()], wall
+
+
+def check_multirank(torch, np, device, main, main_res, vcf_run, fileset):
+    """Phase 15 (module docstring)."""
+    from genomic_pca_tpu_torch.eval.multichip import run_ranks
+    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.ops import kernels as tk
+    from genomic_pca_tpu_torch.parallel import mesh
+    from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix
+
+    # (a) A process group of one rank over NCCL: phase 5's run, bit for bit.
+    label = "ranks 1 nccl"
+    pg = ROOT / "build" / "chip_smoke_pg"
+    shutil.rmtree(pg, ignore_errors=True)
+    pg.mkdir(parents=True)
+    d, n = 262_144, 2048
+    mesh.initialize_distributed("cuda", init_method=f"file://{pg}/store", rank=0,
+                                world_size=1, backend="nccl")
+    try:
+        packed, mean, std = structured_packed(torch, d, n, 11, 0.1, 0.01, SEED + 2,
+                                              device)
+        rows = tuple(x.cpu().numpy() for x in (packed, mean, std))
+        del packed, mean, std
+        tk.reset_launch_counts()
+        mesh.reset_collective_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sm = ShardedMatrix.from_local_rows(lambda a, b: rows, d, n, device, packed=True)
+        res = streamed_pca(sm, k=10, n_power_iter=4, seed=7, compute_loadings=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, collectives = dict(tk.LAUNCHES), dict(mesh.COLLECTIVES)
+        ar_ms = time_all_reduce(torch, sm.n_pad, 128, device)
+        ref = main_res["main 1-D"]
+        same = {key: bool(np.array_equal(getattr(res, key), getattr(ref, key)))
+                for key in ("scores", "singular_values", "eigenvalues", "loadings")}
+        log(f"[{label}] {torch.distributed.get_backend()} world 1: streamed_pca {d} x {n} wall "
+            f"{wall:.3f} s; launches {launches}; collectives {collectives}; "
+            f"all-reduce of ({sm.n_pad}, 128) f32 {ar_ms:.3f} ms (median of 10); "
+            f"bit for bit phase 5: {same}")
+        want = dict(ZERO_LAUNCHES, fused_gram_q8_packed=3, fused_gram_apply_packed=1,
+                    fused_tsq_packed=1, fused_right_apply_packed=1)
+        if launches != want or not all(same.values()):
+            raise AssertionError(f"{label}: launches {launches} or outputs differ "
+                                 f"from phase 5: {same}")
+    finally:
+        mesh.shutdown()
+        shutil.rmtree(pg, ignore_errors=True)
+    del sm, rows
+    torch.cuda.empty_cache()
+
+    # (b) Two ranks on the one card over gloo, each rank's rows from
+    # from_local_rows: the 1-D and 2-D main paths of phases 5 and 6.
+    for label, d, n, seed, want in (
+        ("ranks 2 main 1-D", 262_144, 2048, SEED + 2,
+         {"fused_gram_q8_packed": 3, "fused_gram_apply_packed": 1,
+          "fused_tsq_packed": 1, "fused_right_apply_packed": 1}),
+        ("ranks 2 main 2-D", 131_072, 16_384, SEED + 4,
+         {"fused_right_apply_2d_packed": 3, "fused_left_apply_2d_packed": 1,
+          "right_apply_2d_q8": 3, "left_apply_2d_q8": 3}),
+    ):
+        t0 = time.perf_counter()
+        outs = run_ranks(rank_main_path, 2, ({"d": d, "n": n, "seed": seed, "k": 10},),
+                         device="cuda", timeout_s=600)
+        spawn_wall = time.perf_counter() - t0
+        ref_scores, oracle, sep = main[label.replace("ranks 2 ", "")]
+        for out in outs:
+            log(f"[{label}] rank {out['rank']}: rows [{out['rows'][0]}, "
+                f"{out['rows'][1]}) ({out['mode']} mode); streamed_pca wall "
+                f"{out['wall']:.3f} s; launches {out['launches']}; collectives "
+                f"{out['collectives']}; all-reduce of one pass (gloo, staged "
+                f"through pinned host memory) {out['all_reduce_ms']:.3f} ms "
+                f"(median of 10)")
+            if out["launches"] != dict(ZERO_LAUNCHES, **want):
+                raise AssertionError(f"{label}: rank {out['rank']} launches "
+                                     f"{out['launches']} != the one-rank {want}")
+            if not out["loadings_ok"] or not np.array_equal(out["scores"],
+                                                            outs[0]["scores"]):
+                raise AssertionError(f"{label}: ranks disagree or bad loadings")
+        log(f"[{label}] two spawned ranks in {spawn_wall:.1f} s (start-up, data "
+            "and both runs)")
+        check_pcs(np, outs[0]["scores"], *oracle,
+                  outs[0]["sigma"].astype(np.float64) ** 2, 10, label)
+        r_min, cos = per_pc_agreement(np, outs[0]["scores"], ref_scores, sep)
+        log(f"[{label}] against the one-rank run over the separated prefix: min "
+            f"|r| {r_min:.7f}, min principal cosine {cos:.7f}")
+        if r_min <= 0.999 or cos <= 0.999:
+            raise AssertionError(f"{label}: two ranks and one rank disagree")
+        torch.cuda.empty_cache()
+
+    # (c) The VCF CLI on two ranks, on phase 7's second directory.
+    label = "ranks 2 vcf cli"
+    vcf_dir, ref_pcs, (v_true, ev_true) = vcf_run
+    prefix = VCF_KEPT / "ranks2"
+    msgs, wall = torchrun(["-d", str(vcf_dir), "-o", str(prefix), "-k", "10",
+                           "--rfit-seed", "5"], label)
+    log_messages(label, msgs, ("Process group:", "Assembled", "Total run time"))
+    launches = next(json.loads(m[len("Kernel launches: "):]) for m in msgs
+                    if m.startswith("Kernel launches: "))
+    log(f"[{label}] torch.distributed.run --nproc-per-node 2 exit 0 in "
+        f"{wall:.2f} s; rank 0 launches {launches}")
+    want = dict(ZERO_LAUNCHES, fused_gram_q8_packed=3, fused_gram_apply_packed=1,
+                fused_tsq_packed=1, fused_right_apply_packed=1)
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    pcs = np.loadtxt(f"{prefix}.vcf.pca.tsv", skiprows=1, usecols=range(1, 11),
+                     delimiter="\t")
+    evs = np.loadtxt(f"{prefix}.eigenvalues.tsv", skiprows=1, usecols=1,
+                     delimiter="\t")
+    sep, _, _ = check_pcs(np, pcs, v_true, ev_true, evs * (pcs.shape[0] - 1), 10,
+                          label)
+    r_min, cos = per_pc_agreement(np, pcs, ref_pcs, sep)
+    log(f"[{label}] against phase 7's one-rank CLI: min |r| {r_min:.7f}, min "
+        f"principal cosine {cos:.7f}")
+    if r_min <= 0.999 or cos <= 0.999:
+        raise AssertionError(f"{label}: two ranks and one rank disagree")
+
+    # (d) The EigenSNP CLI on two ranks, on phase 8's fileset: distributed
+    # QC, each rank's range as one unit, stages 1-2 per rank.
+    label = "ranks 2 eigensnp cli"
+    bed, ref_pcs, oracle, _sep = fileset
+    out = FILESET / "ranks2"
+    msgs, wall = torchrun(["--eigensnp", "--bed-file", str(bed), "--ld-block-file",
+                           f"{bed}.blocks.tsv", "-o", str(out), "--write-moments"],
+                          label)
+    log_messages(label, msgs, ("Process group:", "Distributed SNP QC", "SNP QC:",
+                               "LD mapping:", "EigenSNP matrix loaded",
+                               "EigenSNP stage split:", "Total run time"))
+    launches = next(json.loads(m[len("Kernel launches: "):]) for m in msgs
+                    if m.startswith("Kernel launches: "))
+    log(f"[{label}] torch.distributed.run --nproc-per-node 2 exit 0 in "
+        f"{wall:.2f} s; rank 0 launches {launches}")
+    want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=3,
+                fused_left_apply_2d_packed=1)
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+    one_rank = FILESET / "out.eigensnp.moments.tsv"
+    same_qc = (Path(f"{out}.eigensnp.moments.tsv").read_bytes()
+               == one_rank.read_bytes())
+    n_kept = sum(1 for _ in open(one_rank)) - 1
+    log(f"[{label}] QC keep-mask and moments ({n_kept} PCA SNPs) bit for bit "
+        f"phase 8's: {same_qc}")
+    if not same_qc:
+        raise AssertionError(f"{label}: the distributed QC differs from phase 8's")
+    pcs = np.loadtxt(f"{out}.eigensnp.pca.tsv", skiprows=1, usecols=range(1, 11),
+                     delimiter="\t")
+    evs = np.loadtxt(f"{out}.eigenvalues.tsv", skiprows=1, usecols=1, delimiter="\t")
+    sep, _, _ = check_pcs(np, pcs, *oracle, evs * (pcs.shape[0] - 1), 10, label)
+    r_min, cos = per_pc_agreement(np, pcs, ref_pcs, sep)
+    log(f"[{label}] against phase 8's one-rank CLI: min |r| {r_min:.7f}, min "
+        f"principal cosine {cos:.7f}")
+    if r_min <= 0.999 or cos <= 0.999:
+        raise AssertionError(f"{label}: two ranks and one rank disagree")
+
+
 def main() -> int:
     import torch
 
@@ -1341,6 +1622,7 @@ def main() -> int:
     # 5-6. The main path in each mode.
     launches = {}
     main = {}
+    main_res = {}
     for label, d, n, seed, want in (
         ("main 1-D", 262_144, 2048, SEED + 2,
          {"fused_gram_q8_packed": 3, "fused_gram_apply_packed": 1,
@@ -1349,12 +1631,13 @@ def main() -> int:
          {"fused_right_apply_2d_packed": 3, "fused_left_apply_2d_packed": 1,
           "right_apply_2d_q8": 3, "left_apply_2d_q8": 3}),
     ):
-        got, scores, oracle, sep = check_main(torch, np, device, label, d, n, 10,
-                                              seed)
+        got, res, oracle, sep = check_main(torch, np, device, label, d, n, 10,
+                                           seed)
         if got != dict(ZERO_LAUNCHES, **want):
             raise AssertionError(f"{label}: launch counts {got} != {want}")
         launches.update({name: got[name] for name in want})
-        main[label] = (scores, oracle, sep)
+        main[label] = (res.scores, oracle, sep)
+        main_res[label] = res
         torch.cuda.empty_cache()
 
     # 7. The VCF CLI on VCF directories of 1000 Genomes phase 3 width:
@@ -1362,7 +1645,7 @@ def main() -> int:
     # the noise bulk, where only the Ritz lower bound is checked), and
     # 65,536 variants of 11 populations (10 structured PCs).
     check_cli(torch, np, device, 32_768, 8, 5, SEED + 3, 10)
-    check_cli(torch, np, device, 65_536, 16, 11, SEED + 3, 10)
+    vcf_run = check_cli(torch, np, device, 65_536, 16, 11, SEED + 3, 10, keep=True)
 
     # 8. The EigenSNP CLI at 16,384 samples; its fileset stays for 14.
     fileset = check_eigensnp_cli(torch, np, device, 65_536, 16_384, 64, 10,
@@ -1387,8 +1670,9 @@ def main() -> int:
 
     # 10. The dense main path on the genotypes of the packed one.
     packed_scores, oracle, sep = main["main 1-D"]
-    got, scores, _, _ = check_main(torch, np, device, "main dense 1-D", 262_144,
-                                   2048, 10, SEED + 2, dense=True, oracle=oracle)
+    got, res, _, _ = check_main(torch, np, device, "main dense 1-D", 262_144,
+                                2048, 10, SEED + 2, dense=True, oracle=oracle)
+    scores = res.scores
     want = {"fused_gram_q8": 3, "fused_gram_apply": 1, "fused_tsq": 1,
             "fused_right_apply": 1}
     if got != dict(ZERO_LAUNCHES, **want):
@@ -1427,8 +1711,9 @@ def main() -> int:
 
     # 13. The dense 2-D main path on the genotypes of the packed 2-D one.
     packed_scores, oracle, sep = main["main 2-D"]
-    got, scores, _, _ = check_main(torch, np, device, "main dense 2-D", 131_072,
-                                   16_384, 10, SEED + 4, dense=True, oracle=oracle)
+    got, res, _, _ = check_main(torch, np, device, "main dense 2-D", 131_072,
+                                16_384, 10, SEED + 4, dense=True, oracle=oracle)
+    scores = res.scores
     want = {"right_apply_2d_q8_i8": 3, "left_apply_2d_q8_i8": 3,
             "fused_right_apply_2d": 3, "fused_left_apply_2d": 1}
     if got != dict(ZERO_LAUNCHES, **want):
@@ -1450,6 +1735,12 @@ def main() -> int:
                         main["main 1-D"])
     check_streamed_eigensnp(torch, np, device, fileset, 10, packed_pipeline=True)
     check_streamed_eigensnp(torch, np, device, fileset, 10, packed_pipeline=False)
+
+    # 15. Several ranks: a process group of one (NCCL), two ranks on the
+    # card (gloo) through the 1-D and 2-D main paths, and the VCF and
+    # EigenSNP CLIs under torch.distributed.run on phases 7 and 8's data.
+    check_multirank(torch, np, device, main, main_res, vcf_run, fileset)
+    shutil.rmtree(VCF_KEPT)
     shutil.rmtree(FILESET)
 
     kernels_line = {"kernels": [

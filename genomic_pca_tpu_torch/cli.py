@@ -8,6 +8,13 @@ and `--eigensnp-qc-mode device` exit 1 as not yet ported;
 `--eigensnp-compile-only` exits 0 without running (there is nothing to
 compile ahead of time: the kernels build at first use).
 
+Under `python -m torch.distributed.run --nproc-per-node R -m
+genomic_pca_tpu_torch ...` (WORLD_SIZE > 1) the VCF and EigenSNP
+workflows join the process group (parallel/mesh.py) and run on R ranks,
+one device each (ranks beyond the device count share devices over gloo);
+rank 0 writes the outputs and the other ranks log at WARNING and above.
+`--project` runs on one rank and exits 1 under several.
+
 Usage:
     python -m genomic_pca_tpu_torch -d vcf_dir/ -o out -k 10
     python -m genomic_pca_tpu_torch --eigensnp --bed-file data \
@@ -198,6 +205,22 @@ def _no_cuda(workflow: str) -> bool:
     return True
 
 
+def _world_size() -> int:
+    return int(os.environ.get("WORLD_SIZE") or 1)
+
+
+def _rank_device():
+    """This rank's CUDA device, after joining the process group when the
+    launcher started several ranks; ranks other than 0 log at WARNING and
+    above."""
+    from genomic_pca_tpu_torch.parallel import mesh
+
+    if mesh.initialize_distributed("cuda") and mesh.process_index() != 0:
+        root = logging.getLogger()
+        root.setLevel(max(root.level, logging.WARNING))
+    return mesh.rank_device("cuda")
+
+
 def _run_projection(args) -> int:
     """`--project`: its own dispatch mode, validated as the JAX CLI's
     (genomic_pca_tpu/cli.py:192-235)."""
@@ -223,6 +246,11 @@ def _run_projection(args) -> int:
     if missing:
         log.error("%s required when --project is used.", ", ".join(missing))
         return 2
+    if _world_size() > 1:
+        log.error("--project is a single-process operation (the model is k "
+                  "columns; there is nothing to shard across hosts) — run it "
+                  "on one process (WORLD_SIZE=%d).", _world_size())
+        return 1
     if _no_cuda("projection"):
         return 1
     from genomic_pca_tpu_torch.workflows import run_projection_workflow
@@ -289,7 +317,7 @@ def _run_eigensnp(args) -> int:
         checkpoint_dir=args.eigensnp_checkpoint_dir,
         write_moments=args.write_moments,
         stop_after_checkpoint=args.eigensnp_stop_after_checkpoint,
-        device="cuda",
+        device=_rank_device(),
     )
     return 0
 
@@ -306,6 +334,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     from genomic_pca_tpu_torch.io.native import set_default_threads
 
     set_default_threads(args.threads)
+    from genomic_pca_tpu_torch.parallel import mesh
+
+    try:
+        return _dispatch(args, t0)
+    finally:
+        mesh.shutdown()
+
+
+def _dispatch(args, t0: float) -> int:
     if args.project or args.eigensnp:
         try:
             rc = (_run_projection if args.project else _run_eigensnp)(args)
@@ -350,7 +387,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             rfit_seed=args.rfit_seed,
             rfit_tolerance=args.rfit_tolerance,
             threads=threads,
-            device="cuda",
+            device=_rank_device(),
         )
     except Exception:
         log.exception("Workflow failed.")

@@ -32,6 +32,15 @@ host-streamed one (ops/streaming.py):
   container ends with `tsq_and_project` (the A B products kept on the
   device), else `tsq_and_capture`, so the loadings need no extra pass.
 
+Several ranks (parallel/mesh.py): stages 1-2 run on each rank over the
+blocks it owns - on the resident path the blocks whose rows it holds
+(every block inside one rank and one row segment, `rank_of_runs`), on the
+host-accessor path an even split of the blocks - each block with the
+sketch of the one-rank run; bases and singular values are gathered and
+the condensed rows merged in block order on every rank.  Stage 2 and the
+refinement run replicated through the multi-rank container.  Checkpoints
+are written by rank 0 and read by every rank, a barrier between.
+
 Random draws come from the port's seeded generators (utils/rng.py), so
 the sample subset and the sketches differ from the reference's jax
 threefry draws: results agree with the reference to the accuracy of the
@@ -59,6 +68,7 @@ from genomic_pca_tpu_torch.models.pca import lane_fill_width
 from genomic_pca_tpu_torch.models.prepare import PreparedData
 from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.rsvd import rsvd, sketch_width
+from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.utils.checkpoint import StageCheckpointer, fingerprint
 from genomic_pca_tpu_torch.utils.rng import generator_for_stage, normal
 
@@ -98,14 +108,15 @@ def _c_of(cfg: EigenSnpConfig, n_snps: int, n_subset: int) -> int:
 
 
 def _group_plan(prep: PreparedData, cfg: EigenSnpConfig, subset: np.ndarray,
-                width: int, max_bucket: Optional[int] = None):
-    """Ordered [((bucket, c_b), block indices, chunk_b)]: blocks grouped by
-    row bucket (capped at `max_bucket`) and component count, each group
-    run in chunks of chunk_b blocks (a power of two whose (chunk_b,
-    bucket, width) f32 batch fits the budget)."""
+                width: int, block_ids: List[int],
+                max_bucket: Optional[int] = None):
+    """Ordered [((bucket, c_b), block indices, chunk_b)] of the blocks
+    `block_ids`: grouped by row bucket (capped at `max_bucket`) and
+    component count, each group run in chunks of chunk_b blocks (a power
+    of two whose (chunk_b, bucket, width) f32 batch fits the budget)."""
     groups: Dict[tuple, List[int]] = {}
-    for b_idx, block in enumerate(prep.blocks):
-        d_b = len(block.pca_snp_ids)
+    for b_idx in block_ids:
+        d_b = len(prep.blocks[b_idx].pca_snp_ids)
         bucket = _bucket_rows(d_b)
         if max_bucket is not None:
             bucket = min(bucket, max_bucket)
@@ -118,10 +129,10 @@ def _group_plan(prep: PreparedData, cfg: EigenSnpConfig, subset: np.ndarray,
 
 
 def _device_group_plan(a, prep: PreparedData, cfg: EigenSnpConfig,
-                       subset: np.ndarray):
-    """The plan of the resident path: buckets capped at the matrix's rows,
-    batches of full container width."""
-    return _group_plan(prep, cfg, subset, a.n_pad, max_bucket=a.d_pad)
+                       subset: np.ndarray, block_ids: List[int]):
+    """The plan of the resident path: buckets capped at the rows of one
+    rank, batches of full container width."""
+    return _group_plan(prep, cfg, subset, a.n_pad, block_ids, max_bucket=a.d_pad)
 
 
 def _chunks(plan):
@@ -168,7 +179,7 @@ def _local_sketches(seed: int, chunk: List[int], chunk_b: int, n_cols: int,
 
 def _stages12(batches, prep: PreparedData, cfg: EigenSnpConfig,
               subset: np.ndarray, saved_bases: Optional[List[np.ndarray]],
-              device):
+              device: torch.device):
     """Stages 1+2 over (bucket, c_b, chunk, chunk_b, xs_full) batches,
     xs_full the (chunk_b, bucket, >= N) f32 standardized blocks of the
     chunk on `device` (batch padding: zero blocks): restrict to the
@@ -200,18 +211,19 @@ def _stages12(batches, prep: PreparedData, cfg: EigenSnpConfig,
         out = u_b.mT @ xs_full  # (chunk_b, c_b, width)
         del xs_full
         parts.append((list(chunk), c_b, u_b, s_b, out))
-    return _assemble_condensed(parts, n, len(prep.blocks))
+    return _assemble_condensed(parts, n, len(prep.blocks), device)
 
 
 def _stages12_device(a, prep: PreparedData, cfg: EigenSnpConfig,
                      subset: np.ndarray, runs: np.ndarray,
                      saved_bases: Optional[List[np.ndarray]]):
     """Stages 1+2 with every chunk's blocks sliced from the resident
-    matrix (`fetch_blocks_device`)."""
+    matrix (`fetch_blocks_device`), each rank over the blocks it holds."""
+    owned = [int(b) for b in np.nonzero(a.rank_of_runs(runs) == a.rank)[0]]
 
     def batches():
         for bucket, c_b, chunk, chunk_b in _chunks(
-                _device_group_plan(a, prep, cfg, subset)):
+                _device_group_plan(a, prep, cfg, subset, owned)):
             starts = np.zeros(chunk_b, dtype=np.int64)
             lens = np.zeros(chunk_b, dtype=np.int64)
             starts[:len(chunk)] = runs[chunk, 0]
@@ -233,15 +245,18 @@ def _stages12_host(prep: PreparedData, cfg: EigenSnpConfig, subset: np.ndarray,
     The host gathers run on two worker threads, two chunks ahead of the
     device; each block's bytes upload once for both the subset rSVD and
     the all-sample projection.  A checkpoint resume groups blocks by the
-    shapes of the saved bases."""
+    shapes of the saved bases.  With several ranks each rank takes an even
+    share of consecutive blocks."""
     n = prep.n_samples
     packed = prep.supports_packed_blocks
+    owned = [int(b) for b in np.array_split(
+        np.arange(len(prep.blocks)), mesh.process_count())[mesh.process_index()]]
     if saved_bases is None:
-        plan = _group_plan(prep, cfg, subset, n)
+        plan = _group_plan(prep, cfg, subset, n, owned)
     else:
         groups: Dict[tuple, List[int]] = {}
-        for b_idx, u_b in enumerate(saved_bases):
-            groups.setdefault(tuple(u_b.shape), []).append(b_idx)
+        for b_idx in owned:
+            groups.setdefault(tuple(saved_bases[b_idx].shape), []).append(b_idx)
         plan = [(key, idxs, _pow2_at_most(min(
                     max(1, _STAGE12_BUDGET_ELEMS // (key[0] * n)), len(idxs))))
                 for key, idxs in sorted(groups.items())]
@@ -287,11 +302,14 @@ def _stages12_host(prep: PreparedData, cfg: EigenSnpConfig, subset: np.ndarray,
     return _stages12(batches(), prep, cfg, subset, saved_bases, torch.device(device))
 
 
-def _assemble_condensed(parts, n: int, n_blocks: int):
+def _assemble_condensed(parts, n: int, n_blocks: int, device: torch.device):
     """Bases and singular values to the host, one transfer per chunk, and
     the condensed matrix y (C, n) in block order on the device (c_b rows
     per block, batch-padding rows dropped).  `parts` is
-    [(chunk, c_b, u, s or None, out)] in any order."""
+    [(chunk, c_b, u, s or None, out)] in any order, of this rank's
+    blocks; with several ranks the bases and singular values are
+    gathered, and y is merged by an all-reduce of each rank's rows in
+    place among zeros (exact: every entry is one rank's value)."""
     bases: Dict[int, np.ndarray] = {}
     svals: Dict[int, np.ndarray] = {}
     rows: Dict[int, torch.Tensor] = {}
@@ -303,7 +321,18 @@ def _assemble_condensed(parts, n: int, n_blocks: int):
             if s_np is not None:
                 svals[i] = s_np[j]
             rows[i] = out[j, :, :n]
-    y = torch.cat([rows[i] for i in range(n_blocks)])
+    if mesh.process_count() == 1:
+        y = torch.cat([rows[i] for i in range(n_blocks)])
+    else:
+        for b, s in mesh.all_gather_object((bases, svals)):
+            bases.update(b)
+            svals.update(s)
+        ofs = np.concatenate([[0], np.cumsum([bases[i].shape[1]
+                                              for i in range(n_blocks)])])
+        y = torch.zeros((int(ofs[-1]), n), dtype=torch.float32, device=device)
+        for i, r in rows.items():
+            y[int(ofs[i]):int(ofs[i + 1])] = r
+        y = mesh.all_reduce_sum(y)
     return [bases[i] for i in range(n_blocks)], (svals or None), y
 
 
@@ -326,6 +355,42 @@ def _widen(s_basis: torch.Tensor, seed: int, ell_ref: int) -> torch.Tensor:
         return s_basis
     extra = normal((n, ell_ref - k), seed, "eigensnp_refine_fill", s_basis.device)
     return torch.linalg.qr(torch.cat([s_basis, extra], dim=1))[0]
+
+
+def _checkpointer(directory: Optional[str], fp: str) -> StageCheckpointer:
+    """The stage checkpointer, made by rank 0 first (which writes or
+    invalidates the directory's metadata), then by the other ranks."""
+    if mesh.process_index() == 0:
+        ckpt = StageCheckpointer(directory, fp)
+    mesh.barrier()
+    if mesh.process_index() != 0:
+        ckpt = StageCheckpointer(directory, fp)
+    return ckpt
+
+
+def _save(ckpt: StageCheckpointer, stage: str, arrays) -> None:
+    """Save a checkpoint from rank 0; every rank waits until it is
+    written."""
+    if not ckpt.enabled:
+        return
+    if mesh.process_index() == 0:
+        ckpt.save(stage, arrays)
+    mesh.barrier()
+
+
+def _has(ckpt: StageCheckpointer, stage: str) -> bool:
+    """Whether `stage`'s checkpoint is present as rank 0 sees it, on every
+    rank: a rank that looks after rank 0 has written it in this same run
+    would otherwise take another branch than rank 0 (and skip the
+    barrier of `_save`)."""
+    if not ckpt.enabled:
+        return False
+    return bool(mesh.all_gather_object(ckpt.has(stage))[0])
+
+
+def _load(ckpt: StageCheckpointer, stage: str):
+    """`ckpt.load(stage)` where rank 0 finds the checkpoint, else None."""
+    return ckpt.load(stage) if _has(ckpt, stage) else None
 
 
 def _ckpt_stop(name: str, stop_after: Optional[str]) -> bool:
@@ -359,7 +424,7 @@ def compute_eigensnp_pca(
         raise ComputeError("No PCA SNPs / LD blocks available for EigenSNP.")
     k = min(cfg.k_global, max(n - 1, 1), d)
 
-    ckpt = StageCheckpointer(
+    ckpt = _checkpointer(
         checkpoint_dir, fingerprint(cfg, n, d, [b.tag for b in prep.blocks])
     )
     if stop_after_checkpoint is not None:
@@ -377,7 +442,7 @@ def compute_eigensnp_pca(
         # A retried leg whose checkpoint (or any later one) exists is
         # complete: it must not run on through the rest of the pipeline.
         done = next((s for s in order[order.index(stop_after_checkpoint):]
-                     if ckpt.has(s)), None)
+                     if _has(ckpt, s)), None)
         if done is not None:
             log.info("EigenSNP checkpoint %r already present in %s (stop point "
                      "%r); this stop-after leg is complete.", done,
@@ -408,6 +473,12 @@ def compute_eigensnp_pca(
     container = "device-resident" if hasattr(a, "pca_core") else "host-streamed"
     runs = _blocks_as_runs(prep.blocks)
     use_device = runs is not None and hasattr(a, "fetch_blocks_device")
+    if use_device and not a.runs_device_sliceable(runs):
+        # Blocks across a row segment or a rank (a degenerate block file
+        # under several ranks) are read through the host accessor.
+        log.warning("LD blocks cross row segments or ranks; using the host "
+                    "accessor path for stages 1-2.")
+        use_device = False
     _sync(a.device)
     stage_seconds["matrix_load"] = time.perf_counter() - t_stage
     log.info("EigenSNP matrix loaded (%s container, %s mode; stages 1-2 through "
@@ -427,13 +498,13 @@ def compute_eigensnp_pca(
     subset = _choose_sample_subset(cfg, n)
     c_total = sum(_c_of(cfg, len(b.pca_snp_ids), len(subset)) for b in prep.blocks)
     local_bases = svals = y = saved_bases = None
-    if ckpt.has("stage2_basis") and diag is None:
+    if _has(ckpt, "stage2_basis") and diag is None:
         # Only the condensed matrix (already reduced to the checkpointed
         # stage-2 basis) and diagnostics consume stages 1-2: skip them.
         log.info("EigenSNP stages 1+2 skipped (stage2_basis checkpoint "
                  "present; condensed rank %d).", c_total)
     else:
-        saved = ckpt.load("stage1_bases")
+        saved = _load(ckpt, "stage1_bases")
         if saved is not None and len(saved) == len(prep.blocks):
             saved_bases = [saved[f"block_{i}"] for i in range(len(prep.blocks))]
         else:
@@ -458,8 +529,8 @@ def compute_eigensnp_pca(
                         "pca_snp_id_end": int(ids[-1]),
                         "local_singular_values": svals[b_idx].tolist(),
                     })
-            ckpt.save("stage1_bases",
-                      {f"block_{i}": u for i, u in enumerate(local_bases)})
+            _save(ckpt, "stage1_bases",
+                  {f"block_{i}": u for i, u in enumerate(local_bases)})
             if _ckpt_stop("stage1_bases", stop_after_checkpoint):
                 return None
     if diag is not None and cfg.diagnostic_block_tag is not None:
@@ -503,14 +574,14 @@ def compute_eigensnp_pca(
             "more).", c_total, k, c_total)
         k = c_total
 
-    saved = ckpt.load("stage2_basis")
+    saved = _load(ckpt, "stage2_basis")
     if saved is not None:
         s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
     else:
         s_basis = _stage2_basis(y, cfg.seed, k, cfg.global_oversampling,
                                 cfg.global_power_iter)
         # Checkpoint runs save the k-wide basis, a resumable artifact.
-        ckpt.save("stage2_basis", {"s_basis": s_basis.cpu().numpy()})
+        _save(ckpt, "stage2_basis", {"s_basis": s_basis.cpu().numpy()})
         if _ckpt_stop("stage2_basis", stop_after_checkpoint):
             return None
     s_basis = _widen(s_basis, cfg.seed, ell_ref)
@@ -531,7 +602,7 @@ def compute_eigensnp_pca(
     else:
         start_pass = 0
         for p in reversed(range(cfg.refine_passes)):
-            saved = ckpt.load(f"refine_pass_{p}")
+            saved = _load(ckpt, f"refine_pass_{p}")
             if saved is not None:
                 s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
                 start_pass = p + 1
@@ -545,7 +616,7 @@ def compute_eigensnp_pca(
                 smin = float(torch.clamp(cosines.min(), 0.0, 1.0))
                 refine_residuals.append(float(np.sqrt(max(0.0, 1.0 - smin**2))))
             s_basis = s_new
-            ckpt.save(f"refine_pass_{p}", {"s_basis": s_basis.cpu().numpy()})
+            _save(ckpt, f"refine_pass_{p}", {"s_basis": s_basis.cpu().numpy()})
             log.info("EigenSNP refinement pass %d/%d done.", p + 1,
                      cfg.refine_passes)
             if _ckpt_stop(f"refine_pass_{p}", stop_after_checkpoint):

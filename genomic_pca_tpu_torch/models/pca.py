@@ -84,7 +84,10 @@ def streamed_pca(
     .StreamingMatrix) runs `power_iterate`, one streaming pass per
     iteration, then the Rayleigh-Ritz Gram; with `compute_loadings` that
     pass also captures A B (`tsq_and_capture`), so the loadings (A B) W /
-    sigma need no further pass over the matrix."""
+    sigma need no further pass over the matrix.  With a container over
+    several ranks every rank makes this call: each draws the same sketch
+    from the seed, and the scores and the gathered loadings are the same
+    on every rank."""
     if not (hasattr(matrix, "pca_core") or hasattr(matrix, "power_iterate")):
         raise TypeError(
             "streamed_pca in genomic_pca_tpu_torch runs through a container's "

@@ -18,10 +18,21 @@ reference does; `fetch_block_standardized` and `fetch_block_packed` are
 the host block accessors of the EigenSNP stages 1-2 that run without a
 resident matrix.
 
+In a process group of several ranks (parallel/mesh.py) the QC scan is
+distributed as in the JAX package (genomic_pca_tpu/models/prepare.py
+:1209-1300): the BIM rows split into ranges that never bisect an LD block
+(`block_aligned_ranges`), each rank scans its own range on the host, and
+`_allgather_qc` merges keep / mean / std in BIM order, bit-identical to
+one rank's scan (exact integer counts).  `load_matrix` then gives each
+rank its own range's survivors as one unit of `from_owned_units`, so
+every LD block lies inside one rank and no genotype leaves the rank that
+read it; the streamed container stays single-rank (`will_stream` is
+False for several ranks).
+
 Not ported yet, refused with an error that says so: the device QC scan
-and its QC->matrix capture fusion (`qc_mode="device"`, multi-GPU work;
-for `packed_pipeline=False` the reference's "auto" takes them, and the
-port takes the host scan, with the same decisions).
+and its QC->matrix capture fusion (`qc_mode="device"`; for
+`packed_pipeline=False`, and with several ranks, the reference's "auto"
+takes them, and the port takes the host scan, with the same decisions).
 """
 
 from __future__ import annotations
@@ -37,12 +48,13 @@ from genomic_pca_tpu_torch.config import DataPrepConfig
 from genomic_pca_tpu_torch.errors import ComputeError, DataPrepError
 from genomic_pca_tpu_torch.io.bed import BedReader
 from genomic_pca_tpu_torch.io.ldblocks import (
-    LdBlockSpec, map_snps_to_blocks, parse_ld_block_file,
+    LdBlockSpec, block_aligned_ranges, map_snps_to_blocks, parse_ld_block_file,
 )
 from genomic_pca_tpu_torch.ops.qc import (
     genotype_counts_int8_host, genotype_counts_packed_host, snp_qc_from_counts,
 )
 from genomic_pca_tpu_torch.ops.standardize import MISSING
+from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.parallel.sharded import (
     PACKED_MISSING_BYTE, ShardedMatrix, dense_cols, inv_std_of, pack_int8_rows,
     packed_cols, sanitize_partial_byte,
@@ -91,6 +103,8 @@ class PreparedData:
     blocks: List[LdBlockSpec]
     n_snps_pre_qc: int
     n_snps_post_qc: int
+    # Several ranks: each rank's BIM row range [lo, hi), LD-block aligned.
+    scan_ranges: Optional[List[tuple]] = None
 
     @property
     def n_samples(self) -> int:
@@ -186,6 +200,26 @@ class PreparedData:
         inv[: raw.shape[0]] = inv_std_of(self.std[pca_snp_ids])
         return out, mean, inv
 
+    def _read_rows(self, lo: int, hi: int, packed: bool) -> np.ndarray:
+        """The PCA rows [lo, hi) on the host, read from the BED: with
+        `packed` and the full sample set the raw bytes (trailing fields
+        sanitized, no decode); with `packed` and a keep-list the kept
+        columns decoded and repacked to 2-bit; else the kept samples
+        decoded to int8 (-127 missing).  Decodes run in chunks of
+        `_decode_bounded_rows` and obey the missing policy."""
+        idx = self.pca_snp_orig_indices[lo:hi]
+        full = self.n_samples == self.bed.n_samples
+        if packed and full:
+            return sanitize_partial_byte(self.bed.read_packed(idx), self.n_samples)
+        sel = None if full else self.qc_sample_indices
+        step = _decode_bounded_rows(self.bed.n_samples)
+        parts = []
+        for s in range(0, len(idx), step):
+            raw = self.bed.read(idx[s:s + step], sel)
+            self._check_missing_policy(raw)
+            parts.append(pack_int8_rows(raw) if packed else raw)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
     def estimate_resident_bytes(self) -> int:
         """Device bytes of the resident matrix: 2-bit packed, or int8 with
         128-padded rows for `packed_pipeline=False`."""
@@ -202,10 +236,12 @@ class PreparedData:
     def will_stream(self, force_streaming: bool = False, device="cuda") -> bool:
         """Whether `load_matrix` takes the host-streamed container: the
         resident matrix would exceed 60% of `device`'s memory (the
-        reference's rule), or `force_streaming`."""
+        reference's rule), or `force_streaming`; never with several ranks
+        (the JAX rule, genomic_pca_tpu/models/prepare.py:677-687)."""
         if force_streaming:
             return True
-        return (self.estimate_resident_bytes()
+        return (mesh.process_count() == 1
+                and self.estimate_resident_bytes()
                 > STREAMING_SHARE * device_memory_budget(device))
 
     def load_streaming_matrix(self, device, strip_size: int = 2048, **kw):
@@ -220,12 +256,13 @@ class PreparedData:
 
         if self.n_pca_snps == 0:
             raise ComputeError("No PCA SNPs to load.")
+        if mesh.process_count() > 1:
+            raise ComputeError("The host-streamed container runs on one rank "
+                               f"(multi-rank streaming is {NOT_PORTED}).")
         kw.setdefault("missing_fraction", self.missing_fraction_bound)
         n = self.n_pca_snps
-        idx = self.pca_snp_orig_indices
-        full = len(self.qc_sample_indices) == self.bed.n_samples
+        full = self.n_samples == self.bed.n_samples
         packed = bool(self.config.packed_pipeline)
-        decode_step = _decode_bounded_rows(self.bed.n_samples)
 
         def rows_of(i: int):
             start = i * strip_size
@@ -234,22 +271,9 @@ class PreparedData:
 
         def source(i: int):
             start, end = rows_of(i)
+            raw = self._read_rows(start, end, packed)
             if packed and full:
-                raw = sanitize_partial_byte(self.bed.read_packed(idx[start:end]),
-                                            self.n_samples)
                 self._check_missing_packed(raw)
-            elif packed:
-                parts = []
-                for s0 in range(start, end, decode_step):
-                    dec = self.bed.read(idx[s0:min(s0 + decode_step, end)],
-                                        self.qc_sample_indices)
-                    self._check_missing_policy(dec)
-                    parts.append(pack_int8_rows(dec))
-                raw = parts[0] if len(parts) == 1 else np.concatenate(parts)
-            else:
-                raw = self.bed.read(idx[start:end],
-                                    None if full else self.qc_sample_indices)
-                self._check_missing_policy(raw)
             return raw, self.mean[start:end], self.std[start:end]
 
         return StreamingMatrix(
@@ -263,15 +287,11 @@ class PreparedData:
         the kept samples (-127 missing) with their moments, as the
         reference's `_strip_gen` yields them (the full sample set decodes
         without a column gather)."""
-        full = self.n_samples == self.bed.n_samples
-        sel = None if full else self.qc_sample_indices
 
         def gen():
             for start in range(0, self.n_pca_snps, strip_size):
-                end = min(start + strip_size, self.n_pca_snps)
-                raw = self.bed.read(self.pca_snp_orig_indices[start:end], sel)
-                self._check_missing_policy(raw)
-                yield raw
+                yield self._read_rows(
+                    start, min(start + strip_size, self.n_pca_snps), False)
 
         bounds = range(0, self.n_pca_snps, strip_size)
         return (gen(), [self.mean[s:s + strip_size] for s in bounds],
@@ -298,42 +318,56 @@ class PreparedData:
                 self.estimate_resident_bytes() / 1e9,
                 device_memory_budget(device) / 1e9)
             return self.load_streaming_matrix(device, strip_size=strip_size)
+        if mesh.process_count() > 1:
+            return self._load_matrix_ranks(device)
         if not self.config.packed_pipeline:
             gen, means, stds = self._strip_gen(strip_size)
             return ShardedMatrix.from_arrays(
                 gen, means=means, stds=stds, device=device,
                 missing_fraction=self.missing_fraction_bound,
             )
-        idx = self.pca_snp_orig_indices
-
-        if len(self.qc_sample_indices) == self.bed.n_samples:
-            def read_strip(lo: int, hi: int) -> np.ndarray:
-                return sanitize_partial_byte(
-                    self.bed.read_packed(idx[lo:hi]), self.n_samples
-                )
-        else:
-            sel = self.qc_sample_indices
-            decode_step = _decode_bounded_rows(self.bed.n_samples)
-
-            def read_strip(lo: int, hi: int) -> np.ndarray:
-                parts = []
-                for s in range(lo, hi, decode_step):
-                    raw = self.bed.read(idx[s:min(s + decode_step, hi)], sel)
-                    self._check_missing_policy(raw)
-                    parts.append(pack_int8_rows(raw))
-                return parts[0] if len(parts) == 1 else np.concatenate(parts)
-
         sm = ShardedMatrix.from_packed_strips(
-            read_strip, n_rows=self.n_pca_snps, mean=self.mean, std=self.std,
+            lambda lo, hi: self._read_rows(lo, hi, True), n_rows=self.n_pca_snps, mean=self.mean, std=self.std,
             n_samples=self.n_samples, device=device,
             missing_fraction=self.missing_fraction_bound,
         )
+        self._check_no_missing(sm)
+        return sm
+
+    def _check_no_missing(self, sm) -> None:
         if self.config.missing_policy == "error" and sm.count_missing():
             raise DataPrepError(
                 "Missing genotypes present post-QC with "
                 "missing_policy='error' (reference accessor "
                 "semantics, prepare.rs:1906-1911)."
             )
+
+    def _load_matrix_ranks(self, device):
+        """The resident matrix over the ranks: rank r reads the survivors
+        of its own scan range strip by strip (`_read_rows`: raw BED bytes
+        for the full sample set, the kept columns decoded and repacked
+        under a keep-list, decoded int8 with `packed_pipeline=False`) into
+        one unit of `from_owned_units`; the survivor counts of every range
+        are known to every rank from the merged QC."""
+        rank, world = mesh.process_index(), mesh.process_count()
+        pca = self.pca_snp_orig_indices
+        ranges = self.scan_ranges
+        bounds = np.searchsorted(pca, [lo for lo, _hi in ranges] + [ranges[-1][1]])
+        counts = np.diff(bounds)
+        b0, b1 = int(bounds[rank]), int(bounds[rank + 1])
+        packed = bool(self.config.packed_pipeline)
+        local = {}
+        if b1 > b0:
+            local[rank] = (lambda lo, hi: self._read_rows(b0 + lo, b0 + hi, packed),
+                           self.mean[b0:b1], self.std[b0:b1])
+        log.info("Rank %d/%d holds PCA rows [%d, %d) of %d (%s).", rank, world,
+                 b0, b1, len(pca), "packed" if packed else "int8")
+        sm = ShardedMatrix.from_owned_units(
+            counts, np.arange(world), local, n_samples=self.n_samples,
+            device=device, packed=packed,
+            missing_fraction=self.missing_fraction_bound,
+        )
+        self._check_no_missing(sm)
         return sm
 
 
@@ -408,8 +442,31 @@ def _qc_snp_range_hostscan(
     return np.concatenate(keeps), np.concatenate(means), np.concatenate(stds)
 
 
+def _allgather_qc(keep: np.ndarray, mean: np.ndarray, std: np.ndarray,
+                  ranges: List[tuple]):
+    """Merge the ranks' QC results of contiguous (possibly unequal) scan
+    ranges into (keep, mean, std) in BIM order, on every rank: the JAX
+    `_allgather_qc` (genomic_pca_tpu/models/prepare.py:1170-1206).  Each
+    rank pads its rows to the longest range (keep False) so that the
+    gather has one shape; the moments travel as float64, which holds the
+    scan's values exactly."""
+    max_len = max(hi - lo for lo, hi in ranges)
+    pad = max_len - len(keep)
+    got = mesh.all_gather_numpy({
+        "keep": np.pad(np.asarray(keep, np.bool_), (0, pad)),
+        "mean": np.pad(np.asarray(mean, np.float64), (0, pad)),
+        "std": np.pad(np.asarray(std, np.float64), (0, pad)),
+    })
+    return tuple(
+        np.concatenate([got[key][r, : hi - lo] for r, (lo, hi) in enumerate(ranges)])
+        for key in ("keep", "mean", "std"))
+
+
 def prepare_data(config: DataPrepConfig) -> PreparedData:
-    """Sample QC -> host SNP-QC scan -> LD mapping, single process."""
+    """Sample QC -> host SNP-QC scan -> LD mapping.  With several ranks
+    and `config.distributed_qc` each rank scans only its LD-block aligned
+    range of BIM rows and the results merge (`_allgather_qc`),
+    bit-identical to the scan of one rank."""
     if config.qc_mode not in ("auto", "host", "device"):
         raise DataPrepError(
             f"qc_mode must be 'auto', 'host', or 'device', got {config.qc_mode!r}"
@@ -433,9 +490,28 @@ def prepare_data(config: DataPrepConfig) -> PreparedData:
                  "JAX package's device scan and QC->matrix capture fusion are "
                  "%s (QC decisions are the same: exact integer counts).",
                  NOT_PORTED)
-    keep, mean_all, std_all = _qc_snp_range_hostscan(
-        bed, config, n_qc, 0, bed.n_snps, sample_sel=sample_sel
-    )
+    rank, world = mesh.process_index(), mesh.process_count()
+    scan_ranges = None
+    if world > 1:
+        if config.qc_mode == "auto":
+            log.info("SNP QC: %d ranks take the host scan; the JAX package's "
+                     "device scan and QC->matrix capture fusion are %s (QC "
+                     "decisions are the same: exact integer counts).", world,
+                     NOT_PORTED)
+        # The ranges also place the matrix rows (load_matrix), so they are
+        # computed whether or not the scan is split.
+        scan_ranges = block_aligned_ranges(bed.bim.chrom, bed.bim.bp,
+                                           parsed_blocks, world)
+    if scan_ranges is not None and config.distributed_qc:
+        lo, hi = scan_ranges[rank]
+        log.info("Distributed SNP QC: rank %d/%d scans rows [%d, %d).", rank,
+                 world, lo, hi)
+        keep, mean_all, std_all = _allgather_qc(*_qc_snp_range_hostscan(
+            bed, config, n_qc, lo, hi, sample_sel=sample_sel), scan_ranges)
+    else:
+        keep, mean_all, std_all = _qc_snp_range_hostscan(
+            bed, config, n_qc, 0, bed.n_snps, sample_sel=sample_sel
+        )
     qc_orig = np.nonzero(keep)[0]
     log.info("SNP QC: %d / %d SNPs passed.", len(qc_orig), bed.n_snps)
 
@@ -455,4 +531,5 @@ def prepare_data(config: DataPrepConfig) -> PreparedData:
         blocks=blocks,
         n_snps_pre_qc=bed.n_snps,
         n_snps_post_qc=len(qc_orig),
+        scan_ranges=scan_ranges,
     )

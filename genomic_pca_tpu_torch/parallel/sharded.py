@@ -23,9 +23,28 @@ The modes differ numerically (the 2-D tsq takes W in f32, the 1-D one W
 rounded to bf16), so the port switches at the sample count where the JAX
 container does.
 
-Not ported here: the from_local_rows / from_owned_units constructors, row
-segments (the one-device layout is a single segment) and the TPU tile
-choosers.
+Several devices: one rank per device in a `torch.distributed` process
+group (parallel/mesh.py), the JAX mesh axis "v".  Every rank holds the
+same number of rows (a multiple of the q8 tile `tile_d`), a contiguous
+range of the global matrix rows: rank r holds global rows [r * d_pad,
+(r + 1) * d_pad), `d_pad` being the rows of one rank.  Each pass runs the
+rank's kernels over its rows, then one all-reduce merges the (n_pad x L)
+or (L x L) result where the JAX container calls `psum`
+(genomic_pca_tpu/parallel/sharded.py:1136-1198); the q8 pass folds
+`out - ru` before it.  Everything after a merge (`cholqr2_q`, the
+tolerance test, `qr`, `eigh`) runs replicated on identical data (an
+all-reduce hands every rank the same bits), so every rank takes the same
+exit.  Outputs over rows (A B, the loadings)
+are gathered on every rank (`_rows_to_host`).  `from_local_rows` splits
+the rows into per-rank ranges aligned to `tile_d`, so the q8 row tiles
+fall where the one-rank container puts them; `from_owned_units` places
+each unit (a VCF file, a rank's QC range) inside its owner's rows and
+records the layout as row segments (`row_segments`: global matrix row,
+PCA row, count), as the JAX container does.  A rank that owns no rows
+holds one tile of inert rows and joins every collective with an exact
+zero contribution, so every rank launches the same kernels.
+
+Not ported here: the TPU tile choosers.
 """
 
 from __future__ import annotations
@@ -40,6 +59,7 @@ from genomic_pca_tpu_torch.ops.rsvd import (
     cholqr2_q, quantize_basis, subspace_residual,
 )
 from genomic_pca_tpu_torch.ops.standardize import MISSING
+from genomic_pca_tpu_torch.parallel import mesh
 
 PACKED_MISSING_BYTE = 0x55  # four 01 (missing) fields
 
@@ -147,6 +167,16 @@ def pack_int8_rows(geno: np.ndarray) -> np.ndarray:
     return sanitize_partial_byte(pack_bed_rows(geno), geno.shape[1])
 
 
+def _whole_matrix(constructor: str) -> None:
+    """Refuse a constructor that puts every row on this rank's device when
+    a process group of several ranks is in use: each rank would hold the
+    whole matrix and every merge would count it once a rank."""
+    if mesh.process_count() > 1:
+        raise ValueError(f"ShardedMatrix.{constructor} holds the whole matrix "
+                         "on one device; with several ranks use "
+                         "from_local_rows or from_owned_units")
+
+
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
@@ -166,7 +196,8 @@ _KERNELS_2D = {
 
 
 class ShardedMatrix:
-    """Standardized genotype operator, packed or dense int8, on one device.
+    """Standardized genotype operator, packed or dense int8, over the
+    rows of this rank (all rows on one device without a process group).
 
     Implements ops.operator.StandardizedOperator plus the fast paths
     `power_iterate` and `pca_core`.  `kernel_precision` "q8" (default)
@@ -174,7 +205,10 @@ class ShardedMatrix:
     and "f32" run only exact passes at that precision.  `tile_d` is the
     q8 quantization tile (rows sharing one z scale).  `mode` is "1d",
     "2d" or None (chosen from the layout and the sample count by
-    `default_mode`).
+    `default_mode`).  `geno`, `mean` and `inv_std` hold this rank's
+    `d_pad` rows; `row_segments` (S, 3) rows of (global matrix row, PCA
+    row, count) place the real rows when they are not the prefix [0,
+    n_rows) of the global rows.
     """
 
     def __init__(
@@ -190,6 +224,7 @@ class ShardedMatrix:
         q8_polish: Optional[int] = None,
         missing_fraction: Optional[float] = None,
         mode: Optional[str] = None,
+        row_segments: Optional[np.ndarray] = None,
     ):
         if kernel_precision not in ("q8", "bf16", "f32"):
             raise ValueError(f"unknown kernel_precision {kernel_precision!r}")
@@ -217,6 +252,14 @@ class ShardedMatrix:
         self._pmask = (
             torch.arange(self.n_pad, device=self.device) < n_samples
         ).to(torch.float32)[:, None]
+        self.rank = mesh.process_index()
+        self.world = mesh.process_count()
+        self.row_offset = self.rank * self.d_pad  # global row of local row 0
+        if row_segments is not None:
+            row_segments = np.asarray(row_segments, dtype=np.int64).reshape(-1, 3)
+            if int(row_segments[:, 2].sum()) != n_rows:
+                raise ValueError("row_segments must hold n_rows rows")
+        self.row_segments = row_segments
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -232,16 +275,161 @@ class ShardedMatrix:
         """Adopt already padded arrays verbatim: (d_pad, N4) uint8 packed
         or (d_pad, n_pad) int8 dense genotypes and (d_pad, 1) f32, e.g.
         `np.asarray(sm.geno)` of the JAX container, so that both
-        containers hold identical bytes."""
+        containers hold identical bytes.  With a process group of R
+        ranks the arrays are the whole matrix of a container over a mesh
+        of a multiple of R devices, and rank r adopts its shard, rows [r
+        d_pad / R, (r + 1) d_pad / R); pass the JAX container's
+        `row_segments` in `kw` where it has them."""
         dev = torch.device(device)
+        world, rank = mesh.process_count(), mesh.process_index()
+        geno = np.asarray(geno)
+        if geno.shape[0] % world:
+            raise ValueError(f"{geno.shape[0]} rows do not split over {world} ranks")
+        per = geno.shape[0] // world
+        rows = slice(rank * per, (rank + 1) * per)
+
+        def column(x):
+            x = np.asarray(x, np.float32).reshape(-1, 1)[rows]
+            return torch.tensor(x, device=dev)
+
         return ShardedMatrix(
-            geno=torch.tensor(np.asarray(geno), device=dev),
-            mean=torch.tensor(np.asarray(mean, np.float32).reshape(-1, 1),
-                              device=dev),
-            inv_std=torch.tensor(np.asarray(inv_std, np.float32).reshape(-1, 1),
-                                 device=dev),
+            geno=torch.tensor(geno[rows], device=dev),
+            mean=column(mean), inv_std=column(inv_std),
             n_rows=n_rows, n_samples=n_samples, device=dev, **kw,
         )
+
+    @staticmethod
+    def _rank_block(rows: int, n_samples: int, packed: bool, device):
+        """Empty (geno, mean, inv_std) of one rank's `rows` inert rows:
+        all-missing genotypes over the padded columns, zero moments."""
+        cols = packed_cols(n_samples) if packed else dense_cols(n_samples)
+        fill = PACKED_MISSING_BYTE if packed else MISSING
+        dtype = torch.uint8 if packed else torch.int8
+        return (torch.full((rows, cols), fill, dtype=dtype, device=device),
+                torch.zeros((rows, 1), dtype=torch.float32, device=device),
+                torch.zeros((rows, 1), dtype=torch.float32, device=device))
+
+    @staticmethod
+    def _fill_rows(block, ofs: int, g, m, s, n_samples: int, packed: bool,
+                   center_only: bool) -> None:
+        """Write host rows (geno, mean, std) into `block` from local row
+        `ofs`: packed bytes sanitized, std 1 with `center_only`."""
+        g = np.asarray(g, dtype=np.uint8 if packed else np.int8)
+        if packed:
+            g = sanitize_partial_byte(g, n_samples)
+        r = g.shape[0]
+        s = np.ones(r, np.float32) if center_only else np.asarray(s, np.float32)
+        geno, mean, inv = block
+        geno[ofs:ofs + r, : g.shape[1]].copy_(torch.from_numpy(g))
+        mean[ofs:ofs + r, 0].copy_(torch.from_numpy(np.asarray(m, np.float32)))
+        inv[ofs:ofs + r, 0].copy_(torch.from_numpy(inv_std_of(s).astype(np.float32)))
+
+    @staticmethod
+    def from_local_rows(
+        read_rows: Callable[[int, int], tuple],
+        n_rows: int,
+        n_samples: int,
+        device,
+        tile_d: int = 1024,
+        packed: bool = False,
+        center_only: bool = False,
+        **kw,
+    ) -> "ShardedMatrix":
+        """Each rank reads only its own range of the global rows: the
+        JAX `from_local_rows` (genomic_pca_tpu/parallel/sharded.py:572).
+
+        The rows split into R equal ranges of `ceil(n_rows / R)` rounded
+        up to `tile_d` (at least one tile), so each range starts on a q8
+        tile boundary of the one-rank container; rank r reads rows [r
+        per, min((r + 1) per, n_rows)) through `read_rows(lo, hi)`, which
+        returns host (geno, mean, std): (hi - lo, N) int8 dosages, or
+        with `packed` (hi - lo, ceil(N / 4)) raw PLINK bytes (sanitized
+        here).  The padding rows are inert."""
+        world, rank = mesh.process_count(), mesh.process_index()
+        per = _round_up(max(-(-n_rows // world), 1), tile_d)
+        lo, hi = rank * per, min((rank + 1) * per, n_rows)
+        dev = torch.device(device)
+        block = ShardedMatrix._rank_block(per, n_samples, packed, dev)
+        if lo < hi:
+            g, m, s = read_rows(lo, hi)
+            ShardedMatrix._fill_rows(block, 0, g, m, s, n_samples, packed,
+                                     center_only)
+        return ShardedMatrix(*block, n_rows=n_rows, n_samples=n_samples,
+                             device=dev, tile_d=tile_d, **kw)
+
+    @staticmethod
+    def from_owned_units(
+        unit_counts,
+        unit_owner,
+        local_units,
+        n_samples: int,
+        device,
+        tile_d: int = 1024,
+        packed: bool = False,
+        center_only: bool = False,
+        strip_rows: int = 262_144,
+        **kw,
+    ) -> "ShardedMatrix":
+        """Unit-sharded construction: the JAX `from_owned_units`
+        (genomic_pca_tpu/parallel/sharded.py:667-809), one device per
+        rank.
+
+        `unit_counts` / `unit_owner` (U,) are known to every rank: each
+        unit's rows and the rank that owns it; global PCA row order is
+        unit order.  `local_units` {unit: (geno, mean, std)} holds this
+        rank's units (with `packed`, raw PLINK bytes); `geno` is the host
+        rows or a reader `read(lo, hi)` of the unit's rows [lo, hi),
+        which is called strip by strip of `strip_rows` rows so that the
+        host never holds the whole unit, as in `from_packed_strips`.
+        Each unit becomes one row segment placed consecutively inside its
+        owner's rows, so no genotype leaves the rank that read it; every
+        rank holds the largest rank's total rounded up to `tile_d` (at
+        least one tile), and a rank that owns nothing holds inert rows
+        only."""
+        world, rank = mesh.process_count(), mesh.process_index()
+        unit_counts = np.asarray(unit_counts, dtype=np.int64)
+        unit_owner = np.asarray(unit_owner, dtype=np.int64)
+        if len(unit_owner) and (unit_owner.min() < 0 or unit_owner.max() >= world):
+            raise ValueError(f"unit owners must be ranks of 0..{world - 1}")
+        totals = np.bincount(unit_owner, weights=unit_counts,
+                             minlength=world).astype(np.int64)
+        per = _round_up(max(int(totals.max(initial=0)), 1), tile_d)
+        pca_ofs = np.concatenate([[0], np.cumsum(unit_counts)])
+        cursor = np.zeros(world, dtype=np.int64)
+        placement = {}
+        segments = []
+        for u, cnt in enumerate(unit_counts):
+            if cnt == 0:
+                continue
+            p = int(unit_owner[u])
+            placement[u] = p * per + int(cursor[p])
+            cursor[p] += cnt
+            segments.append((placement[u], int(pca_ofs[u]), int(cnt)))
+        dev = torch.device(device)
+        block = ShardedMatrix._rank_block(per, n_samples, packed, dev)
+        for u, (g, m, s) in local_units.items():
+            if int(unit_owner[u]) != rank:
+                raise ValueError(f"rank {rank} supplied unit {u} it does not own")
+            cnt = int(unit_counts[u])
+            if not callable(g):
+                g = np.asarray(g)
+                if g.shape[0] != cnt:
+                    raise ValueError(f"unit {u} has {g.shape[0]} rows, not {cnt}")
+            read = g if callable(g) else (lambda lo, hi, g=g: g[lo:hi])
+            for lo in range(0, cnt, strip_rows):
+                hi = min(lo + strip_rows, cnt)
+                rows = read(lo, hi)
+                if rows.shape[0] != hi - lo:
+                    raise ValueError(f"unit {u}: read({lo}, {hi}) gave "
+                                     f"{rows.shape[0]} rows")
+                ShardedMatrix._fill_rows(
+                    block, placement[u] - rank * per + lo, rows, m[lo:hi],
+                    None if s is None else s[lo:hi], n_samples, packed,
+                    center_only)
+        return ShardedMatrix(*block, n_rows=int(unit_counts.sum()),
+                             n_samples=n_samples, device=dev, tile_d=tile_d,
+                             row_segments=np.asarray(segments, np.int64).reshape(-1, 3),
+                             **kw)
 
     @staticmethod
     def _moments(mean, std, n_rows: int, device) -> tuple:
@@ -261,6 +449,7 @@ class ShardedMatrix:
     ) -> "ShardedMatrix":
         """Build from raw PLINK bytes (D, ceil(N/4)); trailing fields are
         sanitized and the byte axis pads to `packed_cols` with 0x55."""
+        _whole_matrix("from_packed_rows")
         packed_rows = sanitize_partial_byte(
             np.asarray(packed_rows, dtype=np.uint8), n_samples
         )
@@ -288,6 +477,7 @@ class ShardedMatrix:
         buffers into one preallocated device block, so the host never
         holds the whole padded matrix.  `read_strip(lo, hi)` returns
         SANITIZED packed rows [lo, hi)."""
+        _whole_matrix("from_packed_strips")
         dev = torch.device(device)
         n4 = packed_cols(n_samples)
         geno = torch.empty((n_rows, n4), dtype=torch.uint8, device=dev)
@@ -318,6 +508,7 @@ class ShardedMatrix:
         multiple of 128 with -127.  Strips upload one by one into a
         preallocated device block whose padding is filled on the device.
         `strip_size` is accepted for API compatibility."""
+        _whole_matrix("from_arrays")
         gs: List[np.ndarray] = []
         ms: List[np.ndarray] = []
         ss: List[np.ndarray] = []
@@ -355,23 +546,27 @@ class ShardedMatrix:
         return out
 
     # The passes of each mode: the JAX container's `_local_ops`
-    # (genomic_pca_tpu/parallel/sharded.py:948-1061).  In 2-D mode gram
-    # is W = A B then A^T W, tsq is W^T W on the f32 W (a plain f32
-    # product, TF32 off, as the reference's jnp.dot at HIGHEST outside
-    # any kernel), and the q8 pass is q8_power_pass_2d; both layouts.
+    # (genomic_pca_tpu/parallel/sharded.py:948-1061) over this rank's
+    # rows, each merged by one all-reduce where the JAX container calls
+    # psum (:1136-1156).  In 2-D mode gram is W = A B then A^T W, tsq is
+    # W^T W on the f32 W (a plain f32 product, TF32 off, as the
+    # reference's jnp.dot at HIGHEST outside any kernel), and the q8 pass
+    # is q8_power_pass_2d; both layouts.
     def _gram(self, bp: torch.Tensor) -> torch.Tensor:
         args = (self.geno, self.mean, self.inv_std)
         if self.mode == "2d":
             w = self._k2d[0](*args, bp, self.exact_precision)
-            return self._k2d[1](*args, w, self.exact_precision)
-        return self._k1d[0](*args, bp, self.exact_precision)
+            out = self._k2d[1](*args, w, self.exact_precision)
+        else:
+            out = self._k1d[0](*args, bp, self.exact_precision)
+        return mesh.all_reduce_sum(out)
 
     def _tsq(self, bp: torch.Tensor) -> torch.Tensor:
         if self.mode == "2d":
             w = self._right(bp)
-            return w.T @ w
-        return self._k1d[1](self.geno, self.mean, self.inv_std, bp,
-                            self.exact_precision)
+            return mesh.all_reduce_sum(w.T @ w)
+        return mesh.all_reduce_sum(self._k1d[1](
+            self.geno, self.mean, self.inv_std, bp, self.exact_precision))
 
     def _right(self, bp: torch.Tensor) -> torch.Tensor:
         fn = self._k2d[0] if self.mode == "2d" else self._k1d[2]
@@ -382,7 +577,9 @@ class ShardedMatrix:
         bq, sb, csum = quantize_basis(bp)
         out, ru = fn(self.geno, self.inv_std, self._u, bq, sb, csum,
                      tile_d=self.tile_d)
-        return out - ru
+        # The rank-1 term broadcasts over sample rows: fold it before the
+        # merge, as the JAX gram_q8_sm does.
+        return mesh.all_reduce_sum(out - ru)
 
     # ---- public passes ------------------------------------------------
     def gram_apply(self, b) -> torch.Tensor:
@@ -394,8 +591,9 @@ class ShardedMatrix:
         return self._tsq(self._pad_b(b))
 
     def right_apply(self, b) -> np.ndarray:
-        """A B on host with padding removed: (n_rows, l)."""
-        return self._right(self._pad_b(b))[: self.n_rows].cpu().numpy()
+        """A B on host with padding removed: (n_rows, l) in PCA row
+        order, on every rank."""
+        return self._trim_rows(self._rows_to_host(self._right(self._pad_b(b))))
 
     def _strip_rows(self) -> int:
         """Rows per strip of the torch-side scans: 64 Mi elements."""
@@ -414,8 +612,9 @@ class ShardedMatrix:
         samples and the training moments, `left_apply(loadings)` is
         PCA::transform).  The reference computes it as an XLA strip scan
         outside any kernel (genomic_pca_tpu/parallel/sharded.py:1162-1198,
-        1561-1596); here each strip is standardized in f32 and multiplied
-        by torch.matmul.  Padded rows are inert (never read)."""
+        1561-1596); here each strip of this rank's real rows is
+        standardized in f32 and multiplied by torch.matmul, and the ranks'
+        sums are all-reduced.  Padded rows are inert (never read)."""
         w = np.asarray(w, dtype=np.float32)
         if w.ndim != 2 or w.shape[0] != self.n_rows:
             raise ValueError(f"left_apply expects ({self.n_rows}, k), got {w.shape}")
@@ -423,10 +622,12 @@ class ShardedMatrix:
         out = torch.zeros((self.n_pad, w.shape[1]), dtype=torch.float32,
                           device=self.device)
         step = self._strip_rows()
-        for lo in range(0, self.n_rows, step):
-            hi = min(lo + step, self.n_rows)
-            out += self._standardized(slice(lo, hi)).T @ w_t[lo:hi]
-        return out[: self.n_samples].cpu().numpy()
+        for l0, p0, cnt in self._local_runs():
+            for off in range(0, cnt, step):
+                c = min(step, cnt - off)
+                out += (self._standardized(slice(l0 + off, l0 + off + c)).T
+                        @ w_t[p0 + off:p0 + off + c])
+        return mesh.all_reduce_sum(out)[: self.n_samples].cpu().numpy()
 
     def _power_loop(self, bp: torch.Tensor, n_iter: int, tol: Optional[float]):
         """Subspace iteration on the padded basis; returns (basis,
@@ -451,6 +652,8 @@ class ShardedMatrix:
             i, res = 0, float("inf")
             while i < max_n and res >= tol:
                 t = tfn(cur)
+                # From merged data, identical on every rank: every rank
+                # exits at the same step.
                 res = float(subspace_residual(cur, t)) if i > 0 else float("inf")
                 cur = cholqr2_q(t)
                 i += 1
@@ -493,16 +696,88 @@ class ShardedMatrix:
         s_k = sigma[:k]
         inv_sigma = torch.where(s_k > 0, 1.0 / torch.where(s_k > 0, s_k, 1.0),
                                 torch.zeros_like(s_k))
-        loadings = (c * inv_sigma[None, :])[: self.n_rows].cpu().numpy()
+        loadings = self._trim_rows(self._rows_to_host(c * inv_sigma[None, :]))
         res = (v_full[: self.n_samples, :k], s_k, evals[:k], loadings)
         return res if tolerance is None else res + (n_done,)
 
-    # ---- device-resident block access ---------------------------------
-    def runs_device_sliceable(self, runs: np.ndarray) -> bool:
-        """Every (start, len) run can be sliced contiguously: the
-        one-device layout is one row segment."""
-        return True
+    # ---- row layout: segments and ranks ---------------------------------
+    @property
+    def _segments_or_default(self) -> np.ndarray:
+        """(S, 3) rows of (global matrix row, PCA row, count)."""
+        if self.row_segments is None:
+            return np.array([[0, 0, self.n_rows]], dtype=np.int64)
+        return self.row_segments
 
+    def _local_runs(self) -> List[tuple]:
+        """(local row, PCA row, count) of each run of real rows on this
+        rank, in global row order."""
+        lo, hi = self.row_offset, self.row_offset + self.d_pad
+        out = []
+        for m0, p0, cnt in self._segments_or_default:
+            a, b = max(int(m0), lo), min(int(m0 + cnt), hi)
+            if a < b:
+                out.append((a - lo, int(p0) + a - int(m0), b - a))
+        return out
+
+    def translate_row_runs(self, starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """PCA row run starts -> global matrix row starts under the
+        segmented layout (the JAX container's, :1396-1422).  Raises
+        ValueError if a run crosses a segment boundary; zero-length runs
+        (batch padding) translate to row 0."""
+        starts = np.asarray(starts, dtype=np.int64)
+        if self.row_segments is None:
+            return starts
+        seg = self.row_segments
+        lens = np.asarray(lens, dtype=np.int64)
+        si = np.clip(np.searchsorted(seg[:, 1], starts, side="right") - 1,
+                     0, len(seg) - 1)
+        inside = ((starts >= seg[si, 1]) & (starts + lens <= seg[si, 1] + seg[si, 2])
+                  | (lens == 0))
+        if not bool(inside.all()):
+            raise ValueError("block run crosses a row-segment boundary; use the "
+                             "host accessor path for this block file")
+        return np.where(lens == 0, 0, seg[si, 0] + (starts - seg[si, 1]))
+
+    def rank_of_runs(self, runs: np.ndarray) -> np.ndarray:
+        """The rank holding each (start, len) PCA row run (0 for a
+        zero-length run); raises ValueError for a run that crosses a
+        segment or a rank boundary."""
+        runs = np.asarray(runs, dtype=np.int64).reshape(-1, 2)
+        m = self.translate_row_runs(runs[:, 0], runs[:, 1])
+        per = max(self.d_pad, 1)
+        last = m + np.maximum(runs[:, 1], 1) - 1
+        if not bool((m // per == last // per).all()):
+            raise ValueError("block run crosses a rank boundary; use the host "
+                             "accessor path for this block file")
+        return np.where(runs[:, 1] == 0, 0, m // per)
+
+    def runs_device_sliceable(self, runs: np.ndarray) -> bool:
+        """True when every (start, len) run lies inside one row segment
+        and one rank, so that `fetch_blocks_device` can slice it on the
+        rank that holds it."""
+        try:
+            self.rank_of_runs(runs)
+            return True
+        except ValueError:
+            return False
+
+    def _trim_rows(self, arr: np.ndarray) -> np.ndarray:
+        """(world d_pad, ...) host array of the global rows -> (n_rows, ...)
+        real rows in PCA row order (drops inter-segment and tail
+        padding)."""
+        if self.row_segments is None:
+            return arr[: self.n_rows]
+        out = np.empty((self.n_rows,) + arr.shape[1:], dtype=arr.dtype)
+        for m0, p0, cnt in self.row_segments:
+            out[p0:p0 + cnt] = arr[m0:m0 + cnt]
+        return out
+
+    def _rows_to_host(self, local: torch.Tensor) -> np.ndarray:
+        """This rank's (d_pad, k) rows -> the (world d_pad, k) global rows on
+        the host of every rank (a tiled all-gather in rank order)."""
+        return mesh.all_gather_rows(local).cpu().numpy()
+
+    # ---- device-resident block access ---------------------------------
     def fetch_blocks_device(
         self,
         starts: np.ndarray,
@@ -510,10 +785,11 @@ class ShardedMatrix:
         bucket: int,
         col_idx: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """(B, bucket, C) f32 standardized row runs sliced from the
-        resident matrix, in original sample order: row i of block b is
-        matrix row starts[b] + i for i < lens[b], and 0 beyond; missing
-        genotypes are 0; C = n_pad, or len(col_idx).
+        """(B, bucket, C) f32 standardized row runs sliced from this
+        rank's rows, in original sample order: row i of block b is PCA
+        row starts[b] + i for i < lens[b], and 0 beyond; missing
+        genotypes are 0; C = n_pad, or len(col_idx).  Every run of
+        nonzero length must lie on this rank (`rank_of_runs`).
 
         The reference's `fetch_blocks_device` with `_slice_blocks_impl`
         (dense) and `_slice_blocks_packed_impl` (packed)
@@ -523,11 +799,15 @@ class ShardedMatrix:
         lower in its bucket; here every run starts at row 0 of its
         bucket, so a block's local basis rows are its SNPs in order."""
         bucket = min(bucket, self.d_pad)
-        lens_t = torch.as_tensor(np.asarray(lens, dtype=np.int64), device=self.device)
-        if int(lens_t.max()) > bucket:
-            raise ValueError(f"block longer than bucket: {int(lens_t.max())} > {bucket}")
-        starts_t = torch.as_tensor(np.asarray(starts, dtype=np.int64),
-                                   device=self.device)
+        lens = np.asarray(lens, dtype=np.int64)
+        if int(lens.max()) > bucket:
+            raise ValueError(f"block longer than bucket: {int(lens.max())} > {bucket}")
+        owner = self.rank_of_runs(np.stack([np.asarray(starts), lens], axis=1))
+        if bool(((owner != self.rank) & (lens > 0)).any()):
+            raise ValueError(f"fetch_blocks_device: a run is not on rank {self.rank}")
+        local = self.translate_row_runs(starts, lens) - self.row_offset
+        starts_t = torch.as_tensor(np.where(lens > 0, local, 0), device=self.device)
+        lens_t = torch.as_tensor(lens, device=self.device)
         offs = torch.arange(bucket, device=self.device)
         rows = torch.clamp(starts_t[:, None] + offs, max=self.d_pad - 1).reshape(-1)
         x = self._standardized(rows).reshape(len(starts_t), bucket, self.n_pad)
@@ -538,12 +818,15 @@ class ShardedMatrix:
 
     def count_missing(self) -> int:
         """Missing genotypes among real rows and samples (for the strict
-        `missing_policy="error"`), counted in int64."""
+        `missing_policy="error"`), counted in int64 and summed over the
+        ranks."""
         valid = torch.arange(self.n_pad, device=self.device) < self.n_samples
         miss = 0
         step = self._strip_rows()
-        for lo in range(0, self.n_rows, step):
-            g = self.geno[lo:min(lo + step, self.n_rows)]
-            hit = kernels.packed_codes(g) == 1 if self.packed else g == MISSING
-            miss += int((hit & valid).sum(dtype=torch.int64))
-        return miss
+        for l0, _p0, cnt in self._local_runs():
+            for lo in range(l0, l0 + cnt, step):
+                g = self.geno[lo:min(lo + step, l0 + cnt)]
+                hit = kernels.packed_codes(g) == 1 if self.packed else g == MISSING
+                miss += int((hit & valid).sum(dtype=torch.int64))
+        total = torch.tensor([miss], dtype=torch.int64, device=self.device)
+        return int(mesh.all_reduce_sum(total).item())

@@ -2,10 +2,16 @@
 the projection of new samples through a fitted model.
 
 Counterparts of `genomic_pca_tpu/workflows.py` `run_vcf_workflow`,
-`run_eigensnp_workflow` and `run_projection_workflow`, single process, on
-an explicit `device`.  VCF parsing runs the per-file functions of the
-port's `io/vcf.py` in this module's own spawn pool; outputs go through
-the port's `io/writers.py` and are the reference's files.
+`run_eigensnp_workflow` and `run_projection_workflow` on an explicit
+`device`.  VCF parsing runs the per-file functions of the port's
+`io/vcf.py` in this module's own spawn pool; outputs go through the
+port's `io/writers.py` and are the reference's files.
+
+In a process group of several ranks (parallel/mesh.py, one rank per
+device) every rank runs the workflow: each rank parses only its own VCF
+files (`load_vcf_directory_sharded`) or QCs only its own BIM range
+(models/prepare.py), the matrix is split over the ranks, and rank 0
+alone writes the outputs.  The projection workflow runs on one rank.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.qc import (
     dosage_mean_from_counts, genotype_counts_int8_host,
 )
+from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix, pack_int8_rows
 from genomic_pca_tpu_torch.utils.timing import StageTimer
 
@@ -46,33 +53,77 @@ log = logging.getLogger(__name__)
 def load_vcf_directory(
     vcf_dir: str, maf_threshold: Optional[float], n_workers: int = 0
 ) -> Tuple[List[str], List[str], List[np.ndarray]]:
-    """(sample_names, variant_ids, dosage strips) of a VCF directory.
+    """(sample_names, variant_ids, dosage strips) of a whole VCF directory:
+    `load_vcf_directory_sharded` on one rank, its files in sorted order."""
+    canonical, _n_files, blocks = load_vcf_directory_sharded(
+        vcf_dir, maf_threshold, rank=0, world=1, n_workers=n_workers)
+    if not blocks:
+        raise VcfParseError("No variants passed filters across all VCF files.")
+    variant_ids = [vid for blk in blocks.values() for vid in blk.ids]
+    return canonical, variant_ids, [blk.dosages for blk in blocks.values()]
 
-    Files parse in sorted order; with `n_workers > 1` and several files
-    they parse in a spawn pool of up to `n_workers` processes."""
-    paths = discover_vcf_files(vcf_dir)
-    canonical = read_vcf_sample_names(paths[0])
-    log.info(
-        "Found %d VCF files; canonical sample set has %d samples (from %s).",
-        len(paths), len(canonical), paths[0].name,
-    )
+
+def _parse_files(paths, canonical: List[str], maf_threshold: Optional[float],
+                 n_workers: int) -> list:
+    """`process_single_vcf` of each path, in order: in a spawn pool of up
+    to `n_workers` processes with `n_workers > 1` and several files."""
     args = [(p, canonical, maf_threshold) for p in paths]
     if n_workers > 1 and len(paths) > 1:
         with mp.get_context("spawn").Pool(min(n_workers, len(paths))) as pool:
-            blocks = pool.starmap(process_single_vcf, args)
-    else:
-        blocks = [process_single_vcf(*a) for a in args]
+            return pool.starmap(process_single_vcf, args)
+    return [process_single_vcf(*a) for a in args]
 
-    variant_ids: List[str] = []
-    strips: List[np.ndarray] = []
-    for blk in blocks:
-        if blk is None:
-            continue
-        variant_ids.extend(blk.ids)
-        strips.append(blk.dosages)
-    if not variant_ids:
+
+def load_vcf_directory_sharded(
+    vcf_dir: str, maf_threshold: Optional[float], rank: int, world: int,
+    n_workers: int = 0,
+):
+    """This rank's share of a VCF directory: the files i with i % world ==
+    rank of the sorted list, as the JAX `load_vcf_directory_sharded`
+    (genomic_pca_tpu/io/vcf.py:271-318).
+
+    Returns (canonical samples, number of files, {file index: block}) for
+    the owned files with surviving variants; a rank may own none.  Every
+    rank reads the first file's header (the canonical sample set)."""
+    paths = discover_vcf_files(vcf_dir)
+    canonical = read_vcf_sample_names(paths[0])
+    owned = [(i, p) for i, p in enumerate(paths) if i % world == rank]
+    log.info("Rank %d/%d parsing %d of %d VCF files (%d canonical samples).",
+             rank, world, len(owned), len(paths), len(canonical))
+    parsed = _parse_files([p for _i, p in owned], canonical, maf_threshold,
+                          n_workers)
+    blocks = {i: blk for (i, _p), blk in zip(owned, parsed) if blk is not None}
+    return canonical, len(paths), blocks
+
+
+def _vcf_matrix(vcf_dir: str, maf: Optional[float], threads: int,
+                device) -> Tuple[List[str], ShardedMatrix]:
+    """The packed VCF matrix over the ranks of the process group (the JAX
+    workflow's multi-process branch, genomic_pca_tpu/workflows.py:83-156):
+    each rank parses its own files, the ranks exchange per-file variant
+    counts, and each file becomes a unit of `from_owned_units` on the rank
+    that parsed it, with center-only moments from exact histograms.  On
+    one rank every file is rank 0's, placed in file order from row 0."""
+    rank, world = mesh.process_index(), mesh.process_count()
+    sample_names, n_files, owned = load_vcf_directory_sharded(
+        vcf_dir, maf, rank, world, n_workers=threads)
+    local_counts = np.zeros(n_files, dtype=np.int64)
+    for fi, blk in owned.items():
+        local_counts[fi] = blk.dosages.shape[0]
+    counts = mesh.all_gather_numpy({"counts": local_counts})["counts"].sum(axis=0)
+    if int(counts.sum()) == 0:
         raise VcfParseError("No variants passed filters across all VCF files.")
-    return canonical, variant_ids, strips
+    local_units = {}
+    for fi, blk in owned.items():
+        g = np.asarray(blk.dosages, dtype=np.int8)
+        m = dosage_mean_from_counts(genotype_counts_int8_host(g))
+        local_units[fi] = (pack_int8_rows(g), m.astype(np.float32), None)
+    matrix = ShardedMatrix.from_owned_units(
+        counts, np.arange(n_files, dtype=np.int64) % world, local_units,
+        n_samples=len(sample_names), device=device, packed=True,
+        center_only=True,
+    )
+    return sample_names, matrix
 
 
 def run_vcf_workflow(
@@ -90,36 +141,17 @@ def run_vcf_workflow(
 
     Moments are center-without-scale (std = 1), as in the reference VCF
     workflow; eigenvalues.tsv holds the explained variances unless
-    `write_real_eigenvalues=False`."""
+    `write_real_eigenvalues=False`.  In a process group of several ranks
+    each rank parses and holds its own files (`_vcf_matrix`) and rank 0
+    writes the outputs."""
     timer = StageTimer()
-
-    with timer.stage("VCF parsing & filtering"):
-        sample_names, _variant_ids, strips = load_vcf_directory(
-            vcf_dir, maf, n_workers=threads
-        )
-
-    with timer.stage("Matrix assembly (device upload)"):
-        n_samples = len(sample_names)
-        packed_parts = []
-        mean_parts = []
-        for g in strips:
-            g = np.asarray(g, dtype=np.int8)
-            m = dosage_mean_from_counts(genotype_counts_int8_host(g))
-            mean_parts.append(m.astype(np.float32))
-            packed_parts.append(pack_int8_rows(g))
-        means = np.concatenate(mean_parts)
-        matrix = ShardedMatrix.from_packed_rows(
-            np.concatenate(packed_parts),
-            mean=means,
-            std=np.ones_like(means),
-            n_samples=n_samples,
-            device=device,
-        )
+    with timer.stage("VCF parsing & matrix assembly"):
+        sample_names, matrix = _vcf_matrix(vcf_dir, maf, threads, device)
     log.info(
         "Assembled %d variants x %d samples (%d packed bytes per row) on %s "
-        "(device-resident container, %s mode).",
+        "(device-resident container, %s mode, %d rows on each of %d ranks).",
         matrix.n_rows, matrix.n_samples, matrix.geno.shape[1], matrix.device,
-        matrix.mode,
+        matrix.mode, matrix.d_pad, matrix.world,
     )
 
     with timer.stage("Randomized PCA (rfit)"):
@@ -134,12 +166,13 @@ def run_vcf_workflow(
         )
 
     with timer.stage("Output writing"):
-        write_principal_components(
-            output_prefix, sample_names, result.scores, suffix="vcf.pca.tsv"
-        )
-        write_eigenvalues(
-            output_prefix, result.eigenvalues if write_real_eigenvalues else []
-        )
+        if mesh.process_index() == 0:
+            write_principal_components(
+                output_prefix, sample_names, result.scores, suffix="vcf.pca.tsv"
+            )
+            write_eigenvalues(
+                output_prefix, result.eigenvalues if write_real_eigenvalues else []
+            )
 
     timer.log_summary("VCF workflow stage timings")
     log.info("Kernel launches: %s", json.dumps(kernels.LAUNCHES))
@@ -165,7 +198,9 @@ def run_eigensnp_workflow(
     container whatever the memory budget (no CLI flag, as in the JAX
     CLI).  Logs the container that ran, the stage split on one line at
     the end (QC + LD mapping, matrix load, stages 1-2, global PCA,
-    refinement + write) and the kernel launches."""
+    refinement + write) and the kernel launches.  In a process group of
+    several ranks every rank runs it (distributed QC, one matrix unit a
+    rank) and rank 0 writes the outputs."""
     timer = StageTimer()
     with timer.stage("Data preparation (QC + LD mapping)"):
         prep = prepare_data(prep_config)
@@ -182,23 +217,8 @@ def run_eigensnp_workflow(
         return
 
     with timer.stage("Output writing"):
-        write_principal_components(output_prefix, prep.sample_ids, result.scores,
-                                   suffix="eigensnp.pca.tsv")
-        write_eigenvalues(output_prefix, result.eigenvalues)
-        sids, chroms, positions = prep.snp_metadata()
-        write_loadings(output_prefix, [str(s) for s in sids],
-                       [str(c) for c in chroms], [int(p) for p in positions],
-                       result.loadings)
-        if write_moments:
-            idx = prep.pca_snp_orig_indices
-            write_moments_tsv(output_prefix, [str(s) for s in sids], prep.mean,
-                          prep.std, [str(x) for x in prep.bed.bim.a1[idx]],
-                          [str(x) for x in prep.bed.bim.a2[idx]])
-        if result.diagnostics is not None:
-            path = f"{output_prefix}.eigensnp_diagnostics.json"
-            with open(path, "w") as fh:
-                json.dump(result.diagnostics, fh, indent=2)
-            log.info("Wrote diagnostics to %s", path)
+        if mesh.process_index() == 0:
+            _write_eigensnp_outputs(prep, result, output_prefix, write_moments)
 
     timer.log_summary("EigenSNP workflow stage timings")
     log.info("EigenSNP matrix container: %s.", result.container)
@@ -211,6 +231,28 @@ def run_eigensnp_workflow(
         ss["refinement_finalize"] + st["Output writing"],
     )
     log.info("Kernel launches: %s", json.dumps(kernels.LAUNCHES))
+
+
+def _write_eigensnp_outputs(prep, result, output_prefix: str,
+                            write_moments: bool) -> None:
+    """The EigenSNP workflow's TSVs (and diagnostics JSON)."""
+    write_principal_components(output_prefix, prep.sample_ids, result.scores,
+                               suffix="eigensnp.pca.tsv")
+    write_eigenvalues(output_prefix, result.eigenvalues)
+    sids, chroms, positions = prep.snp_metadata()
+    write_loadings(output_prefix, [str(s) for s in sids],
+                   [str(c) for c in chroms], [int(p) for p in positions],
+                   result.loadings)
+    if write_moments:
+        idx = prep.pca_snp_orig_indices
+        write_moments_tsv(output_prefix, [str(s) for s in sids], prep.mean,
+                          prep.std, [str(x) for x in prep.bed.bim.a1[idx]],
+                          [str(x) for x in prep.bed.bim.a2[idx]])
+    if result.diagnostics is not None:
+        path = f"{output_prefix}.eigensnp_diagnostics.json"
+        with open(path, "w") as fh:
+            json.dump(result.diagnostics, fh, indent=2)
+        log.info("Wrote diagnostics to %s", path)
 
 
 def _model_rows(bed: BedReader, bed_path: str, l_ids: List[str],
@@ -268,7 +310,14 @@ def run_projection_workflow(
     `projection_strip_rows` and by `projection_strip_bytes` of decoded
     int8, the next strip decoding on a background thread.  Missing
     genotypes impute to the training mean.  Writes
-    `{prefix}.projected.pca.tsv`."""
+    `{prefix}.projected.pca.tsv`.  Runs on one rank: in a process group
+    of several it raises DataPrepError, as the JAX workflow does."""
+    if mesh.process_count() > 1:
+        raise DataPrepError(
+            "--project is a single-process operation (the model is k "
+            "columns; there is nothing to shard across hosts) — run it on "
+            "one process."
+        )
     timer = StageTimer()
     with timer.stage("Model loading (loadings + moments)"):
         l_ids, loadings = read_loadings(loadings_path)

@@ -65,6 +65,8 @@ def test_port_modules_and_help_import_no_jax(blocked_env):
         import genomic_pca_tpu_torch.models.eigensnp
         import genomic_pca_tpu_torch.utils.checkpoint
         import genomic_pca_tpu_torch.parallel.sharded
+        import genomic_pca_tpu_torch.parallel.mesh
+        import genomic_pca_tpu_torch.eval.multichip
         import genomic_pca_tpu_torch.ops.kernels
         import genomic_pca_tpu_torch.ops.build
         import genomic_pca_tpu_torch.ops.standardize
@@ -118,6 +120,7 @@ def test_cli_vcf_without_cuda_exits_1_naming_cuda(blocked_env, tmp_path):
 
 @pytest.mark.parametrize("args", [
     ["-m", "genomic_pca_tpu_torch.eval.profile_core"],
+    ["-m", "genomic_pca_tpu_torch.eval.multichip"],
     [str(REPO / "chip_smoke.py")],
 ])
 def test_gpu_scripts_without_cuda_exit_nonzero(blocked_env, args):
