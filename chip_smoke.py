@@ -105,8 +105,37 @@ no result line):
    (distributed QC, each rank's range one unit, stages 1-2 per rank): its
    moments TSV (the QC keep-mask and moments) byte for byte phase 8's,
    rank 0's launch counts those of the one-rank run, and the TSVs against
-   phases 7 / 8's and their float64 oracles.  Two ranks on one card check
-   correctness and the collective paths, not scaling.
+   phases 7 / 8's and their float64 oracles; (d) takes the host scan
+   (`--eigensnp-qc-mode host`) and re-reads the BED, the route that phase
+   17c's capture is held to.  Two ranks on one card check correctness and
+   the collective paths, not scaling;
+16. the device QC scan (models/prepare.py): (a) the EigenSNP CLI with
+   `--eigensnp-qc-mode device --write-moments` on phase 8's fileset: its
+   moments TSV byte for byte phase 8's, the matrix assembled from the
+   scan's captured batches, the launches of phase 8 and the float64
+   gate; (b) in process, the packed container gathered from the capture
+   against the one re-read from the BED after the host scan, bit for bit
+   (geno, mean, inv_std, rows); (c) the same for the dense route
+   (`packed_pipeline=False`, "auto": the device scan and an int8 capture)
+   on phase 11's fileset, the route phase 11 itself took (launches of 10,
+   11 and 12 only); (d) the walls of both scans and both assemblies;
+17. the host-streamed container over two ranks on the one card (gloo):
+   (a) `streamed_pca` over phase 5's genotypes in 2,048-row strips, 64
+   strips a rank: each rank launches kernels 1, 2 and 4 for its own
+   strips, the two ranks' counts add up to phase 14a's, identical scores
+   on both ranks, the float64 gate and per-PC |r| > 0.999 against phase
+   14a, each pass's wall and all-reduce time; (b)
+   `run_eigensnp_workflow(..., force_streaming=True)` on phase 8's fileset
+   at two ranks: the summed launches of phase 14b, the moments TSV byte
+   for byte phase 8's, the float64 gate; (c) the two-rank EigenSNP CLI
+   under `torch.distributed.run` with `--eigensnp-qc-mode device` (each
+   rank's unit gathered from its own capture): moments byte for byte
+   phase 15d's, rank 0's launches those of one rank, the float64 gate;
+18. `--profile-dir` (inside phase 7, on its 32,768-variant directory):
+   the VCF CLI again with the profiler: its TSVs byte for byte the
+   untraced run's, the trace file parses as JSON and its CUDA kernel
+   events name `q8_right2d_mma_kernel`, `q8_left2d_mma_kernel` and
+   `right_narrow_mma_kernel`; the wall with and without the profiler.
 
 The CLI phases hold the separated PCs to a float64 oracle.  The line
 before the last two is one JSON object with a row per kernel (its launches
@@ -130,8 +159,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
-FILESET = ROOT / "build" / "chip_smoke_eigensnp"  # phase 8's, kept for 14, 15
+FILESET = ROOT / "build" / "chip_smoke_eigensnp"  # phase 8's, kept for 14-17
 VCF_KEPT = ROOT / "build" / "chip_smoke_vcf"  # phase 7's second, kept for 15
+DENSE_KEPT = ROOT / "build" / "chip_smoke_dense"  # phase 11's, kept for 16
 SEED = 20260
 
 # Kernel vs plain, both on the card, as max|kernel - plain| / max|plain|.
@@ -838,11 +868,63 @@ def write_vcf_dir(np, path: Path, n_samples, n_variants, n_files, n_pops,
     return geno
 
 
-def check_cli(torch, np, device, n_v, n_files, n_pops, seed, k, keep=False):
+def run_cli(args, timeout=900):
+    """`python -m genomic_pca_tpu_torch <args>`: (the process, wall)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "genomic_pca_tpu_torch", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+# The __global__ kernels the 1-D main path launches at 2,504 samples: the
+# q8 pass's two tensor-core products and the loadings' narrow product.
+TRACED_KERNELS = ("q8_right2d_mma_kernel", "q8_left2d_mma_kernel",
+                  "right_narrow_mma_kernel")
+
+
+def check_profile(vcf_dir, prefix, k, wall):
+    """Phase 18: the VCF CLI again with `--profile-dir`: the same TSVs byte
+    for byte, one trace that parses as JSON and whose CUDA kernel events
+    name the hand-written kernels of the 1-D main path; the wall with and
+    without the profiler."""
+    label = "profile-dir"
+    prof_dir = prefix.parent / "prof"
+    traced = prefix.parent / "traced"
+    proc, wall_p = run_cli(["-d", str(vcf_dir), "-o", str(traced), "-k", str(k),
+                            "--rfit-seed", "5", "--profile-dir", str(prof_dir)])
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: CLI exit {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    same = all(Path(f"{traced}.{ext}").read_bytes() == Path(f"{prefix}.{ext}").read_bytes()
+               for ext in ("vcf.pca.tsv", "eigenvalues.tsv"))
+    path = prof_dir / "trace.rank0.json"
+    size = path.stat().st_size
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            kernels[ev["name"]] = kernels.get(ev["name"], 0) + 1
+    found = {name: sum(c for key, c in kernels.items() if name in key)
+             for name in TRACED_KERNELS}
+    log(f"[{label}] VCF CLI with --profile-dir exit 0 in {wall_p:.2f} s (without: "
+        f"{wall:.2f} s); trace {path.name} {size / 2**20:.1f} MiB, {len(events)} "
+        f"events, {len(kernels)} distinct CUDA kernels; hand-written kernels "
+        f"traced {found}; TSVs byte for byte the untraced run's: {same}")
+    if not same or not all(found.values()):
+        raise AssertionError(f"{label}: outputs differ ({same}) or kernels missing "
+                             f"from the trace: {found}")
+
+
+def check_cli(torch, np, device, n_v, n_files, n_pops, seed, k, keep=False,
+              profile=False):
     """`python -m genomic_pca_tpu_torch` on a generated VCF directory of
     2,504 samples; TSV layout and PCs against a float64 oracle.  With
     `keep` the directory stays for phase 15, which gets (directory, the
-    CLI's scores, the float64 oracle)."""
+    CLI's scores, the float64 oracle); with `profile` phase 18 runs on
+    it (`check_profile`)."""
     label = f"cli {n_v}x{n_pops}pop"
     if WORK.exists():
         shutil.rmtree(WORK)
@@ -854,15 +936,8 @@ def check_cli(torch, np, device, n_v, n_files, n_pops, seed, k, keep=False):
     log(f"[{label}] wrote {n_v} variants x {n_s} samples of {n_pops} "
         f"populations in {n_files} VCF files in {time.perf_counter() - t0:.1f} s")
     prefix = WORK / "out"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "genomic_pca_tpu_torch", "-d", str(vcf_dir),
-         "-o", str(prefix), "-k", str(k), "--rfit-seed", "5"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900,
-    )
-    wall = time.perf_counter() - t0
+    proc, wall = run_cli(["-d", str(vcf_dir), "-o", str(prefix), "-k", str(k),
+                          "--rfit-seed", "5"])
     for line in proc.stderr.splitlines():
         if "timing]" in line or "Assembled" in line or "Total run time" in line:
             log(f"[{label}] {line.split('] ', 1)[-1]}")
@@ -890,6 +965,8 @@ def check_cli(torch, np, device, n_v, n_files, n_pops, seed, k, keep=False):
     ev_true = ev.flip(0)[: k + 1].cpu().numpy()
     log(f"[{label}] {kept.shape[0]} variants pass the MAF gate")
     check_pcs(np, pcs, v_true, ev_true, evs * (n_s - 1), k, label)
+    if profile:
+        check_profile(vcf_dir, prefix, k, wall)
     if keep:
         shutil.rmtree(VCF_KEPT, ignore_errors=True)
         shutil.move(str(WORK), str(VCF_KEPT))
@@ -1109,10 +1186,14 @@ def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = dict(tk.LAUNCHES)
-    log_messages(label, messages, ("SNP QC:", "LD mapping:", "EigenSNP matrix loaded",
+    log_messages(label, messages, ("SNP QC:", "LD mapping:", "QC->matrix capture",
+                                   "Matrix assembly", "EigenSNP matrix loaded",
                                    "EigenSNP stage split:"))
     log(f"[{label}] run_eigensnp_workflow(packed_pipeline=False) in {wall:.2f} s; "
         f"launches {launches}")
+    if not any(m.startswith("Matrix assembly from the QC scan") for m in messages):
+        raise AssertionError(f"{label}: 'auto' did not take the device scan and "
+                             "its int8 capture")
     want = dict(ZERO_LAUNCHES, fused_gram_apply=1, fused_tsq=1, fused_right_apply=1)
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != {want}")
@@ -1182,7 +1263,9 @@ def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
         f"{time.perf_counter() - t0:.1f} s)")
     if min(rs) <= 0.999 or not rel <= 1e-4:
         raise AssertionError(f"{label}: projection disagrees: |r| {rs}, rel {rel}")
-    shutil.rmtree(WORK)
+    shutil.rmtree(DENSE_KEPT, ignore_errors=True)
+    shutil.move(str(WORK), str(DENSE_KEPT))
+    return DENSE_KEPT / "cohort"
 
 
 def check_streamed_main(torch, np, device, d, n, k, seed, strip, resident):
@@ -1233,7 +1316,7 @@ def check_streamed_main(torch, np, device, d, n, k, seed, strip, resident):
         f"prefix: min {min(rs):.7f}")
     if min(rs) <= 0.999:
         raise AssertionError(f"{label}: streamed and resident runs disagree: {rs}")
-    return launches
+    return launches, res.scores
 
 
 def check_streamed_eigensnp(torch, np, device, fileset, k, packed_pipeline):
@@ -1368,6 +1451,12 @@ def per_pc_agreement(np, a, b, sep):
     return min(rs), float(np.linalg.svd(qa.T @ qb, compute_uv=False).min())
 
 
+def kernel_launches(messages):
+    """The kernel launch counts a workflow logged at its end."""
+    return next(json.loads(m[len("Kernel launches: "):]) for m in messages
+                if m.startswith("Kernel launches: "))
+
+
 def torchrun(args, label, timeout=900):
     """`python -m torch.distributed.run --standalone --nproc-per-node 2
     -m genomic_pca_tpu_torch <args>`: (rank 0's log messages, wall)."""
@@ -1482,8 +1571,7 @@ def check_multirank(torch, np, device, main, main_res, vcf_run, fileset):
     msgs, wall = torchrun(["-d", str(vcf_dir), "-o", str(prefix), "-k", "10",
                            "--rfit-seed", "5"], label)
     log_messages(label, msgs, ("Process group:", "Assembled", "Total run time"))
-    launches = next(json.loads(m[len("Kernel launches: "):]) for m in msgs
-                    if m.startswith("Kernel launches: "))
+    launches = kernel_launches(msgs)
     log(f"[{label}] torch.distributed.run --nproc-per-node 2 exit 0 in "
         f"{wall:.2f} s; rank 0 launches {launches}")
     want = dict(ZERO_LAUNCHES, fused_gram_q8_packed=3, fused_gram_apply_packed=1,
@@ -1508,13 +1596,12 @@ def check_multirank(torch, np, device, main, main_res, vcf_run, fileset):
     bed, ref_pcs, oracle, _sep = fileset
     out = FILESET / "ranks2"
     msgs, wall = torchrun(["--eigensnp", "--bed-file", str(bed), "--ld-block-file",
-                           f"{bed}.blocks.tsv", "-o", str(out), "--write-moments"],
-                          label)
+                           f"{bed}.blocks.tsv", "-o", str(out), "--write-moments",
+                           "--eigensnp-qc-mode", "host"], label)
     log_messages(label, msgs, ("Process group:", "Distributed SNP QC", "SNP QC:",
                                "LD mapping:", "EigenSNP matrix loaded",
                                "EigenSNP stage split:", "Total run time"))
-    launches = next(json.loads(m[len("Kernel launches: "):]) for m in msgs
-                    if m.startswith("Kernel launches: "))
+    launches = kernel_launches(msgs)
     log(f"[{label}] torch.distributed.run --nproc-per-node 2 exit 0 in "
         f"{wall:.2f} s; rank 0 launches {launches}")
     want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=3,
@@ -1538,6 +1625,264 @@ def check_multirank(torch, np, device, main, main_res, vcf_run, fileset):
         f"principal cosine {cos:.7f}")
     if r_min <= 0.999 or cos <= 0.999:
         raise AssertionError(f"{label}: two ranks and one rank disagree")
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the device QC scan and its capture.
+
+
+def check_device_scan(torch, np, device, fileset, dense_prefix):
+    """Phase 16 (module docstring)."""
+    from genomic_pca_tpu_torch.config import DataPrepConfig
+    from genomic_pca_tpu_torch.models.prepare import prepare_data
+
+    # (a) The EigenSNP CLI with the device scan on phase 8's fileset.
+    label = "device scan cli"
+    prefix, ref_pcs, oracle, _sep = fileset
+    out = FILESET / "device_scan"
+    proc, wall = run_cli(["--eigensnp", "--bed-file", str(prefix), "--ld-block-file",
+                          f"{prefix}.blocks.tsv", "-o", str(out), "--write-moments",
+                          "--eigensnp-qc-mode", "device"])
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: CLI exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    msgs = [line.split("] ", 1)[-1] for line in proc.stderr.splitlines()]
+    log_messages(label, msgs, ("SNP QC", "QC->matrix capture", "Matrix assembly",
+                               "Memory preflight", "EigenSNP matrix loaded",
+                               "EigenSNP stage split:", "Total run time"))
+    launches = kernel_launches(msgs)
+    same = (Path(f"{out}.eigensnp.moments.tsv").read_bytes()
+            == (FILESET / "out.eigensnp.moments.tsv").read_bytes())
+    log(f"[{label}] --eigensnp-qc-mode device exit 0 in {wall:.2f} s; launches "
+        f"{launches}; moments TSV byte for byte phase 8's: {same}")
+    want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=3,
+                fused_left_apply_2d_packed=1)
+    if launches != want or not same:
+        raise AssertionError(f"{label}: launches {launches} or moments differ")
+    if not any(m.startswith("Matrix assembly from the QC scan") for m in msgs):
+        raise AssertionError(f"{label}: the matrix was not assembled from the capture")
+    pcs = np.loadtxt(f"{out}.eigensnp.pca.tsv", skiprows=1, usecols=range(1, 11),
+                     delimiter="\t")
+    evs = np.loadtxt(f"{out}.eigenvalues.tsv", skiprows=1, usecols=1, delimiter="\t")
+    sep, _, _ = check_pcs(np, pcs, *oracle, evs * (pcs.shape[0] - 1), 10, label)
+    r_min, cos = per_pc_agreement(np, pcs, ref_pcs, sep)
+    log(f"[{label}] against phase 8's host-scan CLI: min |r| {r_min:.7f}, min "
+        f"principal cosine {cos:.7f}")
+    if r_min <= 0.999 or cos <= 0.999:
+        raise AssertionError(f"{label}: device scan and host scan runs disagree")
+
+    # (b), (c), (d): in process, the captured container against the re-read
+    # one, packed on phase 8's fileset and dense ("auto") on phase 11's.
+    for label, bed, packed_pipeline, scan in (
+            ("capture packed", prefix, True, "device"),
+            ("capture dense", dense_prefix, False, "auto")):
+        got = {}
+        for mode in (scan, "host"):
+            cfg = DataPrepConfig(bed_path=str(bed), ld_block_path=f"{bed}.blocks.tsv",
+                                 qc_mode=mode, packed_pipeline=packed_pipeline)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prep = prepare_data(cfg, device=device)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            captured = prep.qc_capture is not None
+            sm = prep.load_matrix(device)
+            torch.cuda.synchronize()
+            got[mode] = (sm, captured, t1 - t0, time.perf_counter() - t1)
+        (sm_c, captured, scan_s, load_s), (sm_r, captured_r, host_s, reread_s) = (
+            got[scan], got["host"])
+        same = {key: bool(torch.equal(getattr(sm_c, key), getattr(sm_r, key)))
+                for key in ("geno", "mean", "inv_std")}
+        same["n_rows"] = sm_c.n_rows == sm_r.n_rows
+        log(f"[{label}] {sm_c.n_rows} PCA SNPs, geno {tuple(sm_c.geno.shape)} "
+            f"{sm_c.geno.dtype}: qc_mode={scan} device scan {scan_s:.3f} s + "
+            f"assembly from the capture {load_s:.3f} s; host scan {host_s:.3f} s "
+            f"+ BED re-read and upload {reread_s:.3f} s; captured {captured} / "
+            f"{captured_r}; bit for bit {same}")
+        if not captured or captured_r or not all(same.values()):
+            raise AssertionError(f"{label}: the capture container differs from "
+                                 f"the re-read one: {same}")
+        del got, sm_c, sm_r
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the host-streamed container over two ranks.
+
+
+def rank_streamed_path(spec):
+    """Phase 17a on each rank: phase 5's genotypes made on this rank's card
+    from the same seed, a host-streamed container of 2,048-row strips
+    (strip i on rank i mod 2), then `streamed_pca`; returns the launches
+    and collectives of the run, its wall, each pass's wall and merge time
+    and the outputs."""
+    import numpy as np
+    import torch
+
+    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.ops import kernels as tk
+    from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
+    from genomic_pca_tpu_torch.parallel import mesh
+
+    dev = mesh.rank_device("cuda")
+    d, n, strip = spec["d"], spec["n"], spec["strip"]
+    packed, mean, std = structured_packed(torch, d, n, 11, 0.1, 0.01, spec["seed"], dev)
+    rows = tuple(x.cpu().numpy() for x in (packed, mean, std))
+    del packed, mean, std
+    torch.cuda.empty_cache()
+
+    def source(i):
+        return tuple(x[i * strip:(i + 1) * strip] for x in rows)
+
+    sm = StreamingMatrix(source, -(-d // strip), d, n, strip, packed=True, device=dev)
+    mesh.barrier()
+    tk.reset_launch_counts()
+    mesh.reset_collective_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = streamed_pca(sm, k=spec["k"], n_power_iter=4, seed=7, compute_loadings=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"rank": mesh.process_index(), "strips": len(sm.own_strips), "wall": wall,
+            "launches": dict(tk.LAUNCHES), "collectives": dict(mesh.COLLECTIVES),
+            "passes": [(t["pass"], t["seconds"], t.get("all_reduce_seconds"),
+                        t.get("all_gather_seconds")) for t in sm.pass_log],
+            "scores": res.scores, "sigma": res.singular_values,
+            "loadings_ok": bool(res.loadings.shape == (d, spec["k"])
+                                and np.isfinite(res.loadings).all())}
+
+
+def rank_streamed_eigensnp(spec):
+    """Phase 17b on each rank: `run_eigensnp_workflow(force_streaming=True)`
+    on phase 8's fileset; returns the launches, the wall and the log lines
+    of the container, the QC and each streamed pass."""
+    import torch
+
+    from genomic_pca_tpu_torch.ops import kernels as tk
+    from genomic_pca_tpu_torch.parallel import mesh
+    from genomic_pca_tpu_torch.workflows import (
+        DataPrepConfig, EigenSnpConfig, run_eigensnp_workflow,
+    )
+
+    dev = mesh.rank_device("cuda")
+    with Captured() as messages:
+        mesh.barrier()
+        tk.reset_launch_counts()
+        t0 = time.perf_counter()
+        run_eigensnp_workflow(
+            DataPrepConfig(bed_path=spec["bed"], ld_block_path=f"{spec['bed']}.blocks.tsv"),
+            EigenSnpConfig(), spec["out"], write_moments=True, device=dev,
+            force_streaming=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    keep = ("Host-streamed container", "Distributed SNP QC", "SNP QC:", "Streamed pass",
+            "Memory preflight", "EigenSNP stage split:")
+    return {"rank": mesh.process_index(), "wall": wall, "launches": dict(tk.LAUNCHES),
+            "messages": [m for m in messages if m.startswith(keep)]}
+
+
+def check_streamed_ranks(torch, np, device, streamed_main, fileset):
+    """Phase 17 (module docstring)."""
+    from genomic_pca_tpu_torch.eval.multichip import run_ranks
+
+    # (a) streamed_pca over two ranks against phase 14a.
+    label = "ranks 2 streamed 1-D"
+    ref_launches, ref_scores, oracle = streamed_main
+    t0 = time.perf_counter()
+    outs = run_ranks(rank_streamed_path, 2, ({"d": 262_144, "n": 2048, "strip": 2048,
+                                              "seed": SEED + 2, "k": 10},),
+                     device="cuda", timeout_s=600)
+    spawn_wall = time.perf_counter() - t0
+    total = dict(ZERO_LAUNCHES)
+    for out in outs:
+        log(f"[{label}] rank {out['rank']}: {out['strips']} strips; streamed_pca wall "
+            f"{out['wall']:.3f} s; launches {out['launches']}; collectives "
+            f"{out['collectives']}")
+        for name, secs, ar, ag in out["passes"]:
+            log(f"[{label}] rank {out['rank']} pass {name}: {secs:.3f} s, all-reduce "
+                f"{ar if ar is None else round(ar, 4)} s, all-gather "
+                f"{ag if ag is None else round(ag, 4)} s")
+        for name, count in out["launches"].items():
+            total[name] += count
+        want = dict(ZERO_LAUNCHES, fused_gram_q8_packed=3 * out["strips"],
+                    fused_gram_apply_packed=out["strips"],
+                    fused_right_apply_packed=out["strips"])
+        if out["launches"] != want:
+            raise AssertionError(f"{label}: rank {out['rank']} launches "
+                                 f"{out['launches']} != {want}")
+        if not out["loadings_ok"] or not np.array_equal(out["scores"], outs[0]["scores"]):
+            raise AssertionError(f"{label}: ranks disagree or bad loadings")
+    log(f"[{label}] two spawned ranks in {spawn_wall:.1f} s; launches summed over the "
+        f"ranks {total}")
+    if total != ref_launches:
+        raise AssertionError(f"{label}: summed launches {total} != phase 14a's "
+                             f"{ref_launches}")
+    sep, _, _ = check_pcs(np, outs[0]["scores"], *oracle,
+                          outs[0]["sigma"].astype(np.float64) ** 2, 10, label)
+    r_min, cos = per_pc_agreement(np, outs[0]["scores"], ref_scores, sep)
+    log(f"[{label}] against phase 14a's one-rank streamed run: min |r| {r_min:.7f}, "
+        f"min principal cosine {cos:.7f}")
+    if r_min <= 0.999 or cos <= 0.999:
+        raise AssertionError(f"{label}: two ranks and one rank disagree")
+    del outs
+    torch.cuda.empty_cache()
+
+    # (b) EigenSNP with force_streaming over two ranks, in process.
+    label = "ranks 2 streamed eigensnp"
+    prefix, _ref_pcs, oracle, _sep = fileset
+    out = FILESET / "streamed_ranks2"
+    t0 = time.perf_counter()
+    outs = run_ranks(rank_streamed_eigensnp, 2, ({"bed": str(prefix), "out": str(out)},),
+                     device="cuda", timeout_s=900)
+    spawn_wall = time.perf_counter() - t0
+    n_snps = sum(1 for _ in open(f"{out}.eigensnp.loadings.tsv")) - 1
+    strips = -(-n_snps // 2000)
+    total = dict(ZERO_LAUNCHES)
+    for o in outs:
+        log_messages(f"{label} rank {o['rank']}", o["messages"], ("",))
+        log(f"[{label}] rank {o['rank']}: run_eigensnp_workflow(force_streaming=True) "
+            f"in {o['wall']:.2f} s; launches {o['launches']}")
+        for name, count in o["launches"].items():
+            total[name] += count
+    want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=2 * strips,
+                fused_left_apply_2d_packed=strips)
+    same = (Path(f"{out}.eigensnp.moments.tsv").read_bytes()
+            == (FILESET / "out.eigensnp.moments.tsv").read_bytes())
+    log(f"[{label}] two spawned ranks in {spawn_wall:.1f} s; {strips} strips; "
+        f"launches summed over the ranks {total}; moments TSV byte for byte phase "
+        f"8's: {same}")
+    if total != want or not same:
+        raise AssertionError(f"{label}: launches {total} != {want} or moments differ")
+    pcs = np.loadtxt(f"{out}.eigensnp.pca.tsv", skiprows=1, usecols=range(1, 11),
+                     delimiter="\t")
+    evs = np.loadtxt(f"{out}.eigenvalues.tsv", skiprows=1, usecols=1, delimiter="\t")
+    check_pcs(np, pcs, *oracle, evs * (pcs.shape[0] - 1), 10, label)
+
+    # (c) The two-rank EigenSNP CLI with the device scan: each rank's unit
+    # from its own QC capture, against phase 15d's host scan and re-read.
+    label = "ranks 2 device scan cli"
+    out = FILESET / "ranks2_device"
+    msgs, wall = torchrun(["--eigensnp", "--bed-file", str(prefix), "--ld-block-file",
+                           f"{prefix}.blocks.tsv", "-o", str(out), "--write-moments",
+                           "--eigensnp-qc-mode", "device"], label)
+    log_messages(label, msgs, ("Distributed SNP QC", "SNP QC:", "QC->matrix capture",
+                               "Rank 0/2 holds", "EigenSNP stage split:",
+                               "Total run time"))
+    launches = kernel_launches(msgs)
+    same = (Path(f"{out}.eigensnp.moments.tsv").read_bytes()
+            == (FILESET / "ranks2.eigensnp.moments.tsv").read_bytes())
+    log(f"[{label}] torch.distributed.run --nproc-per-node 2 exit 0 in {wall:.2f} s; "
+        f"rank 0 launches {launches}; moments TSV byte for byte phase 15d's: {same}")
+    want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=3,
+                fused_left_apply_2d_packed=1)
+    if launches != want or not same:
+        raise AssertionError(f"{label}: launches {launches} or moments differ")
+    if not any(m.startswith("Rank 0/2 holds") and "from its QC capture" in m
+               for m in msgs):
+        raise AssertionError(f"{label}: rank 0's unit was not assembled from its capture")
+    pcs = np.loadtxt(f"{out}.eigensnp.pca.tsv", skiprows=1, usecols=range(1, 11),
+                     delimiter="\t")
+    evs = np.loadtxt(f"{out}.eigenvalues.tsv", skiprows=1, usecols=1, delimiter="\t")
+    check_pcs(np, pcs, *oracle, evs * (pcs.shape[0] - 1), 10, label)
 
 
 def main() -> int:
@@ -1644,7 +1989,7 @@ def main() -> int:
     # 32,768 variants of 5 populations (4 structured PCs; PCs 5-10 lie in
     # the noise bulk, where only the Ritz lower bound is checked), and
     # 65,536 variants of 11 populations (10 structured PCs).
-    check_cli(torch, np, device, 32_768, 8, 5, SEED + 3, 10)
+    check_cli(torch, np, device, 32_768, 8, 5, SEED + 3, 10, profile=True)
     vcf_run = check_cli(torch, np, device, 65_536, 16, 11, SEED + 3, 10, keep=True)
 
     # 8. The EigenSNP CLI at 16,384 samples; its fileset stays for 14.
@@ -1687,8 +2032,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11. EigenSNP on the dense container at 10,000 samples, then --project.
-    check_dense_eigensnp_and_projection(torch, np, device, 65_536, 10_000, 64, 10,
-                                        SEED + 8)
+    dense_prefix = check_dense_eigensnp_and_projection(torch, np, device, 65_536,
+                                                       10_000, 64, 10, SEED + 8)
 
     # 12. The dense 2-D kernels at the 2-D kernel shape and a ragged one.
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,
@@ -1731,8 +2076,8 @@ def main() -> int:
     # 14. The host-streamed container: the 1-D main path in strips of
     # 2,048 rows, then EigenSNP on phase 8's fileset with packed and
     # dense strips.
-    check_streamed_main(torch, np, device, 262_144, 2048, 10, SEED + 2, 2048,
-                        main["main 1-D"])
+    streamed_launches, streamed_scores = check_streamed_main(
+        torch, np, device, 262_144, 2048, 10, SEED + 2, 2048, main["main 1-D"])
     check_streamed_eigensnp(torch, np, device, fileset, 10, packed_pipeline=True)
     check_streamed_eigensnp(torch, np, device, fileset, 10, packed_pipeline=False)
 
@@ -1741,6 +2086,19 @@ def main() -> int:
     # EigenSNP CLIs under torch.distributed.run on phases 7 and 8's data.
     check_multirank(torch, np, device, main, main_res, vcf_run, fileset)
     shutil.rmtree(VCF_KEPT)
+
+    # 16. The device QC scan and its capture: the EigenSNP CLI with
+    # --eigensnp-qc-mode device on phase 8's fileset, the captured
+    # containers against the re-read ones (packed; dense on phase 11's).
+    check_device_scan(torch, np, device, fileset, dense_prefix)
+    shutil.rmtree(DENSE_KEPT)
+
+    # 17. The host-streamed container over two ranks on the card: the
+    # streamed 1-D main path, EigenSNP with force_streaming, and the
+    # two-rank CLI with the device scan (the multi-rank capture).
+    check_streamed_ranks(torch, np, device,
+                         (streamed_launches, streamed_scores, main["main 1-D"][1]),
+                         fileset)
     shutil.rmtree(FILESET)
 
     kernels_line = {"kernels": [

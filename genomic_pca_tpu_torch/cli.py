@@ -3,8 +3,10 @@
 The parser takes the same flags as `genomic_pca_tpu/cli.py` (rebuilt
 here: loading that module loads jax through its package).  It runs the
 VCF, EigenSNP and projection workflows on a CUDA device; without one each
-exits 1 naming CUDA - it does not fall back to the CPU.  `--profile-dir`
-and `--eigensnp-qc-mode device` exit 1 as not yet ported;
+exits 1 naming CUDA - it does not fall back to the CPU.
+`--profile-dir DIR` wraps the workflow in torch.profiler
+(utils/profiling.py) and writes `DIR/trace.rank{r}.json`;
+`--eigensnp-qc-mode` picks the SNP-QC scan (models/prepare.py);
 `--eigensnp-compile-only` exits 0 without running (there is nothing to
 compile ahead of time: the kernels build at first use).
 
@@ -36,9 +38,6 @@ from typing import List, Optional
 from genomic_pca_tpu_torch.utils.logsetup import setup_logging
 
 log = logging.getLogger("genomic_pca_tpu_torch")
-
-NOT_PORTED = "not yet ported in genomic_pca_tpu_torch"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -133,9 +132,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "full local basis, singular values and condensed "
                         "projection.  Implies diagnostics collection.")
     p.add_argument("--profile-dir", default=None,
-                   help="Capture a profiler trace of the compute stages to "
-                        "this directory (not yet ported in "
-                        "genomic_pca_tpu_torch).")
+                   help="Capture a torch.profiler trace of the workflow "
+                        "(CPU and CUDA activity, the hand-written kernels "
+                        "by name) to DIR/trace.rank<r>.json, one Chrome "
+                        "trace per rank.")
     p.add_argument("--eigensnp-compile-only", action="store_true",
                    help="Accepted for parity with the JAX package, where it "
                         "seeds the compilation cache; here there is nothing "
@@ -163,11 +163,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Where SNP-QC genotype histograms run: 'host' "
                         "counts 2-bit codes off the mmap'd BED (native "
                         "SWAR; nothing uploads until the post-QC "
-                        "matrix), 'device' reduces on the accelerator "
-                        "(enables QC->matrix capture fusion).  'auto' "
+                        "matrix), 'device' uploads each batch once and "
+                        "counts it on the GPU (enables the QC->matrix "
+                        "capture fusion: the matrix is gathered from the "
+                        "uploaded batches, no second BED read).  'auto' "
                         "picks host for the single-process packed "
-                        "pipeline.  QC decisions are bit-identical "
-                        "across modes.")
+                        "pipeline, device with several ranks.  QC "
+                        "decisions are bit-identical across modes.")
 
     # --- Projection (new capability, DEVIATIONS.md §8) ---
     p.add_argument("--write-moments", action="store_true",
@@ -253,11 +255,14 @@ def _run_projection(args) -> int:
         return 1
     if _no_cuda("projection"):
         return 1
+    from genomic_pca_tpu_torch.utils.profiling import maybe_trace
     from genomic_pca_tpu_torch.workflows import run_projection_workflow
 
-    run_projection_workflow(args.bed_file, args.project_loadings,
-                            args.project_moments, args.output_prefix,
-                            device="cuda")
+    device = _rank_device()
+    with maybe_trace(args.profile_dir, device):
+        run_projection_workflow(args.bed_file, args.project_loadings,
+                                args.project_moments, args.output_prefix,
+                                device=device)
     return 0
 
 
@@ -271,10 +276,6 @@ def _run_eigensnp(args) -> int:
     if missing:
         log.error("%s required when --eigensnp is used.", ", ".join(missing))
         return 2
-    if args.eigensnp_qc_mode == "device":
-        log.error("--eigensnp-qc-mode device (the device QC scan and its "
-                  "QC->matrix capture fusion) is %s.", NOT_PORTED)
-        return 1
     if args.eigensnp_compile_only:
         log.info("--eigensnp-compile-only: nothing to compile ahead of time "
                  "(the CUDA kernels build at first use); not running.")
@@ -282,6 +283,7 @@ def _run_eigensnp(args) -> int:
     if _no_cuda("EigenSNP"):
         return 1
     from genomic_pca_tpu_torch.config import DataPrepConfig, EigenSnpConfig
+    from genomic_pca_tpu_torch.utils.profiling import maybe_trace
     from genomic_pca_tpu_torch.workflows import run_eigensnp_workflow
 
     prep_cfg = DataPrepConfig(
@@ -312,13 +314,15 @@ def _run_eigensnp(args) -> int:
         collect_diagnostics=args.eigensnp_collect_diagnostics,
         diagnostic_block_tag=args.eigensnp_diagnostic_block_tag,
     )
-    run_eigensnp_workflow(
-        prep_cfg, algo_cfg, args.output_prefix,
-        checkpoint_dir=args.eigensnp_checkpoint_dir,
-        write_moments=args.write_moments,
-        stop_after_checkpoint=args.eigensnp_stop_after_checkpoint,
-        device=_rank_device(),
-    )
+    device = _rank_device()
+    with maybe_trace(args.profile_dir, device):
+        run_eigensnp_workflow(
+            prep_cfg, algo_cfg, args.output_prefix,
+            checkpoint_dir=args.eigensnp_checkpoint_dir,
+            write_moments=args.write_moments,
+            stop_after_checkpoint=args.eigensnp_stop_after_checkpoint,
+            device=device,
+        )
     return 0
 
 
@@ -326,10 +330,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     setup_logging(args.log_level)
     t0 = time.perf_counter()
-
-    if args.profile_dir:
-        log.error("--profile-dir is %s.", NOT_PORTED)
-        return 1
 
     from genomic_pca_tpu_torch.io.native import set_default_threads
 
@@ -376,19 +376,22 @@ def _dispatch(args, t0: float) -> int:
         return 1
 
     threads = args.threads if args.threads is not None else (os.cpu_count() or 1)
+    from genomic_pca_tpu_torch.utils.profiling import maybe_trace
     from genomic_pca_tpu_torch.workflows import run_vcf_workflow
 
     try:
-        run_vcf_workflow(
-            vcf_dir=args.vcf_dir,
-            output_prefix=args.output_prefix,
-            k=args.components,
-            maf=args.maf,
-            rfit_seed=args.rfit_seed,
-            rfit_tolerance=args.rfit_tolerance,
-            threads=threads,
-            device=_rank_device(),
-        )
+        device = _rank_device()
+        with maybe_trace(args.profile_dir, device):
+            run_vcf_workflow(
+                vcf_dir=args.vcf_dir,
+                output_prefix=args.output_prefix,
+                k=args.components,
+                maf=args.maf,
+                rfit_seed=args.rfit_seed,
+                rfit_tolerance=args.rfit_tolerance,
+                threads=threads,
+                device=device,
+            )
     except Exception:
         log.exception("Workflow failed.")
         return 1

@@ -17,7 +17,13 @@ data made from `--seed`:
    1-2 on the blocks each rank holds) with a sample subset and with the
    stop-after split legs, against one rank: QC bit for bit;
 3. the VCF workflow with per-rank file sharding (with R = 4 over three
-   files, one rank parses none).
+   files, one rank parses none);
+4. the host-streamed container over the ranks (strip i on rank i mod R,
+   an odd strip count): every pass (`gram_apply`, the q8 pass,
+   `tsq_accumulate`, `right_apply`, `tsq_and_project`, `tsq_and_capture`)
+   and `streamed_pca` in q8 and f32 with the tolerance exit, against the
+   same container on one rank; then the EigenSNP workflow with
+   `force_streaming=True` against one rank (QC bit for bit).
 
 Every run holds all k PCs to the separated-prefix rule against a float64
 PCA: per-PC |r| > 0.999 and eigenvalues within 1e-3 over the PCs
@@ -235,10 +241,58 @@ def passes_worker(spec: dict) -> dict:
     return out
 
 
+def streamed_worker(spec: dict) -> dict:
+    """Every pass of a host-streamed container over the packed rows of
+    `spec` in strips of `spec["strip"]` rows (strip i on rank i mod R),
+    in f32 and q8, then `streamed_pca` and the tolerance exit."""
+    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
+    from genomic_pca_tpu_torch.parallel.sharded import pack_int8_rows
+
+    dev = mesh.rank_device(spec["device"])
+    d, n, strip = spec["d"], spec["n"], spec["strip"]
+    geno = structured_genotypes(spec["seed"], d, n)
+    mean, std = host_moments(geno)
+    packed = pack_int8_rows(geno)
+
+    def source(i):
+        lo, hi = i * strip, min((i + 1) * strip, d)
+        return packed[lo:hi], mean[lo:hi], std[lo:hi]
+
+    b = torch.from_numpy(np.random.default_rng(spec["seed"] + 1).standard_normal(
+        (n, spec["ell"])).astype(np.float32) / np.sqrt(n)).to(dev)
+    w = np.random.default_rng(spec["seed"] + 2).standard_normal(
+        (spec["ell"], 3)).astype(np.float32)
+    out = {}
+    for precision in ("f32", "q8"):
+        sm = StreamingMatrix(source, -(-d // strip), d, n, strip, packed=True,
+                             device=dev, mode="1d", kernel_precision=precision,
+                             tile_d=spec["tile_d"])
+        if precision == "f32":
+            out["gram"] = sm.gram_apply(b).cpu().numpy()
+            out["tsq"] = sm.tsq_accumulate(b).cpu().numpy()
+            out["right"] = sm.right_apply(b)
+            acc, project = sm.tsq_and_project(b)
+            out["tsq_project"], out["project"] = acc.cpu().numpy(), project(w)
+            acc, ab = sm.tsq_and_capture(b)
+            out["tsq_capture"], out["capture"] = acc.cpu().numpy(), ab
+        else:
+            out["q8"] = sm._gram_apply_q8(b).cpu().numpy()
+        res = streamed_pca(sm, k=spec["k"], n_power_iter=spec["n_iter"],
+                           seed=spec["seed"], compute_loadings=True)
+        out[f"scores_{precision}"] = res.scores
+        out[f"sigma_{precision}"] = res.singular_values
+        out[f"loadings_{precision}"] = res.loadings
+        out[f"n_done_{precision}"] = sm.power_iterate(b, 6, tolerance=spec["tolerance"])[1]
+        out["own_strips"] = sm.own_strips
+    return out
+
+
 def eigensnp_worker(spec: dict) -> dict:
-    """`prepare_data` and `compute_eigensnp_pca` on the fileset of `spec`,
-    once whole and once in stop-after legs (stage1_bases, stage2_basis,
-    then the rest) through a checkpoint directory."""
+    """`prepare_data` and `compute_eigensnp_pca` on the fileset of `spec`
+    (with `force_streaming` from `spec`), once whole and once in
+    stop-after legs (stage1_bases, stage2_basis, then the rest) through a
+    checkpoint directory."""
     import dataclasses
 
     from genomic_pca_tpu_torch.config import DataPrepConfig, EigenSnpConfig
@@ -246,12 +300,13 @@ def eigensnp_worker(spec: dict) -> dict:
     from genomic_pca_tpu_torch.models.prepare import prepare_data
 
     dev = mesh.rank_device(spec["device"])
-    prep = prepare_data(DataPrepConfig(**spec["prep"]))
+    prep = prepare_data(DataPrepConfig(**spec["prep"]), device=dev)
     cfg = EigenSnpConfig(**spec["algo"])
-    res = compute_eigensnp_pca(prep, cfg, device=dev)
+    streamed = spec.get("force_streaming", False)
+    res = compute_eigensnp_pca(prep, cfg, device=dev, force_streaming=streamed)
     out = {"keep": prep.pca_snp_orig_indices, "mean": prep.mean, "std": prep.std,
            "scores": res.scores, "eigenvalues": res.eigenvalues,
-           "scan_ranges": prep.scan_ranges}
+           "scan_ranges": prep.scan_ranges, "container": res.container}
     if spec.get("checkpoint_dir"):
         for leg in ("stage1_bases", "stage2_basis"):
             assert compute_eigensnp_pca(prep, cfg, device=dev,
@@ -264,7 +319,7 @@ def eigensnp_worker(spec: dict) -> dict:
     if spec.get("diagnostics"):
         diag = compute_eigensnp_pca(
             prep, dataclasses.replace(cfg, collect_diagnostics=True),
-            device=dev).diagnostics
+            device=dev, force_streaming=streamed).diagnostics
         out["matrix_path"] = diag["matrix_path"]
     return out
 
@@ -348,20 +403,60 @@ def check_passes(ranks: int, device: str, d: int = 3000, n: int = 160,
     return report
 
 
+def check_streamed(ranks: int, device: str, d: int = 3000, n: int = 160,
+                   strip: int = 448, seed: int = 11, timeout_s: float = 600) -> dict:
+    """The host-streamed container at `ranks` ranks against one rank: the
+    passes at rtol 1e-4 / atol 1e-4, the power loop's exit and the scores
+    the same on every rank, the PCs against float64."""
+    spec = dict(seed=seed, d=d, n=n, strip=strip, ell=12, k=4, n_iter=6,
+                tile_d=128, tolerance=1e-3, device=device)
+    one = streamed_worker(spec)
+    many = run_ranks(streamed_worker, ranks, (spec,), device=device,
+                     timeout_s=timeout_s)
+    geno = structured_genotypes(seed, d, n)
+    mean, std = host_moments(geno)
+    v_true, ev_true = float64_pcs(geno, mean, std, spec["k"])
+    n_strips = -(-d // strip)
+    if sorted(i for m in many for i in m["own_strips"]) != list(range(n_strips)):
+        raise AssertionError("the ranks do not hold every strip once")
+    for key in ("gram", "q8", "tsq", "right", "tsq_project", "project",
+                "tsq_capture", "capture"):
+        for r in range(ranks):
+            np.testing.assert_allclose(many[r][key], one[key], rtol=1e-4,
+                                       atol=1e-4, err_msg=key)
+    report = {"strips": n_strips}
+    for tag in ("f32", "q8"):
+        for m in many:
+            if m[f"n_done_{tag}"] != one[f"n_done_{tag}"]:
+                raise AssertionError(f"streamed {tag}: the power loop exits at "
+                                     "another pass than on one rank")
+            np.testing.assert_array_equal(m[f"scores_{tag}"], many[0][f"scores_{tag}"])
+        report[tag] = hold_pcs(many[0][f"scores_{tag}"], v_true, ev_true,
+                               many[0][f"sigma_{tag}"].astype(np.float64) ** 2,
+                               spec["k"], f"streamed {tag} x{ranks}")
+        report[tag]["min_abs_r_vs_one_rank"] = min_abs_r(
+            many[0][f"scores_{tag}"], one[f"scores_{tag}"], report[tag]["separated"])
+        if report[tag]["min_abs_r_vs_one_rank"] <= 0.999:
+            raise AssertionError(f"streamed {tag} x{ranks} disagrees with one rank")
+    return report
+
+
 def check_eigensnp(ranks: int, device: str, work: Path, d: int = 4000,
                    n: int = 200, n_blocks: int = 16, seed: int = 21,
                    degenerate_tail: bool = False, split_legs: bool = True,
-                   refine_passes: int = 3, timeout_s: float = 600) -> dict:
+                   refine_passes: int = 3, force_streaming: bool = False,
+                   timeout_s: float = 600) -> dict:
     """EigenSNP at `ranks` ranks against one rank and the float64 PCA.
     `degenerate_tail` makes the last quarter of the SNPs monomorphic, so
     that QC drops them all and (with four ranks over four blocks) the last
     rank owns no row; one block (`n_blocks=1`) makes the blocks cross the
-    ranks, which takes the host-accessor stages 1-2."""
+    ranks, which takes the host-accessor stages 1-2; `force_streaming`
+    runs both on the host-streamed container."""
     geno = structured_genotypes(seed, d, n, fst=0.08, missing=0.005)
     if degenerate_tail:
         geno[3 * d // 4:] = 0
     blocks = write_fileset(work / "cohort", geno, n_blocks)
-    spec = dict(device=device, diagnostics=True,
+    spec = dict(device=device, diagnostics=True, force_streaming=force_streaming,
                 prep=dict(bed_path=str(work / "cohort"), ld_block_path=blocks),
                 algo=dict(k_global=5, refine_passes=refine_passes,
                           min_subset_size=n // 2,
@@ -384,6 +479,7 @@ def check_eigensnp(ranks: int, device: str, work: Path, d: int = 4000,
                                many[0]["eigenvalues"] * n_minus_1, 5,
                                f"eigensnp x{ranks}"),
               "matrix_path": many[0]["matrix_path"],
+              "container": many[0]["container"],
               "n_pca_snps": len(one["keep"]),
               "rank_rows": [int(np.searchsorted(one["keep"], hi)
                                 - np.searchsorted(one["keep"], lo))
@@ -447,6 +543,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         report["eigensnp"] = check_eigensnp(args.ranks, args.device,
                                             work / "eigensnp")
         report["vcf"] = check_vcf(args.ranks, args.device, work / "vcfrun")
+        report["streamed"] = check_streamed(args.ranks, args.device)
+        (work / "eigensnp_streamed").mkdir(exist_ok=True)
+        report["eigensnp_streamed"] = check_eigensnp(
+            args.ranks, args.device, work / "eigensnp_streamed", split_legs=False,
+            force_streaming=True)
     report["ok"] = True
     print(json.dumps(report))
     return 0

@@ -35,7 +35,8 @@ host-streamed one (ops/streaming.py):
 Several ranks (parallel/mesh.py): stages 1-2 run on each rank over the
 blocks it owns - on the resident path the blocks whose rows it holds
 (every block inside one rank and one row segment, `rank_of_runs`), on the
-host-accessor path an even split of the blocks - each block with the
+host-accessor path (a streamed container, or blocks that cross ranks) the
+blocks whose first SNP lies in its scan range - each block with the
 sketch of the one-rank run; bases and singular values are gathered and
 the condensed rows merged in block order on every rank.  Stage 2 and the
 refinement run replicated through the multi-rank container.  Checkpoints
@@ -46,9 +47,14 @@ the sample subset and the sketches differ from the reference's jax
 threefry draws: results agree with the reference to the accuracy of the
 algorithm, not bit for bit.
 
+Before the matrix loads, `memory_preflight` (utils/system.py) logs the
+device bytes the run will upload: the resident matrix once, or a
+streamed container's strips on every full-matrix pass the run still has
+to make (`_planned_matrix_passes`: resumed checkpoints and a stop-after
+leg cut the list).
+
 Not ported: the ahead-of-time compile threads of the reference
-(`compile_only`), which have no counterpart in eager PyTorch, and the
-memory preflight (`utils/system.py`).
+(`compile_only`), which have no counterpart in eager PyTorch.
 """
 
 from __future__ import annotations
@@ -69,8 +75,10 @@ from genomic_pca_tpu_torch.models.prepare import PreparedData
 from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.rsvd import rsvd, sketch_width
 from genomic_pca_tpu_torch.parallel import mesh
+from genomic_pca_tpu_torch.models.prepare import group_memory_budget
 from genomic_pca_tpu_torch.utils.checkpoint import StageCheckpointer, fingerprint
 from genomic_pca_tpu_torch.utils.rng import generator_for_stage, normal
+from genomic_pca_tpu_torch.utils.system import memory_preflight
 
 log = logging.getLogger(__name__)
 
@@ -245,12 +253,11 @@ def _stages12_host(prep: PreparedData, cfg: EigenSnpConfig, subset: np.ndarray,
     The host gathers run on two worker threads, two chunks ahead of the
     device; each block's bytes upload once for both the subset rSVD and
     the all-sample projection.  A checkpoint resume groups blocks by the
-    shapes of the saved bases.  With several ranks each rank takes an even
-    share of consecutive blocks."""
+    shapes of the saved bases.  With several ranks each rank takes the
+    blocks whose first SNP lies in its scan range (`_host_blocks`)."""
     n = prep.n_samples
     packed = prep.supports_packed_blocks
-    owned = [int(b) for b in np.array_split(
-        np.arange(len(prep.blocks)), mesh.process_count())[mesh.process_index()]]
+    owned = _host_blocks(prep)
     if saved_bases is None:
         plan = _group_plan(prep, cfg, subset, n, owned)
     else:
@@ -300,6 +307,18 @@ def _stages12_host(prep: PreparedData, cfg: EigenSnpConfig, subset: np.ndarray,
                 yield (*task, upload(fetched))
 
     return _stages12(batches(), prep, cfg, subset, saved_bases, torch.device(device))
+
+
+def _host_blocks(prep: PreparedData) -> List[int]:
+    """The blocks this rank runs through the host accessor: those whose
+    first PCA SNP lies in its block-aligned scan range, so that a rank
+    reads the BED rows it scanned (every block has one owner); all of
+    them on one rank."""
+    if prep.scan_ranges is None:
+        return list(range(len(prep.blocks)))
+    lo, hi = prep.scan_ranges[mesh.process_index()]
+    first = prep.pca_snp_orig_indices[[int(b.pca_snp_ids[0]) for b in prep.blocks]]
+    return [int(b) for b in np.nonzero((first >= lo) & (first < hi))[0]]
 
 
 def _assemble_condensed(parts, n: int, n_blocks: int, device: torch.device):
@@ -401,6 +420,33 @@ def _ckpt_stop(name: str, stop_after: Optional[str]) -> bool:
     return True
 
 
+def _planned_matrix_passes(cfg: EigenSnpConfig, ckpt: StageCheckpointer,
+                           stop_after_checkpoint: Optional[str],
+                           diagnostics: bool) -> List[str]:
+    """The full-matrix passes this run still makes, given the checkpoints
+    present and a stop-after leg: stages 1-2 (one pass, skipped when the
+    stage-2 basis is saved and no diagnostics are asked for), each
+    refinement pass not yet saved, and the final tsq and loadings pass.
+    The JAX `_planned_matrix_passes`
+    (genomic_pca_tpu/models/eigensnp.py:819)."""
+    passes: List[str] = []
+    if not (_has(ckpt, "stage2_basis") and not diagnostics):
+        passes.append("stages_1_2")
+    if stop_after_checkpoint in ("stage1_bases", "stage2_basis"):
+        return passes
+    resume_at = 0
+    for p in reversed(range(cfg.refine_passes)):
+        if _has(ckpt, f"refine_pass_{p}"):
+            resume_at = p + 1
+            break
+    for p in range(resume_at, cfg.refine_passes):
+        passes.append(f"refine_pass_{p}")
+        if stop_after_checkpoint == f"refine_pass_{p}":
+            return passes
+    passes.append("capture_finalize")
+    return passes
+
+
 def compute_eigensnp_pca(
     prep: PreparedData,
     cfg: EigenSnpConfig,
@@ -463,6 +509,18 @@ def compute_eigensnp_pca(
 
     stage_seconds: Dict[str, float] = {}
     t_stage = time.perf_counter()
+
+    # ---- Memory preflight: the uploads of this rank's planned passes --
+    streamed = prep.will_stream(force_streaming, device=device)
+    memory_preflight(
+        per_pass_device_bytes=(prep.estimate_streamed_pass_bytes() if streamed
+                               else prep.estimate_resident_bytes()),
+        n_passes=(max(len(_planned_matrix_passes(
+            cfg, ckpt, stop_after_checkpoint, diag is not None)), 1)
+            if streamed else 1),
+        resident=not streamed,
+        device_budget_bytes=group_memory_budget(device),
+    )
 
     # ---- Matrix container; stages 1-2 slice their blocks from it, or
     # read them through the host accessor ------------------------------

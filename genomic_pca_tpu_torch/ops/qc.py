@@ -1,13 +1,17 @@
-"""Host-side per-SNP QC: genotype counts and the exact filter chain.
+"""Per-SNP QC: genotype counts on the device or the host, and the exact
+filter chain.
 
 Copies of the numpy parts of `genomic_pca_tpu/ops/qc.py` (the reference
 module also holds jax reductions, and its package imports jax):
 `genotype_counts_packed_host`, `genotype_counts_int8_host`,
 `dosage_mean_from_counts`, `QcResult` and `snp_qc_from_counts`, pinned
 bit-equal to them by tests/test_torch_sharded.py and
-tests/test_torch_prepare.py.  Counts are exact integers, so every QC
-decision and moment follows from them without floating-point
-accumulation error.
+tests/test_torch_prepare.py; and the device counts of its jitted
+reductions, `genotype_counts` (int8 rows), `genotype_counts_packed`
+(PLINK 2-bit rows) and `qc_strip`, as plain PyTorch on the tensor's own
+device (tests/test_torch_qcscan.py holds them to the JAX functions).
+Counts are exact integers, so every QC decision and moment follows from
+them without floating-point accumulation error.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from genomic_pca_tpu_torch.config import DataPrepConfig
 from genomic_pca_tpu_torch.ops.hwe import hwe_chi2_p
@@ -24,6 +29,37 @@ _PACKED_CODE_COUNT = np.zeros((4, 256), dtype=np.uint8)
 for _b in range(256):
     for _p in range(4):
         _PACKED_CODE_COUNT[(_b >> (2 * _p)) & 3, _b] += 1
+
+
+def genotype_counts(strip: torch.Tensor) -> tuple:
+    """int32 (n0, n1, n2, n_valid), each (snps,), of an int8 (snps,
+    samples) strip, on its device; any value outside {0, 1, 2} counts as
+    missing."""
+    n0 = (strip == 0).sum(dim=1, dtype=torch.int32)
+    n1 = (strip == 1).sum(dim=1, dtype=torch.int32)
+    n2 = (strip == 2).sum(dim=1, dtype=torch.int32)
+    return n0, n1, n2, n0 + n1 + n2
+
+
+def genotype_counts_packed(strip: torch.Tensor, n_samples: int) -> tuple:
+    """`genotype_counts` of a PLINK 2-bit (snps, bytes) uint8 strip.
+
+    Codes (count_A1, low bits first): 00 -> dosage 2, 01 -> missing,
+    10 -> 1, 11 -> 0.  Fields of sample index `n_samples` and beyond (the
+    last data byte's trailing fields and the pad columns) are masked out,
+    as the JAX function masks them."""
+    n4 = strip.shape[1]
+    cols = torch.arange(n4, device=strip.device)
+    n0 = torch.zeros(strip.shape[0], dtype=torch.int32, device=strip.device)
+    n1 = torch.zeros_like(n0)
+    n2 = torch.zeros_like(n0)
+    for p in range(4):
+        cp = (strip >> (2 * p)) & 3
+        valid = (4 * cols + p < n_samples)[None, :]
+        n2 += ((cp == 0) & valid).sum(dim=1, dtype=torch.int32)
+        n1 += ((cp == 2) & valid).sum(dim=1, dtype=torch.int32)
+        n0 += ((cp == 3) & valid).sum(dim=1, dtype=torch.int32)
+    return n0, n1, n2, n0 + n1 + n2
 
 
 def genotype_counts_packed_host(raw: np.ndarray, n_samples: int) -> np.ndarray:
@@ -136,3 +172,10 @@ def snp_qc_from_counts(
     mean_out[alive] = mean[alive].astype(np.float32)
     std_out[alive] = np.sqrt(np.maximum(var_a, 0.0)).astype(np.float32)
     return QcResult(keep=keep, mean=mean_out, std=std_out)
+
+
+def qc_strip(strip: torch.Tensor, n_qc_samples: int,
+             config: DataPrepConfig) -> QcResult:
+    """The QC of one int8 strip: device counts, then the host filter."""
+    n0, n1, n2, nv = (c.cpu().numpy() for c in genotype_counts(strip))
+    return snp_qc_from_counts(n0, n1, n2, nv, n_qc_samples, config)

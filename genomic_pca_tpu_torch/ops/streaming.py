@@ -27,17 +27,31 @@ strip runs the kernels of its layout and mode:
 and tsq is W^T W of the f32 W = right(B) in both modes, as in the
 reference.  Partial sums over strips are added on the device.
 
+Several ranks (parallel/mesh.py) stand where the JAX container's
+devices do (genomic_pca_tpu/ops/streaming.py:108-117): strip i is read,
+uploaded and computed on rank i mod R, each rank from its own source (its
+own mmap of the BED), with the prefetch workers of one host divided among
+its ranks.  A rank adds its strips' partial sums in strip order and one
+`mesh.all_reduce_sum` a pass merges them where the JAX container calls
+`_combine` (the q8 pass folds `out - ru` first); a rank with fewer
+strips, or none, joins every all-reduce with exact zeros.  Everything
+after a merge (`qr`, the tolerance test) runs on identical data on every
+rank, so every rank leaves the power loop at the same pass.  Rows out
+(`right_apply`, `tsq_and_project`, `tsq_and_capture`) are gathered
+(`mesh.all_gather_rows`) and put back in global row order, the same on
+every rank.
+
 `last_telemetry` describes the last pass and `pass_log` every pass of
 the container: strips, bytes uploaded, host wall seconds, the
 seconds the copies took on the copy stream and their GB/s, and the
 seconds the compute stream waited on copies (CUDA events; None on the
-CPU).
+CPU), all of this rank's strips; and with several ranks the seconds of
+the pass's all-reduce or gather on the host clock.
 
-Not ported: the multi-device round-robin of strips (multi-GPU work), the
-reference's plane-major sample permutation and VMEM tile sizing (the
-kernels here take any row count and original sample order), and its
-relayed backend's rule on which thread may upload (uploads here run on
-the consumer thread because the staging buffers are its own).
+Not ported: the reference's plane-major sample permutation and VMEM tile
+sizing (the kernels here take any row count and original sample order),
+and its relayed backend's rule on which thread may upload (uploads here
+run on the consumer thread because the staging buffers are its own).
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from genomic_pca_tpu_torch.io.prefetch import StripPrefetcher
 from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.rsvd import quantize_basis, subspace_residual
 from genomic_pca_tpu_torch.ops.standardize import MISSING
+from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.parallel.sharded import (
     PACKED_MISSING_BYTE, default_mode, dense_cols, inv_std_of, packed_cols,
     resolve_q8_polish,
@@ -61,7 +76,7 @@ from genomic_pca_tpu_torch.parallel.sharded import (
 log = logging.getLogger(__name__)
 
 # Strips the prefetcher holds ready ahead of the consumer, and its most
-# worker threads (the reference container's defaults).
+# worker threads on one host (the reference container's defaults).
 PREFETCH_DEPTH = 3
 PREFETCH_WORKERS = 4
 
@@ -139,10 +154,14 @@ class StreamingMatrix:
         self._copy_stream = None
         self.pass_log: List[Dict] = []
         self.last_telemetry: Optional[Dict] = None
+        self.rank, self.world = mesh.process_index(), mesh.process_count()
+        self.own_strips = list(range(self.rank, n_strips, self.world))
+        self._workers = max(1, PREFETCH_WORKERS // mesh.local_world_size())
         log.info("Host-streamed container: %d strips of %d rows, %s, mode %s, "
-                 "%s on %s.", n_strips, strip_size,
-                 "packed" if packed else "dense int8", self.mode,
-                 kernel_precision, self.device)
+                 "%s on %s; rank %d/%d streams %d of them.", n_strips,
+                 strip_size, "packed" if packed else "dense int8", self.mode,
+                 kernel_precision, self.device, self.rank, self.world,
+                 len(self.own_strips))
 
     # ------------------------------------------------------------------
     def _fetch(self, i: int):
@@ -179,37 +198,39 @@ class StreamingMatrix:
         return self._staging
 
     def _strips(self, name: str):
-        """Yield (i, geno, mean, inv_std) device tensors strip by strip.
-        A yielded strip stays valid until the consumer asks for the next
-        but one; telemetry of the pass is taken when it ends."""
+        """Yield (i, geno, mean, inv_std) device tensors of this rank's
+        strips i in order.  A yielded strip stays valid until the consumer
+        asks for the next but one; telemetry of the pass is taken when it
+        ends."""
         t0 = time.perf_counter()
-        p = StripPrefetcher(self._fetch, self.n_strips, depth=PREFETCH_DEPTH,
-                            max_workers=PREFETCH_WORKERS)
+        own = self.own_strips
+        p = StripPrefetcher(lambda j: self._fetch(own[j]), len(own),
+                            depth=PREFETCH_DEPTH, max_workers=self._workers)
         cuda = self.device.type == "cuda"
         timed = []  # per strip: (copy start, copy end, stall start, stall end)
         n_bytes = 0
         try:
             if not cuda:
-                for i, payload in enumerate(p):
+                for j, payload in enumerate(p):
                     n_bytes += sum(x.nbytes for x in payload)
-                    yield (i, *(torch.from_numpy(x) for x in payload))
+                    yield (own[j], *(torch.from_numpy(x) for x in payload))
             else:
                 slots = self._buffers()
                 compute = torch.cuda.current_stream(self.device)
                 done = [None, None]  # per slot: the compute event of its last strip
-                for i, payload in enumerate(p):
-                    slot = slots[i % 2]
-                    if done[i % 2] is not None:
+                for j, payload in enumerate(p):
+                    slot = slots[j % 2]
+                    if done[j % 2] is not None:
                         # The pinned buffer's last copy has finished once the
                         # kernels that read its device twin were enqueued
                         # after it; wait for that copy on the host.
-                        timed[i - 2][1].synchronize()
+                        timed[j - 2][1].synchronize()
                     for (host, _), x in zip(slot, payload):
                         host.numpy()[...] = x
                     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
                     with torch.cuda.stream(self._copy_stream):
-                        if done[i % 2] is not None:
-                            self._copy_stream.wait_event(done[i % 2])
+                        if done[j % 2] is not None:
+                            self._copy_stream.wait_event(done[j % 2])
                         ev[0].record(self._copy_stream)
                         for host, dev in slot:
                             dev.copy_(host, non_blocking=True)
@@ -219,9 +240,9 @@ class StreamingMatrix:
                     ev[3].record(compute)
                     timed.append(ev)
                     n_bytes += sum(host.nbytes for host, _ in slot)
-                    yield (i, *(dev for _, dev in slot))
-                    done[i % 2] = torch.cuda.Event()
-                    done[i % 2].record(compute)
+                    yield (own[j], *(dev for _, dev in slot))
+                    done[j % 2] = torch.cuda.Event()
+                    done[j % 2].record(compute)
                 torch.cuda.synchronize(self.device)
         finally:
             p.close()
@@ -229,7 +250,7 @@ class StreamingMatrix:
         copy_s = sum(a.elapsed_time(b) for a, b, _, _ in timed) / 1e3 if cuda else None
         wait_s = sum(c.elapsed_time(d) for _, _, c, d in timed) / 1e3 if cuda else None
         self.last_telemetry = {
-            "pass": name, "strips": self.n_strips, "bytes": n_bytes,
+            "pass": name, "strips": len(own), "bytes": n_bytes,
             "seconds": secs, "copy_seconds": copy_s,
             "copy_gbps": (n_bytes / copy_s / 1e9) if copy_s else None,
             "compute_wait_seconds": wait_s,
@@ -239,7 +260,7 @@ class StreamingMatrix:
         if cuda:
             log.info("Streamed pass %s: %d strips, %.1f MiB uploaded in %.3f s "
                      "(copies %.4f s, %.2f GB/s; compute stream waited %.4f s).",
-                     name, self.n_strips, n_bytes / 2**20, secs, copy_s,
+                     name, len(own), n_bytes / 2**20, secs, copy_s,
                      self.last_telemetry["copy_gbps"] or 0.0, wait_s)
 
     def _real_rows(self, i: int) -> int:
@@ -268,6 +289,49 @@ class StreamingMatrix:
         out, ru = self._q8(g, iv, m * iv, bq, sb, csum, tile_d=self.tile_d)
         return out - ru
 
+    # ---- merging over the ranks ---------------------------------------
+    def _merge(self, acc: Optional[torch.Tensor], shape) -> torch.Tensor:
+        """The sum over the ranks of this rank's partial sum `acc` (exact
+        zeros of `shape` on a rank without strips): one all-reduce, its
+        host-clock seconds in the pass's telemetry."""
+        if acc is None:
+            acc = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        if self.world == 1:
+            return acc
+        t0 = time.perf_counter()
+        acc = mesh.all_reduce_sum(acc)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.last_telemetry["all_reduce_seconds"] = time.perf_counter() - t0
+        return acc
+
+    def _gather_rows(self, rows: Dict[int, np.ndarray], cols: int) -> np.ndarray:
+        """Rows out on the host in global row order, the same on every
+        rank: `rows` maps each of this rank's strips to its (real rows,
+        cols) host block.  With several ranks the strips travel in rounds
+        of at most 64 MiB a rank: in round t every rank passes its strips
+        t g, ..., t g + g - 1 of `strip_size` rows (zeros past its own) to
+        one gather, whose rank-major order interleaves back into the
+        global strips [t g R, (t + 1) g R)."""
+        if self.world == 1:
+            return np.concatenate([rows[i] for i in self.own_strips])
+        per = -(-self.n_strips // self.world)
+        g = max(1, (64 << 20) // (self.strip_size * cols * 4))
+        out = np.empty((per * self.world * self.strip_size, cols), np.float32)
+        t0 = time.perf_counter()
+        for j0 in range(0, per, g):
+            n_j = min(g, per - j0)
+            local = np.zeros((n_j, self.strip_size, cols), np.float32)
+            for t, i in enumerate(self.own_strips[j0:j0 + n_j]):
+                local[t, : rows[i].shape[0]] = rows[i]
+            got = mesh.all_gather_rows(torch.from_numpy(local).to(mesh.comm_device()))
+            got = got.reshape(self.world, n_j, self.strip_size, cols).transpose(0, 1)
+            lo = j0 * self.world * self.strip_size
+            out[lo:lo + n_j * self.world * self.strip_size] = (
+                got.reshape(-1, cols).cpu().numpy())
+        self.last_telemetry["all_gather_seconds"] = time.perf_counter() - t0
+        return out[: self.n_rows]
+
     # ---- public passes ------------------------------------------------
     def gram_apply(self, b) -> torch.Tensor:
         """A^T (A B): (n_samples, l) on the device."""
@@ -276,24 +340,26 @@ class StreamingMatrix:
         for _, g, m, iv in self._strips("gram"):
             part = self._strip_gram(g, m, iv, bp)
             acc = part if acc is None else acc + part
-        return acc[: self.n_samples]
+        return self._merge(acc, bp.shape)[: self.n_samples]
 
     def _gram_apply_q8(self, b) -> torch.Tensor:
         """Quantized steering pass, used only inside `power_iterate`."""
-        bq, sb, csum = quantize_basis(self._pad_b(b))
+        bp = self._pad_b(b)
+        bq, sb, csum = quantize_basis(bp)
         acc = None
         for _, g, m, iv in self._strips("q8"):
             part = self._strip_gram_q8(g, m, iv, bq, sb, csum)
             acc = part if acc is None else acc + part
-        return acc[: self.n_samples]
+        return self._merge(acc, bp.shape)[: self.n_samples]
 
     def power_iterate(self, b0, n_iter: int, tolerance: Optional[float] = None):
         """n_iter x (B <- qr(A^T A B)), one streaming pass each: the
         (n_samples, l) orthonormal basis.  With kernel_precision "q8" the
         first n_iter - q8_polish passes steer through the q8 kernels and
         the last q8_polish run exact; with `tolerance` the steering passes
-        exit early on the subspace residual (the exact polish always
-        runs) and the return is (basis, passes run)."""
+        exit early on the subspace residual of the merged pass, the same
+        on every rank (the exact polish always runs), and the return is
+        (basis, passes run)."""
         b = torch.as_tensor(b0, dtype=torch.float32, device=self.device)
         use_q8 = self.kernel_precision == "q8"
         n_q8 = max(n_iter - self.q8_polish, 0) if use_q8 else 0
@@ -322,38 +388,38 @@ class StreamingMatrix:
         for _, g, m, iv in self._strips("tsq"):
             w = self._strip_right(g, m, iv, bp)
             acc = w.T @ w if acc is None else acc + w.T @ w
-        return acc
+        return self._merge(acc, (bp.shape[1], bp.shape[1]))
 
     def right_apply(self, b) -> np.ndarray:
         """A B on the host with padding removed: (n_rows, l)."""
         bp = self._pad_b(b)
-        outs = []
-        for i, g, m, iv in self._strips("right"):
-            outs.append(self._strip_right(g, m, iv, bp)[: self._real_rows(i)].cpu().numpy())
-        return np.concatenate(outs, axis=0)
+        rows = {i: self._strip_right(g, m, iv, bp)[: self._real_rows(i)].cpu().numpy()
+                for i, g, m, iv in self._strips("right")}
+        return self._gather_rows(rows, bp.shape[1])
 
     def tsq_and_project(self, b):
         """One pass giving `tsq_accumulate(b)` and a `project(w) -> (n_rows,
         k)` host closure over the per-strip A B products, which stay on the
-        device, so that the loadings (A B) W download as (n_rows, k).
-        None when the products would pass `_CAPTURE_DEVICE_BUDGET` (callers
-        then take `tsq_and_capture`)."""
+        device of their rank, so that the loadings (A B) W download as
+        (n_rows, k).  None when the products of all strips would pass
+        `_CAPTURE_DEVICE_BUDGET` (callers then take `tsq_and_capture`)."""
         if self.n_strips * self.strip_size * b.shape[1] * 4 > self._CAPTURE_DEVICE_BUDGET:
             return None
         bp = self._pad_b(b)
         acc = None
-        ws = []
+        ws = {}
         for i, g, m, iv in self._strips("tsq_capture"):
             w = self._strip_right(g, m, iv, bp)
             acc = w.T @ w if acc is None else acc + w.T @ w
-            ws.append(w[: self._real_rows(i)])
+            ws[i] = w[: self._real_rows(i)]
+        acc = self._merge(acc, (bp.shape[1], bp.shape[1]))
 
         def project(w_small) -> np.ndarray:
             w_dev = torch.as_tensor(np.asarray(w_small, dtype=np.float32),
                                     device=self.device)
-            out = torch.cat([w @ w_dev for w in ws]).cpu().numpy()
+            rows = {i: (w @ w_dev).cpu().numpy() for i, w in ws.items()}
             ws.clear()  # release the captured products
-            return out
+            return self._gather_rows(rows, w_dev.shape[1])
 
         return acc, project
 
@@ -363,9 +429,10 @@ class StreamingMatrix:
         further pass over the matrix."""
         bp = self._pad_b(b)
         acc = None
-        outs = []
+        rows = {}
         for i, g, m, iv in self._strips("tsq_capture"):
             w = self._strip_right(g, m, iv, bp)
             acc = w.T @ w if acc is None else acc + w.T @ w
-            outs.append(w[: self._real_rows(i)].cpu().numpy())
-        return acc, np.concatenate(outs, axis=0)
+            rows[i] = w[: self._real_rows(i)].cpu().numpy()
+        acc = self._merge(acc, (bp.shape[1], bp.shape[1]))
+        return acc, self._gather_rows(rows, bp.shape[1])

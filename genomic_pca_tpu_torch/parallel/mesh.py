@@ -121,6 +121,12 @@ def process_count() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def local_world_size() -> int:
+    """Ranks on this host: torchrun's `LOCAL_WORLD_SIZE`, else the world
+    size."""
+    return _env_int("LOCAL_WORLD_SIZE", process_count())
+
+
 def rank_device(device: str = "cuda") -> torch.device:
     """The device of this rank: `cuda:{LOCAL_RANK % device_count}` for
     "cuda" (ranks beyond the device count share devices), or the CPU
@@ -137,9 +143,9 @@ def _staged() -> bool:
     return dist.get_backend() == "gloo"
 
 
-def _comm_device() -> torch.device:
-    """Where host metadata travels: the CPU on gloo, this rank's CUDA
-    device on NCCL."""
+def comm_device() -> torch.device:
+    """Where host data travels: the CPU on gloo, this rank's CUDA device
+    on NCCL."""
     if _staged():
         return torch.device("cpu")
     return torch.device("cuda", torch.cuda.current_device())
@@ -193,7 +199,7 @@ def all_gather_numpy(tree: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     shapes and dtypes; bool arrays travel as uint8."""
     if not dist.is_initialized():
         return {k: np.asarray(v)[None] for k, v in tree.items()}
-    dev = _comm_device()
+    dev = comm_device()
     out = {}
     for key in sorted(tree):
         arr = np.ascontiguousarray(tree[key])

@@ -312,15 +312,18 @@ class ShardedMatrix:
     @staticmethod
     def _fill_rows(block, ofs: int, g, m, s, n_samples: int, packed: bool,
                    center_only: bool) -> None:
-        """Write host rows (geno, mean, std) into `block` from local row
-        `ofs`: packed bytes sanitized, std 1 with `center_only`."""
-        g = np.asarray(g, dtype=np.uint8 if packed else np.int8)
-        if packed:
-            g = sanitize_partial_byte(g, n_samples)
+        """Write rows (geno, mean, std) into `block` from local row `ofs`:
+        host genotypes (packed bytes sanitized here), or a device tensor
+        already in the container's layout; std 1 with `center_only`."""
+        if not isinstance(g, torch.Tensor):
+            g = np.asarray(g, dtype=np.uint8 if packed else np.int8)
+            if packed:
+                g = sanitize_partial_byte(g, n_samples)
+            g = torch.from_numpy(g)
         r = g.shape[0]
         s = np.ones(r, np.float32) if center_only else np.asarray(s, np.float32)
         geno, mean, inv = block
-        geno[ofs:ofs + r, : g.shape[1]].copy_(torch.from_numpy(g))
+        geno[ofs:ofs + r, : g.shape[1]].copy_(g)
         mean[ofs:ofs + r, 0].copy_(torch.from_numpy(np.asarray(m, np.float32)))
         inv[ofs:ofs + r, 0].copy_(torch.from_numpy(inv_std_of(s).astype(np.float32)))
 
@@ -378,7 +381,8 @@ class ShardedMatrix:
         unit's rows and the rank that owns it; global PCA row order is
         unit order.  `local_units` {unit: (geno, mean, std)} holds this
         rank's units (with `packed`, raw PLINK bytes); `geno` is the host
-        rows or a reader `read(lo, hi)` of the unit's rows [lo, hi),
+        rows or a reader `read(lo, hi)` of the unit's rows [lo, hi) (host
+        rows, or device rows in the container's layout),
         which is called strip by strip of `strip_rows` rows so that the
         host never holds the whole unit, as in `from_packed_strips`.
         Each unit becomes one row segment placed consecutively inside its

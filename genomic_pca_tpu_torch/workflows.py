@@ -45,6 +45,7 @@ from genomic_pca_tpu_torch.ops.qc import (
 )
 from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix, pack_int8_rows
+from genomic_pca_tpu_torch.utils.system import preflight
 from genomic_pca_tpu_torch.utils.timing import StageTimer
 
 log = logging.getLogger(__name__)
@@ -145,6 +146,7 @@ def run_vcf_workflow(
     each rank parses and holds its own files (`_vcf_matrix`) and rank 0
     writes the outputs."""
     timer = StageTimer()
+    preflight(planned_threads=threads)
     with timer.stage("VCF parsing & matrix assembly"):
         sample_names, matrix = _vcf_matrix(vcf_dir, maf, threads, device)
     log.info(
@@ -202,8 +204,9 @@ def run_eigensnp_workflow(
     several ranks every rank runs it (distributed QC, one matrix unit a
     rank) and rank 0 writes the outputs."""
     timer = StageTimer()
+    preflight(planned_threads=16)
     with timer.stage("Data preparation (QC + LD mapping)"):
-        prep = prepare_data(prep_config)
+        prep = prepare_data(prep_config, device=device)
 
     with timer.stage("EigenSNP core algorithm"):
         result = compute_eigensnp_pca(

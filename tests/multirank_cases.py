@@ -119,7 +119,7 @@ def prepare_worker(config) -> dict:
     """`prepare_data` of `config` on this rank: the merged QC."""
     from genomic_pca_tpu_torch.models.prepare import prepare_data
 
-    prep = prepare_data(config)
+    prep = prepare_data(config, device="cpu")
     return {"pca": prep.pca_snp_orig_indices, "mean": prep.mean, "std": prep.std,
             "n_post_qc": prep.n_snps_post_qc, "scan_ranges": prep.scan_ranges}
 
@@ -158,11 +158,90 @@ def checkpoint_view_worker(dirs) -> dict:
             "absent": eigensnp._has(ckpt, "t")}
 
 
-def streaming_worker(config) -> None:
-    """The host-streamed container of `config` on this rank."""
+def streamed_passes(sm, spec) -> dict:
+    """Every pass of the host-streamed container `sm` on the bases of
+    `spec`, with the strips this rank streamed and the collectives of one
+    gram pass."""
+    b = torch.from_numpy(spec["b"])
+    mesh.reset_collective_counts()
+    out = {"gram": sm.gram_apply(b).numpy()}
+    out["gram_collectives"] = dict(mesh.COLLECTIVES)
+    out["tsq"] = sm.tsq_accumulate(b).numpy()
+    out["right"] = sm.right_apply(b)
+    acc, project = sm.tsq_and_project(b)
+    out["tsq_project"], out["project"] = acc.numpy(), project(spec["w"])
+    acc, ab = sm.tsq_and_capture(b)
+    out["tsq_capture"], out["capture"] = acc.numpy(), ab
+    out["own_strips"] = sm.own_strips
+    out["strips_seen"] = [t["strips"] for t in sm.pass_log]
+    return out
+
+
+def streaming_worker(config) -> dict:
+    """`streamed_passes` of the host-streamed container of `config` on
+    this rank, over strips of 64 rows."""
     from genomic_pca_tpu_torch.models.prepare import prepare_data
 
-    prepare_data(config).load_streaming_matrix("cpu")
+    prep = prepare_data(config, device="cpu")
+    sm = prep.load_streaming_matrix("cpu", strip_size=64, kernel_precision="f32")
+    rng = np.random.default_rng(3)
+    spec = {"b": rng.standard_normal((prep.n_samples, 5)).astype(np.float32),
+            "w": rng.standard_normal((5, 2)).astype(np.float32)}
+    return streamed_passes(sm, spec)
+
+
+def strips_worker(specs) -> list:
+    """For each spec: a host-streamed container over the host strips of
+    `spec["geno"]` (`spec["strip"]` rows, packed or int8 dosages),
+    `streamed_passes` in f32, the q8 pass and the q8 power loop with and
+    without a tolerance."""
+    from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
+
+    outs = []
+    for spec in specs:
+        g, mean, std, strip = spec["geno"], spec["mean"], spec["std"], spec["strip"]
+
+        def source(i, g=g, mean=mean, std=std, strip=strip):
+            return g[i * strip:(i + 1) * strip], mean[i * strip:(i + 1) * strip], \
+                std[i * strip:(i + 1) * strip]
+
+        def container(precision):
+            return StreamingMatrix(
+                source, -(-spec["n_rows"] // strip), spec["n_rows"], spec["n_samples"],
+                strip, packed=spec["packed"], mode="1d", kernel_precision=precision,
+                tile_d=spec["tile_d"], device="cpu")
+
+        out = streamed_passes(container("f32"), spec)
+        q8 = container("q8")
+        b0 = torch.from_numpy(spec["b0"])
+        out["q8"] = q8._gram_apply_q8(torch.from_numpy(spec["b"])).numpy()
+        out["q"] = q8.power_iterate(b0, 4).numpy()
+        out["n_done"] = {tol: q8.power_iterate(b0, 6, tolerance=tol)[1]
+                         for tol in (10.0, 0.0)}
+        outs.append(out)
+    return outs
+
+
+def capture_worker(configs) -> list:
+    """For each config: this rank's resident container built from its QC
+    capture (`qc_mode="device"`) and from its host scan and a BED re-read
+    (`qc_mode="host"`)."""
+    import dataclasses
+
+    from genomic_pca_tpu_torch.models.prepare import prepare_data
+
+    outs = []
+    for config in configs:
+        out = {}
+        for mode in ("device", "host"):
+            prep = prepare_data(dataclasses.replace(config, qc_mode=mode), device="cpu")
+            out[f"captured_{mode}"] = prep.qc_capture is not None
+            sm = prep.load_matrix("cpu")
+            out[mode] = {"geno": sm.geno.numpy(), "mean": sm.mean.numpy(),
+                         "inv_std": sm.inv_std.numpy(), "n_rows": sm.n_rows,
+                         "row_segments": sm.row_segments, "pca": prep.pca_snp_orig_indices}
+        outs.append(out)
+    return outs
 
 
 def empty_rank_worker(spec) -> dict:

@@ -570,9 +570,9 @@ def test_dense_fetch_blocks_match_reference(rng):
 
 @pytest.mark.parametrize("keep_list", [False, True])
 def test_prepare_dense_bit_identical_to_reference(tmp_path, rng, caplog, keep_list):
-    """The port's host QC scan against the JAX device scan (qc_mode
-    "auto" with packed_pipeline=False): the same decisions and moments,
-    and the same int8 bytes in the loaded container."""
+    """The port's device QC scan and capture against the JAX ones
+    (qc_mode "auto" with packed_pipeline=False): the same decisions and
+    moments, and the same int8 bytes in the loaded container."""
     _, _, cfg = _setup(tmp_path, rng, n_snps=400, n_samples=50, missing_rate=0.05)
     cfg = dataclasses.replace(cfg, packed_pipeline=False)
     if keep_list:
@@ -580,8 +580,8 @@ def test_prepare_dense_bit_identical_to_reference(tmp_path, rng, caplog, keep_li
         keep.write_text("".join(f"sample{i}\n" for i in range(0, 50, 3)))
         cfg = dataclasses.replace(cfg, sample_keep_path=str(keep))
     with caplog.at_level(logging.INFO, logger="genomic_pca_tpu_torch"):
-        pt = tprep.prepare_data(cfg)
-    assert "takes the host scan" in caplog.text
+        pt = tprep.prepare_data(cfg, device="cpu")
+    assert "SNP QC: device int8 scan on cpu" in caplog.text
     pj = jprep.prepare_data(cfg)
     np.testing.assert_array_equal(pt.qc_sample_indices, pj.qc_sample_indices)
     np.testing.assert_array_equal(pt.pca_snp_orig_indices, pj.pca_snp_orig_indices)
@@ -603,7 +603,7 @@ def test_prepare_dense_missing_policy_error(tmp_path, rng):
     _, _, cfg = _setup(tmp_path, rng, n_snps=200, n_samples=30, missing_rate=0.05)
     cfg = dataclasses.replace(cfg, packed_pipeline=False, missing_policy="error")
     with pytest.raises(DataPrepError, match="missing_policy"):
-        tprep.prepare_data(cfg).load_matrix("cpu")
+        tprep.prepare_data(cfg, device="cpu").load_matrix("cpu")
 
 
 def test_eigensnp_on_the_dense_container(tmp_path, rng):
@@ -615,7 +615,7 @@ def test_eigensnp_on_the_dense_container(tmp_path, rng):
                           min_subset_size=10, max_subset_size=100_000,
                           refine_passes=2, seed=2025, snp_strip_size=200)
     dense = dataclasses.replace(cfg, packed_pipeline=False)
-    pt = tprep.prepare_data(dense)
+    pt = tprep.prepare_data(dense, device="cpu")
     res = tes.compute_eigensnp_pca(pt, algo, device="cpu")
     ref = jes.compute_eigensnp_pca(jprep.prepare_data(dense), algo)
     raw = pt.bed.read(pt.pca_snp_orig_indices, pt.qc_sample_indices)

@@ -161,15 +161,18 @@ def test_prepare_data_bit_identical_to_reference(tmp_path, rng, keep_list):
 
 
 def test_prepare_refuses_what_is_not_ported(tmp_path, rng, monkeypatch):
-    """The device QC scan is refused; past 60% of the device's memory
+    """The device QC scan (it used to be refused) gives the host scan's
+    keep, mean and std bit for bit; past 60% of the device's memory
     `load_matrix` takes the host-streamed container (it used to refuse
     it) over the same rows and moments."""
     from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
 
     _, _, cfg = _setup(tmp_path, rng, n_snps=200, n_samples=30)
-    with pytest.raises(DataPrepError, match="not yet ported"):
-        tprep.prepare_data(dataclasses.replace(cfg, qc_mode="device"))
+    dev = tprep.prepare_data(dataclasses.replace(cfg, qc_mode="device"), device="cpu")
     prep = tprep.prepare_data(cfg)
+    np.testing.assert_array_equal(dev.pca_snp_orig_indices, prep.pca_snp_orig_indices)
+    np.testing.assert_array_equal(dev.mean, prep.mean)
+    np.testing.assert_array_equal(dev.std, prep.std)
     assert isinstance(prep.load_matrix("cpu"), ts.ShardedMatrix)
     monkeypatch.setattr(tprep, "device_memory_budget", lambda device: 1024)
     sm = prep.load_matrix("cpu", strip_size=64)

@@ -135,13 +135,22 @@ def test_allgather_qc_without_group_is_the_scan():
 
 
 def test_streaming_refused_with_several_ranks(qc_fileset):
-    """The host-streamed container stays single-rank: forcing it under a
-    process group of two raises."""
+    """The host-streamed container, once refused under several ranks, runs
+    on two: each rank streams its own strips (i mod 2) and every pass
+    equals the one-rank container's at rtol 1e-4 / atol 1e-4."""
     _prefix, jcfg = qc_fileset
     cfg = DataPrepConfig(**{f.name: getattr(jcfg, f.name)
                             for f in dataclasses.fields(DataPrepConfig)})
-    with pytest.raises(RuntimeError, match="multi-rank streaming"):
-        run_ranks(mc.streaming_worker, 2, (cfg,), timeout_s=TIMEOUT_S)
+    one = mc.streaming_worker(cfg)
+    many = run_ranks(mc.streaming_worker, 2, (cfg,), timeout_s=TIMEOUT_S)
+    n_strips = len(one["own_strips"])
+    assert [m["own_strips"] for m in many] == [list(range(r, n_strips, 2))
+                                               for r in range(2)]
+    for got in many:
+        for key in ("gram", "tsq", "right", "tsq_project", "project",
+                    "tsq_capture", "capture"):
+            np.testing.assert_allclose(got[key], one[key], rtol=1e-4, atol=1e-4,
+                                       err_msg=key)
 
 
 # ---------------------------------------------------------------------------

@@ -208,7 +208,7 @@ def test_host_block_accessors_match_reference(tmp_path, rng, keep_list):
 
 
 def _eigensnp_pair(cfg, algo, **kw_t):
-    pt = tprep.prepare_data(cfg)
+    pt = tprep.prepare_data(cfg, device="cpu")
     res_t = tes.compute_eigensnp_pca(pt, algo, device="cpu", **kw_t)
     res_j = jes.compute_eigensnp_pca(jprep.prepare_data(cfg), algo,
                                      force_streaming=kw_t.get("force_streaming", False))
