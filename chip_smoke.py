@@ -135,7 +135,23 @@ no result line):
    the VCF CLI again with the profiler: its TSVs byte for byte the
    untraced run's, the trace file parses as JSON and its CUDA kernel
    events name `q8_right2d_mma_kernel`, `q8_left2d_mma_kernel` and
-   `right_narrow_mma_kernel`; the wall with and without the profiler.
+   `right_narrow_mma_kernel`; the wall with and without the profiler;
+19. the oracles and the eval chain: (a) the 1000G-like cohort of
+   eval_artifacts/README.md through `eval/make_1000g_like.py` (60,000 SNPs
+   x 2,504 samples, 120 LD blocks, seed 2025); (b) `python -m
+   genomic_pca_tpu_torch.eval.exact` on it on the card, and in process
+   `exact_pca_from_strips` on the card and on the CPU over the same
+   strips: the card's eigenvalues within 1e-9 of the CPU's and per-PC |r|
+   >= 1 - 1e-9 over the separated prefix, the CLI's TSVs (%.6g) the same
+   to 6 significant digits; (c) `StripedMatrix` (plain f32 torch
+   products) at 65,536 x 2,048: the resident container's f32 passes in
+   both layouts against it to 1e-5 of max|oracle|, then `streamed_pca`
+   over it (the plain power loop) through the float64 gate; (d) five
+   sweep runs (`eval/sweep_run.py`: the base defaults, min_maf 0.03,
+   components_per_block 18, local_power_iter 5, refine_passes 4) of the
+   EigenSNP CLI on the cohort, each exit 0 with the reference's TSVs, the
+   base run through the float64 gate against `exact_pca_from_strips(...,
+   scale=True, apply_qc=False)` over its PCA SNPs.
 
 The CLI phases hold the separated PCs to a float64 oracle.  The line
 before the last two is one JSON object with a row per kernel (its launches
@@ -162,6 +178,7 @@ WORK = ROOT / "build" / "chip_smoke"
 FILESET = ROOT / "build" / "chip_smoke_eigensnp"  # phase 8's, kept for 14-17
 VCF_KEPT = ROOT / "build" / "chip_smoke_vcf"  # phase 7's second, kept for 15
 DENSE_KEPT = ROOT / "build" / "chip_smoke_dense"  # phase 11's, kept for 16
+G1K = ROOT / "build" / "chip_smoke_g1k"  # phase 19's cohort and runs
 SEED = 20260
 
 # Kernel vs plain, both on the card, as max|kernel - plain| / max|plain|.
@@ -1885,6 +1902,219 @@ def check_streamed_ranks(torch, np, device, streamed_main, fileset):
     check_pcs(np, pcs, *oracle, evs * (pcs.shape[0] - 1), 10, label)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the oracles and the eval chain.
+
+
+def rel_err(got, ref) -> float:
+    """max|got - ref| / max|ref| (host arrays or tensors)."""
+    import numpy as np
+
+    got = got if isinstance(got, np.ndarray) else got.cpu().numpy()
+    ref = ref if isinstance(ref, np.ndarray) else ref.cpu().numpy()
+    return float(np.abs(got.astype(np.float64) - ref).max() / np.abs(ref).max())
+
+
+def exact_agreement(np, scores, evals, ref_scores, ref_evals, label, ev_rtol):
+    """Per-PC |r| >= 1 - 1e-9 over the separated prefix of `ref_evals` (k +
+    1 values) and eigenvalues within `ev_rtol`: two exact PCAs of the same
+    strips."""
+    k = len(ref_evals) - 1
+    sep = separated_prefix(ref_evals, k)
+    rs = [abs(float(np.corrcoef(scores[:, j], ref_scores[:, j])[0, 1]))
+          for j in range(sep)]
+    ev = float(np.max(np.abs(evals[:k] - ref_evals[:k]) / ref_evals[:k]))
+    if sep < 1:
+        raise AssertionError(f"{label}: no eigengap-separated PC to check")
+    log(f"[{label}] separated prefix {sep}/{k}; min |r| {min(rs):.12f}; max "
+        f"eigenvalue rel err {ev:.3e}")
+    if min(rs) < 1 - 1e-9 or ev > ev_rtol:
+        raise AssertionError(f"{label}: exact PCAs disagree: |r| {rs}, eigenvalue "
+                             f"rel err {ev} (bound {ev_rtol})")
+
+
+def check_striped(torch, np, device, d, n, k, seed):
+    """Phase 19c: `StripedMatrix` (plain f32 products) on the card against
+    the resident container in both layouts (f32 kernels, the same
+    moments) pass by pass, then `streamed_pca` over it (the plain power
+    loop) against the port's float64 oracle."""
+    from genomic_pca_tpu_torch.models.exact import exact_pca_from_strips
+    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.ops.stream import StripedMatrix
+    from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix, host_moments
+
+    label = "striped"
+    packed, _, _ = structured_packed(torch, d, n, 11, 0.1, 0.01, seed, device)
+    g = dense_from_packed(torch, packed).cpu().numpy()
+    packed_np = packed.cpu().numpy()
+    del packed
+    mean, std = host_moments(g)
+    t0 = time.perf_counter()
+    oracle = StripedMatrix.from_arrays(iter([g]), means=[mean], stds=[std],
+                                       strip_size=2048, device=device)
+    log(f"[{label}] StripedMatrix {d} x {n} in {len(oracle.strips)} strips, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    b = torch.linalg.qr(torch.randn((n, 128), generator=torch.Generator().manual_seed(seed),
+                                    dtype=torch.float32))[0].to(device)
+    for layout, sm in (
+        ("packed", ShardedMatrix.from_packed_rows(packed_np, mean, std, n, device,
+                                                  kernel_precision="f32")),
+        ("dense", ShardedMatrix.from_arrays(iter([g]), means=[mean], stds=[std],
+                                            device=device, kernel_precision="f32")),
+    ):
+        errs = {}
+        for name in ("gram_apply", "tsq_accumulate", "right_apply"):
+            errs[name] = rel_err(getattr(sm, name)(b), getattr(oracle, name)(b))
+        log(f"[{label}] resident {layout} container ({sm.mode} mode, f32 kernels) "
+            f"against StripedMatrix, max|diff| / max|oracle|: "
+            + ", ".join(f"{k_} {v:.2e}" for k_, v in errs.items()))
+        if max(errs.values()) > 1e-5:
+            raise AssertionError(f"{label}: the {layout} container disagrees with "
+                                 f"StripedMatrix: {errs}")
+        del sm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = streamed_pca(oracle, k=k, n_power_iter=4, seed=7, compute_loadings=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if (res.scores.shape != (n, k) or res.loadings.shape != (d, k)
+            or not np.isfinite(res.scores).all() or res.n_iter_done != 4):
+        raise AssertionError(f"{label}: streamed_pca output has the wrong shape, "
+                             f"non-finite values or {res.n_iter_done} passes")
+    t0 = time.perf_counter()
+    exact = exact_pca_from_strips((g[lo:lo + 8192] for lo in range(0, d, 8192)), n,
+                                  k + 1, scale=True, apply_qc=False, device=device)
+    log(f"[{label}] streamed_pca (the plain power loop, 4 passes) in {wall:.3f} s; "
+        f"float64 oracle in {time.perf_counter() - t0:.2f} s")
+    check_pcs(np, res.scores, exact.scores, exact.eigenvalues * exact.n_kept_variants,
+              res.singular_values.astype(np.float64) ** 2, k, label)
+
+
+def check_eval_chain(torch, np, device):
+    """Phase 19 (module docstring): the 1000G-like cohort, the exact
+    oracle CLI on the card against the oracle on the CPU, StripedMatrix,
+    and five sweep runs of the EigenSNP CLI, the base run against the
+    float64 oracle over its QC'd SNPs."""
+    from genomic_pca_tpu_torch.config import DataPrepConfig
+    from genomic_pca_tpu_torch.eval import make_1000g_like, sweep_run
+    from genomic_pca_tpu_torch.io.bed import BedReader
+    from genomic_pca_tpu_torch.models.exact import exact_pca_from_strips
+
+    t_phase = time.perf_counter()
+    if G1K.exists():
+        shutil.rmtree(G1K)
+    # (a) The cohort of eval_artifacts/README.md.
+    label = "eval cohort"
+    t0 = time.perf_counter()
+    bed, _, blocks = make_1000g_like.make_dataset(str(G1K), 60_000, 2504, 120, 2025)
+    log(f"[{label}] make_1000g_like 60,000 SNPs x 2,504 samples, 120 LD blocks, seed "
+        f"2025 in {time.perf_counter() - t0:.1f} s")
+
+    # (b) The exact oracle CLI on the card, against the oracle on the CPU.
+    label = "exact cli"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "genomic_pca_tpu_torch.eval.exact", "--bed-prefix", bed,
+         "--out-dir", str(G1K / "exact")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    exact_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    log_messages(label, [line.split("] ", 1)[-1] for line in proc.stderr.splitlines()],
+                 ("GRM built", "Total wall-time"))
+    log(f"[{label}] python -m genomic_pca_tpu_torch.eval.exact exit 0 in "
+        f"{exact_wall:.2f} s")
+    reader = BedReader(bed)
+    n = reader.n_samples
+    strips = [reader.read(slice(lo, min(lo + 2000, reader.n_snps)), count_a1=False)
+              for lo in range(0, reader.n_snps, 2000)]
+    cfg = DataPrepConfig(min_call_rate=0.98, min_maf=0.01, max_hwe_p=1e-6,
+                         min_variance=1e-9)
+    walls = {}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = exact_pca_from_strips(iter(strips), n, 11, config=cfg, device=dev)
+        walls[dev] = time.perf_counter() - t0
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    log(f"[{label}] exact_pca_from_strips in process: {gpu.n_kept_variants} SNPs kept; "
+        f"{walls['cuda']:.2f} s on the card, {walls['cpu']:.2f} s on the CPU")
+    if gpu.n_kept_variants != cpu.n_kept_variants:
+        raise AssertionError(f"{label}: kept {gpu.n_kept_variants} != "
+                             f"{cpu.n_kept_variants} SNPs")
+    exact_agreement(np, gpu.scores, gpu.eigenvalues, cpu.scores, cpu.eigenvalues,
+                    "exact card vs CPU", 1e-9)
+    pcs = np.loadtxt(G1K / "exact" / "pca.tsv", skiprows=1, usecols=range(10),
+                     delimiter="\t")
+    evs = np.loadtxt(G1K / "exact" / "py.eigenvalues.tsv", skiprows=1, usecols=1,
+                     delimiter="\t")
+    with open(G1K / "exact" / "pca.tsv") as fh:
+        head = fh.readline().rstrip("\n").split("\t")
+    if head != [f"PC{i}" for i in range(1, 11)] + ["SampleID"] or pcs.shape != (n, 10):
+        raise AssertionError(f"{label}: pca.tsv layout {head}, shape {pcs.shape}")
+    # The TSVs hold %.6g: eigenvalues to 6 significant digits.
+    exact_agreement(np, pcs, evs, cpu.scores, cpu.eigenvalues, "exact cli TSVs vs CPU",
+                    1e-5)
+    del strips, runs
+    torch.cuda.empty_cache()
+
+    # (c) The test-oracle container on the card.
+    check_striped(torch, np, device, 65_536, 2048, 10, SEED + 15)
+    torch.cuda.empty_cache()
+
+    # (d) Five runs of the sweep: the base defaults and one value of four knobs.
+    label = "sweep"
+    sweeps = {"eigensnp_min_maf": [0.03], "eigensnp_components_per_block": [18],
+              "eigensnp_local_power_iter": [5], "eigensnp_refine_passes": [4]}
+    configs = sweep_run.generate_run_configs(G1K / "sweeps", 4, sweeps=sweeps)
+    # Each run is `python -m genomic_pca_tpu_torch` in a child process.
+    os.environ["PYTHONPATH"] = env["PYTHONPATH"]
+    if len(configs) != 5:
+        raise AssertionError(f"{label}: {len(configs)} run configs, not 5")
+    for cfg_run in configs:
+        res = sweep_run.execute_single_run((cfg_run, bed, blocks))
+        prefix = Path(cfg_run["output_prefix"])
+        log(f"[{label}] {res['run_id']}: success {res['success']} in "
+            f"{res['duration_seconds']} s")
+        if not res["success"]:
+            err = (Path(cfg_run["output_dir"]) / "stderr.log").read_text()
+            raise AssertionError(f"{label}: {res['run_id']} failed:\n{err[-4000:]}")
+        with open(f"{prefix}.eigensnp.pca.tsv") as fh:
+            pc_head = fh.readline().rstrip("\n").split("\t")
+        with open(f"{prefix}.eigensnp.loadings.tsv") as fh:
+            l_head = fh.readline().rstrip("\n").split("\t")
+        with open(f"{prefix}.eigenvalues.tsv") as fh:
+            e_head = fh.readline().rstrip("\n").split("\t")
+        if (pc_head != ["SampleID"] + [f"PC{i}" for i in range(1, 11)]
+                or l_head[:3] != ["VariantID", "Chrom", "Pos"]
+                or e_head != ["PC", "Eigenvalue"]):
+            raise AssertionError(f"{label}: {res['run_id']} TSV headers {pc_head[:3]}, "
+                                 f"{l_head[:4]}, {e_head}")
+    base = Path(configs[0]["output_prefix"])
+    pcs = np.loadtxt(f"{base}.eigensnp.pca.tsv", skiprows=1, usecols=range(1, 11),
+                     delimiter="\t")
+    evs = np.loadtxt(f"{base}.eigenvalues.tsv", skiprows=1, usecols=1, delimiter="\t")
+    with open(f"{base}.eigensnp.loadings.tsv") as fh:
+        fh.readline()
+        ids = [line.split("\t", 1)[0] for line in fh]
+    row = {sid: i for i, sid in enumerate(reader.bim.sid)}
+    sel = np.array([row[sid] for sid in ids])
+    raw = reader.read(sel)
+    exact = exact_pca_from_strips((raw[lo:lo + 8192] for lo in range(0, len(sel), 8192)),
+                                  n, 11, scale=True, apply_qc=False, device=device)
+    log(f"[{label}] base run: {len(ids)} PCA SNPs; the float64 oracle over them "
+        f"(scaled, no QC)")
+    if pcs.shape != (n, 10) or not np.isfinite(pcs).all():
+        raise AssertionError(f"{label}: base run scores {pcs.shape} or non-finite")
+    check_pcs(np, pcs, exact.scores, exact.eigenvalues * exact.n_kept_variants,
+              evs * (n - 1), 10, "sweep base run")
+    shutil.rmtree(G1K)
+    log(f"[eval chain] phase 19 in {time.perf_counter() - t_phase:.1f} s (the exact "
+        f"CLI {exact_wall:.2f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -2100,6 +2330,11 @@ def main() -> int:
                          (streamed_launches, streamed_scores, main["main 1-D"][1]),
                          fileset)
     shutil.rmtree(FILESET)
+
+    # 19. The oracles and the eval chain: the 1000G-like cohort, the exact
+    # oracle CLI on the card, StripedMatrix against the resident container
+    # and the float64 oracle, and five EigenSNP sweep runs.
+    check_eval_chain(torch, np, device)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -4,8 +4,10 @@ samples, on the port.
 Counterpart of `genomic_pca_tpu/models/pca.py`: validate k, widen the
 sketch to the 128-lane width the reference kernels pad to, draw the
 Gaussian sketch from a seeded generator (utils/rng.py), and run the PCA
-through the resident container's `pca_core` or the host-streamed
-container's `power_iterate` and `tsq_and_capture`.  `transform` (float64
+through the resident container's `pca_core`, the host-streamed
+container's `power_iterate` and `tsq_and_capture`, or the plain power
+loop over any operator's `gram_apply` (the test oracle
+`ops.stream.StripedMatrix`).  `transform` (float64
 on the host), `transform_device` (a dense container over the new
 samples, then `left_apply`) and `StripProjector` (one projector reused
 across strips) project new samples through fitted loadings.
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from genomic_pca_tpu_torch.errors import ComputeError
+from genomic_pca_tpu_torch.ops.rsvd import subspace_residual
 from genomic_pca_tpu_torch.ops.standardize import MISSING, standardize_rows
 from genomic_pca_tpu_torch.utils.rng import normal
 
@@ -84,14 +87,19 @@ def streamed_pca(
     .StreamingMatrix) runs `power_iterate`, one streaming pass per
     iteration, then the Rayleigh-Ritz Gram; with `compute_loadings` that
     pass also captures A B (`tsq_and_capture`), so the loadings (A B) W /
-    sigma need no further pass over the matrix.  With a container over
-    several ranks every rank makes this call: each draws the same sketch
-    from the seed, and the scores and the gathered loadings are the same
-    on every rank."""
-    if not (hasattr(matrix, "pca_core") or hasattr(matrix, "power_iterate")):
+    sigma need no further pass over the matrix.  Any other operator (the
+    test oracle ops.stream.StripedMatrix) runs the plain power loop of
+    the JAX package: `gram_apply`, the subspace residual from the second
+    pass when `tolerance` is set, a Householder QR, then the same
+    Rayleigh-Ritz finalization with loadings from `right_apply`.  With a
+    container over several ranks every rank makes this call: each draws
+    the same sketch from the seed, and the scores and the gathered
+    loadings are the same on every rank."""
+    if not (hasattr(matrix, "pca_core") or hasattr(matrix, "power_iterate")
+            or hasattr(matrix, "gram_apply")):
         raise TypeError(
-            "streamed_pca in genomic_pca_tpu_torch runs through a container's "
-            "pca_core (resident) or power_iterate (host-streamed)."
+            "streamed_pca needs an operator with pca_core (resident), "
+            "power_iterate (host-streamed) or gram_apply (the plain loop)."
         )
     n = matrix.n_samples
     d = matrix.n_rows
@@ -111,8 +119,19 @@ def streamed_pca(
         else:
             v_k, sigma_k, evals_k, loadings, n_done = out
     else:
-        out = matrix.power_iterate(b, n_iter, tolerance=tolerance)
-        b, n_done = (out, n_iter) if tolerance is None else out
+        if hasattr(matrix, "power_iterate"):
+            out = matrix.power_iterate(b, n_iter, tolerance=tolerance)
+            b, n_done = (out, n_iter) if tolerance is None else out
+        else:
+            for it in range(n_iter):
+                t = matrix.gram_apply(b)  # A^T A B, one pass
+                res = None
+                if tolerance is not None and it > 0:
+                    res = float(subspace_residual(b, t))
+                b, _ = torch.linalg.qr(t)
+                if res is not None and res < tolerance:
+                    n_done = it + 1
+                    break
         fused = compute_loadings and hasattr(matrix, "tsq_and_capture")
         if fused:
             g, ab = matrix.tsq_and_capture(b)  # (l, l), (D, l) host

@@ -1,11 +1,24 @@
 """The standardized-genotype operator contract of the port.
 
 Counterpart of `genomic_pca_tpu/ops/operator.py`: A = diag(1/std)
-(G - mean) applied implicitly.  Two implementations: the resident
-`parallel.sharded.ShardedMatrix`, which `models.pca.streamed_pca` drives
-through its `pca_core` fast path, and the host-streamed
-`ops.streaming.StreamingMatrix`, driven through `power_iterate` and
-`tsq_and_capture`.
+(G - mean) applied implicitly.  Three containers implement it, each with
+its own role:
+
+* `parallel.sharded.ShardedMatrix` - PRODUCTION, device-resident.  The
+  genotypes (PLINK 2-bit packed or dense int8) live on the card, rows
+  split over the ranks of a process group; every pass runs through the
+  hand-written kernels (ops/kernels.py) with one all-reduce.
+  `models.pca.streamed_pca` drives it through its `pca_core`.
+* `ops.streaming.StreamingMatrix` - PRODUCTION, bigger than the card.
+  Strips stay on the host and stream through the prefetch pipeline each
+  pass; driven through `power_iterate` and `tsq_and_capture`.
+* `ops.stream.StripedMatrix` - TEST ORACLE.  The simplest possible
+  implementation (a Python list of device strips, plain f32 torch
+  products, no kernel, no prefetch, no process group).  It exists so the
+  two production containers can be held against an independent,
+  obviously-correct implementation; no workflow constructs it, and
+  `streamed_pca` drives it through the plain power loop over
+  `gram_apply`.
 """
 
 from __future__ import annotations
@@ -20,8 +33,9 @@ import torch
 class StandardizedOperator(Protocol):
     """Implicit standardized matrix A (n_rows x n_samples).
 
-    Optional fast paths that models feature-detect with `hasattr`:
-    `power_iterate(b0, n_iter)` and `pca_core(b0, n_iter, k)`.
+    Required: the three products below.  Optional fast paths that
+    models feature-detect with `hasattr`: `power_iterate(b0, n_iter)`,
+    `pca_core(b0, n_iter, k)` and `tsq_and_capture(b)`.
     """
 
     n_rows: int

@@ -32,9 +32,11 @@ log = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
-def maybe_trace(profile_dir: Optional[str], device="cpu") -> Iterator[None]:
+def maybe_trace(profile_dir: Optional[str], device) -> Iterator[None]:
     """torch.profiler around the block when `profile_dir` is given, else
-    nothing; the trace is written when the block ends without an error."""
+    nothing; the trace is written when the block ends without an error.
+    `device` is required: a card's work is traced only when it is named,
+    so a caller that left it out would silently lose the CUDA activity."""
     if not profile_dir:
         yield
         return

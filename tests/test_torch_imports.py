@@ -81,6 +81,17 @@ def test_port_modules_and_help_import_no_jax(blocked_env):
         import genomic_pca_tpu_torch.io.vcf
         import genomic_pca_tpu_torch.io.writers
         import genomic_pca_tpu_torch.ops.streaming
+        import genomic_pca_tpu_torch.ops.stream
+        import genomic_pca_tpu_torch.models.exact
+        import genomic_pca_tpu_torch.eval.exact
+        import genomic_pca_tpu_torch.eval.make_1000g_like
+        import genomic_pca_tpu_torch.eval.sweep_run
+        import genomic_pca_tpu_torch.eval.diskbench
+        import genomic_pca_tpu_torch.eval.subset
+        import genomic_pca_tpu_torch.eval.metrics
+        import genomic_pca_tpu_torch.eval.sweep_analyze
+        import genomic_pca_tpu_torch.eval.plot
+        import genomic_pca_tpu_torch.eval.video
     """) + CHECK
     proc = _run(["-c", code], blocked_env)
     assert proc.returncode == 0, proc.stderr

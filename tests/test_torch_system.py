@@ -22,10 +22,19 @@ def test_maybe_trace_without_a_directory_does_nothing(tmp_path, monkeypatch):
 
     monkeypatch.setattr(torch.profiler, "profile", refuse)
     for empty in (None, ""):
-        with maybe_trace(empty):
+        with maybe_trace(empty, "cpu"):
             x = torch.ones(3) * 2
     assert float(x.sum()) == 6.0
     assert not list(tmp_path.iterdir())
+
+
+def test_maybe_trace_needs_a_device(tmp_path):
+    """The device is a required argument: a caller that leaves it out
+    fails at once instead of tracing no CUDA activity."""
+    with pytest.raises(TypeError):
+        with maybe_trace(str(tmp_path / "p")):
+            pass
+    assert not (tmp_path / "p").exists()
 
 
 def test_maybe_trace_writes_a_chrome_trace(tmp_path, caplog):
