@@ -151,7 +151,20 @@ no result line):
    components_per_block 18, local_power_iter 5, refine_passes 4) of the
    EigenSNP CLI on the cohort, each exit 0 with the reference's TSVs, the
    base run through the float64 gate against `exact_pca_from_strips(...,
-   scale=True, apply_qc=False)` over its PCA SNPs.
+   scale=True, apply_qc=False)` over its PCA SNPs;
+20. the bench (temp files under build/chip_smoke_bench): (a) `python -m
+   genomic_pca_tpu_torch.bench`: its JSON line with no `*_error` key,
+   `value_method` "trace_device_time", device ms an iteration above kernel
+   1's raw launch time, the traced loops' launches (63 q8 passes and one
+   exact polish of kernels 1 / 2 packed and 9 / 10 dense, 64 of 10 in
+   bf16), the compact biobank run (98,304 x 49,152, three CLI legs) in the
+   2-D container launching 2-D kernels only, and its subset oracle's min
+   per-PC |r| over the separated prefix above 0.97; (b) `python -m
+   genomic_pca_tpu_torch.eval.biobank_bench` at the full-scale width
+   (102,400 samples) and 32,768 SNPs: the three legs in the 2-D container,
+   the residual certificate on the device backend and then on the host
+   one, their per-PC residuals within 1e-4 of each other, and the subset
+   oracle.
 
 The CLI phases hold the separated PCs to a float64 oracle.  The line
 before the last two is one JSON object with a row per kernel (its launches
@@ -2115,6 +2128,133 @@ def check_eval_chain(torch, np, device):
         f"CLI {exact_wall:.2f} s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the bench on the card.
+
+BENCH_TMP = ROOT / "build" / "chip_smoke_bench"  # phase 20's temp directory
+# Kernel 1's raw launch at 262,144 x 2,048 (PERF.md section 6: 0.5836 ms);
+# every iteration of the headline loop holds one.
+KERNEL1_RAW_MS = 0.5836
+# Phase 20b: the full biobank width at a reduced depth (1,024 SNPs a block).
+BIOBANK_SAMPLES = 102_400
+BIOBANK_SNPS = 32_768
+ORACLE_R_MIN = 0.97
+RESIDUAL_RTOL = 1e-4
+
+
+def run_module(module, args, label, timeout):
+    """`python -m <module> <args>` with the temp directory under BENCH_TMP:
+    (stdout, stderr lines, wall); a nonzero exit raises with the stderr's
+    end."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT), env.get("PYTHONPATH", "")])
+    env["TMPDIR"] = str(BENCH_TMP)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: python -m {module} exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-6000:]}")
+    return proc.stdout, proc.stderr.splitlines(), wall
+
+
+def bench_launches(lines):
+    """{row: launches} from the bench's "Kernel launches <row>: {...}" lines."""
+    out = {}
+    for line in lines:
+        if line.startswith("Kernel launches "):
+            row, counts = line[len("Kernel launches "):].split(": ", 1)
+            out[row] = json.loads(counts)
+    return out
+
+
+def check_bench(torch, np):
+    """Phase 20 (module docstring)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(BENCH_TMP, ignore_errors=True)
+    BENCH_TMP.mkdir(parents=True)
+
+    # (a) The bench: its JSON line, its launches per row, the oracle.
+    label = "bench"
+    out, err, wall = run_module("genomic_pca_tpu_torch.bench", [], label, 900)
+    line = json.loads(out.strip().splitlines()[-1])
+    d = line["detail"]
+    log(f"[{label}] python -m genomic_pca_tpu_torch.bench exit 0 in {wall:.1f} s; "
+        f"nvidia-smi: {smi_line()}")
+    log(f"[{label}] {json.dumps(line)}")
+    errors = [k for k in d if k.endswith("_error")]
+    if errors:
+        raise AssertionError(f"{label}: rows failed: {errors}")
+    if d["value_method"] != "trace_device_time":
+        raise AssertionError(f"{label}: value_method {d['value_method']}")
+    tr = d["trace_device_ms_per_iter"]
+    if not tr.get("packed_q8", 0) > KERNEL1_RAW_MS:
+        raise AssertionError(f"{label}: device ms per iteration {tr} is not above "
+                             f"kernel 1's {KERNEL1_RAW_MS} ms")
+    launches = bench_launches(err)
+    for row, counts in launches.items():
+        log(f"[{label}] launches {row}: {counts}")
+    for line_ in err:
+        if line_.startswith("biobank_e2e container"):
+            log(f"[{label}] {line_}")
+    from genomic_pca_tpu_torch.bench import CARD
+
+    n_it = CARD.it_lo  # the traced loop: q8 steering passes, 1 exact polish
+    want = {"packed_q8": {"fused_gram_q8_packed": n_it - 1, "fused_gram_apply_packed": 1},
+            "dense_q8": {"fused_gram_q8": n_it - 1, "fused_gram_apply": 1},
+            "dense_bf16": {"fused_gram_apply": n_it}}
+    for row, counts in want.items():
+        if launches.get(row) != counts:
+            raise AssertionError(f"{label}: {row} launches {launches.get(row)} != {counts}")
+    legs = [launches[f"biobank_e2e {leg}"] for leg in d["biobank_e2e_legs_seconds"]]
+    reached = set().union(*legs)
+    if not reached or reached - set(KERNELS_2D):
+        raise AssertionError(f"{label}: the compact biobank legs launched {legs}, "
+                             "not 2-D kernels only")
+    r_min = d["biobank_e2e_per_pc_abs_r_min_separated"]
+    if not r_min > ORACLE_R_MIN:
+        raise AssertionError(f"{label}: compact biobank subset oracle min |r| {r_min} "
+                             f"<= {ORACLE_R_MIN}")
+    shutil.rmtree(BENCH_TMP / f"gptpu_torch_bench_bio_{d['biobank_e2e_snps']}x"
+                  f"{d['biobank_e2e_samples']}")
+
+    # (b) The biobank script at full width, reduced depth: the workflow, the
+    # residual certificate on both backends, the subset oracle.
+    label = "biobank"
+    blocks = BIOBANK_SNPS // 1024
+    log(f"[{label}] {BIOBANK_SNPS:,} SNPs x {BIOBANK_SAMPLES:,} samples, {blocks} LD "
+        f"blocks, k = 40: the full-scale width at a depth cut from 1,048,576 SNPs "
+        f"to keep this phase near 4 minutes")
+    args = ["--out-dir", str(BENCH_TMP / "biobank"), "--snps", str(BIOBANK_SNPS),
+            "--samples", str(BIOBANK_SAMPLES), "--blocks", str(blocks)]
+    out, err, wall = run_module("genomic_pca_tpu_torch.eval.biobank_bench",
+                                args + ["--residual-backend", "device"], label, 900)
+    run = json.loads(out)
+    log(f"[{label}] workflow, device residual and oracle in {wall:.1f} s: "
+        f"{json.dumps(run)}")
+    for line_ in err:
+        if line_.lstrip().startswith("[leg]") or "Kernel launches" in line_:
+            log(f"[{label}] {line_.strip()}")
+    out, _, wall = run_module("genomic_pca_tpu_torch.eval.biobank_bench",
+                              args + ["--skip-run", "--skip-oracle",
+                                      "--residual-backend", "host"], label, 900)
+    host = json.loads(out)["residual"]
+    dev = run["residual"]
+    rel = np.abs(np.asarray(dev["residual_per_pc_unrounded"])
+                 / np.asarray(host["residual_per_pc_unrounded"]) - 1)
+    log(f"[{label}] host residual in {wall:.1f} s ({host['seconds']} s inside): max "
+        f"{host['max_residual']}; device {dev['seconds']} s: max {dev['max_residual']}; "
+        f"per PC max relative difference {rel.max():.3e}")
+    if not rel.max() <= RESIDUAL_RTOL:
+        raise AssertionError(f"{label}: the residual backends differ by {rel.max():.3e} "
+                             f"> {RESIDUAL_RTOL}: {rel.tolist()}")
+    if run["workflow"]["container"] != "device-resident 2d":
+        raise AssertionError(f"{label}: container {run['workflow']['container']}")
+    shutil.rmtree(BENCH_TMP)
+    log(f"[bench] phase 20 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2335,6 +2475,11 @@ def main() -> int:
     # oracle CLI on the card, StripedMatrix against the resident container
     # and the float64 oracle, and five EigenSNP sweep runs.
     check_eval_chain(torch, np, device)
+
+    # 20. The bench on the card: its JSON line (device time, launches per
+    # row, the compact biobank oracle), then the biobank script at the full
+    # width with both residual backends and the subset oracle.
+    check_bench(torch, np)
 
     kernels_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],

@@ -196,13 +196,13 @@ def run_eigensnp_workflow(
     `{prefix}.eigensnp.loadings.tsv`, with `write_moments`
     `{prefix}.eigensnp.moments.tsv`, and with diagnostics
     `{prefix}.eigensnp_diagnostics.json`.  A run stopped after a
-    checkpoint writes nothing.  `force_streaming` takes the host-streamed
-    container whatever the memory budget (no CLI flag, as in the JAX
-    CLI).  Logs the container that ran, the stage split on one line at
-    the end (QC + LD mapping, matrix load, stages 1-2, global PCA,
-    refinement + write) and the kernel launches.  In a process group of
-    several ranks every rank runs it (distributed QC, one matrix unit a
-    rank) and rank 0 writes the outputs."""
+    checkpoint writes nothing and logs its launches.  `force_streaming`
+    takes the host-streamed container whatever the memory budget (no CLI
+    flag, as in the JAX CLI).  Logs the container that ran, the stage
+    split on one line at the end (QC + LD mapping, matrix load, stages
+    1-2, global PCA, refinement + write) and the kernel launches.  In a
+    process group of several ranks every rank runs it (distributed QC,
+    one matrix unit a rank) and rank 0 writes the outputs."""
     timer = StageTimer()
     preflight(planned_threads=16)
     with timer.stage("Data preparation (QC + LD mapping)"):
@@ -217,6 +217,7 @@ def run_eigensnp_workflow(
     if result is None:
         timer.log_summary("EigenSNP partial-run stage timings (stopped after "
                           f"checkpoint {stop_after_checkpoint!r})")
+        log.info("Kernel launches: %s", json.dumps(kernels.LAUNCHES))
         return
 
     with timer.stage("Output writing"):

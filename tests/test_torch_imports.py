@@ -92,6 +92,8 @@ def test_port_modules_and_help_import_no_jax(blocked_env):
         import genomic_pca_tpu_torch.eval.sweep_analyze
         import genomic_pca_tpu_torch.eval.plot
         import genomic_pca_tpu_torch.eval.video
+        import genomic_pca_tpu_torch.eval.biobank_bench
+        import genomic_pca_tpu_torch.bench
     """) + CHECK
     proc = _run(["-c", code], blocked_env)
     assert proc.returncode == 0, proc.stderr
@@ -132,6 +134,8 @@ def test_cli_vcf_without_cuda_exits_1_naming_cuda(blocked_env, tmp_path):
 @pytest.mark.parametrize("args", [
     ["-m", "genomic_pca_tpu_torch.eval.profile_core"],
     ["-m", "genomic_pca_tpu_torch.eval.multichip"],
+    ["-m", "genomic_pca_tpu_torch.bench"],
+    ["-m", "genomic_pca_tpu_torch.eval.biobank_bench"],
     [str(REPO / "chip_smoke.py")],
 ])
 def test_gpu_scripts_without_cuda_exit_nonzero(blocked_env, args):
