@@ -61,7 +61,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
@@ -77,6 +76,7 @@ from genomic_pca_tpu_torch.ops.rsvd import rsvd, sketch_width
 from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.models.prepare import group_memory_budget
 from genomic_pca_tpu_torch.utils.checkpoint import StageCheckpointer, fingerprint
+from genomic_pca_tpu_torch.utils.profiling import span, to_host
 from genomic_pca_tpu_torch.utils.rng import generator_for_stage, normal
 from genomic_pca_tpu_torch.utils.system import memory_preflight
 
@@ -92,8 +92,10 @@ class EigenSnpResult:
     eigenvalues: np.ndarray  # (K,) f64
     loadings: np.ndarray  # (D, K) f32 per-SNP loadings
     diagnostics: Optional[Dict] = None
-    # Stage wall-clocks: matrix_load / stages_1_2 / global_pca /
-    # refinement_finalize.
+    # Stage wall-clocks, each a span's (utils/profiling.py): the data
+    # preparation's (`prep.stage_seconds`: open / qc_scan / ld_map), then
+    # matrix_load / stages_1_2 / global_pca / refinement_finalize (the
+    # spans gp.eigensnp.load / stages12 / global / refine).
     stage_seconds: Optional[Dict[str, float]] = None
     # The matrix container that ran: "device-resident" or "host-streamed".
     container: Optional[str] = None
@@ -333,8 +335,8 @@ def _assemble_condensed(parts, n: int, n_blocks: int, device: torch.device):
     svals: Dict[int, np.ndarray] = {}
     rows: Dict[int, torch.Tensor] = {}
     for chunk, _c_b, u_b, s_b, out in parts:
-        u_np = u_b.cpu().numpy()
-        s_np = s_b.cpu().numpy() if s_b is not None else None
+        u_np = to_host(u_b).numpy()
+        s_np = to_host(s_b).numpy() if s_b is not None else None
         for j, i in enumerate(chunk):
             bases[i] = u_np[j]
             if s_np is not None:
@@ -508,210 +510,209 @@ def compute_eigensnp_pca(
         )
 
     stage_seconds: Dict[str, float] = {}
-    t_stage = time.perf_counter()
+    with span("gp.eigensnp.load") as stage:
+        # ---- Memory preflight: the uploads of this rank's planned passes --
+        streamed = prep.will_stream(force_streaming, device=device)
+        memory_preflight(
+            per_pass_device_bytes=(prep.estimate_streamed_pass_bytes() if streamed
+                                   else prep.estimate_resident_bytes()),
+            n_passes=(max(len(_planned_matrix_passes(
+                cfg, ckpt, stop_after_checkpoint, diag is not None)), 1)
+                if streamed else 1),
+            resident=not streamed,
+            device_budget_bytes=group_memory_budget(device),
+        )
 
-    # ---- Memory preflight: the uploads of this rank's planned passes --
-    streamed = prep.will_stream(force_streaming, device=device)
-    memory_preflight(
-        per_pass_device_bytes=(prep.estimate_streamed_pass_bytes() if streamed
-                               else prep.estimate_resident_bytes()),
-        n_passes=(max(len(_planned_matrix_passes(
-            cfg, ckpt, stop_after_checkpoint, diag is not None)), 1)
-            if streamed else 1),
-        resident=not streamed,
-        device_budget_bytes=group_memory_budget(device),
-    )
-
-    # ---- Matrix container; stages 1-2 slice their blocks from it, or
-    # read them through the host accessor ------------------------------
-    if force_streaming:
-        a = prep.load_streaming_matrix(device, strip_size=cfg.snp_strip_size)
-    else:
-        a = prep.load_matrix(device, strip_size=cfg.snp_strip_size)
-    container = "device-resident" if hasattr(a, "pca_core") else "host-streamed"
-    runs = _blocks_as_runs(prep.blocks)
-    use_device = runs is not None and hasattr(a, "fetch_blocks_device")
-    if use_device and not a.runs_device_sliceable(runs):
-        # Blocks across a row segment or a rank (a degenerate block file
-        # under several ranks) are read through the host accessor.
-        log.warning("LD blocks cross row segments or ranks; using the host "
-                    "accessor path for stages 1-2.")
-        use_device = False
-    _sync(a.device)
-    stage_seconds["matrix_load"] = time.perf_counter() - t_stage
+        # ---- Matrix container; stages 1-2 slice their blocks from it, or
+        # read them through the host accessor ------------------------------
+        if force_streaming:
+            a = prep.load_streaming_matrix(device, strip_size=cfg.snp_strip_size)
+        else:
+            a = prep.load_matrix(device, strip_size=cfg.snp_strip_size)
+        container = "device-resident" if hasattr(a, "pca_core") else "host-streamed"
+        runs = _blocks_as_runs(prep.blocks)
+        use_device = runs is not None and hasattr(a, "fetch_blocks_device")
+        if use_device and not a.runs_device_sliceable(runs):
+            # Blocks across a row segment or a rank (a degenerate block file
+            # under several ranks) are read through the host accessor.
+            log.warning("LD blocks cross row segments or ranks; using the host "
+                        "accessor path for stages 1-2.")
+            use_device = False
+        _sync(a.device)
+    stage_seconds["matrix_load"] = stage.seconds
     log.info("EigenSNP matrix loaded (%s container, %s mode; stages 1-2 through "
              "the %s path) in %.1fs.", container, a.mode,
              "device-resident" if use_device else "host-accessor",
              stage_seconds["matrix_load"])
-    t_stage = time.perf_counter()
 
-    # Refinement width: fill the 128 columns the kernels' sketch width is
-    # tuned for (models/pca.lane_fill_width); `refine_width` overrides.
-    ell_ref = (lane_fill_width(k, n, d) if cfg.refine_width is None
-               else max(k, min(cfg.refine_width, n, d)))
-    use_pca_core = (hasattr(a, "pca_core") and not ckpt.enabled and diag is None
-                    and cfg.refine_passes >= 1)
+    with span("gp.eigensnp.stages12") as stage:
+        # Refinement width: fill the 128 columns the kernels' sketch width is
+        # tuned for (models/pca.lane_fill_width); `refine_width` overrides.
+        ell_ref = (lane_fill_width(k, n, d) if cfg.refine_width is None
+                   else max(k, min(cfg.refine_width, n, d)))
+        use_pca_core = (hasattr(a, "pca_core") and not ckpt.enabled and diag is None
+                        and cfg.refine_passes >= 1)
 
-    # ---- Stages 1+2 ---------------------------------------------------
-    subset = _choose_sample_subset(cfg, n)
-    c_total = sum(_c_of(cfg, len(b.pca_snp_ids), len(subset)) for b in prep.blocks)
-    local_bases = svals = y = saved_bases = None
-    if _has(ckpt, "stage2_basis") and diag is None:
-        # Only the condensed matrix (already reduced to the checkpointed
-        # stage-2 basis) and diagnostics consume stages 1-2: skip them.
-        log.info("EigenSNP stages 1+2 skipped (stage2_basis checkpoint "
-                 "present; condensed rank %d).", c_total)
-    else:
-        saved = _load(ckpt, "stage1_bases")
-        if saved is not None and len(saved) == len(prep.blocks):
-            saved_bases = [saved[f"block_{i}"] for i in range(len(prep.blocks))]
+        # ---- Stages 1+2 ---------------------------------------------------
+        subset = _choose_sample_subset(cfg, n)
+        c_total = sum(_c_of(cfg, len(b.pca_snp_ids), len(subset)) for b in prep.blocks)
+        local_bases = svals = y = saved_bases = None
+        if _has(ckpt, "stage2_basis") and diag is None:
+            # Only the condensed matrix (already reduced to the checkpointed
+            # stage-2 basis) and diagnostics consume stages 1-2: skip them.
+            log.info("EigenSNP stages 1+2 skipped (stage2_basis checkpoint "
+                     "present; condensed rank %d).", c_total)
         else:
-            log.info("EigenSNP stage 1: %d blocks, sample subset %d / %d.",
-                     len(prep.blocks), len(subset), n)
-        if use_device:
-            local_bases, svals, y = _stages12_device(a, prep, cfg, subset, runs,
-                                                     saved_bases)
-        else:
-            local_bases, svals, y = _stages12_host(prep, cfg, subset, saved_bases,
-                                                   a.device)
-        if saved_bases is None:
-            if diag is not None:
-                for b_idx, block in enumerate(prep.blocks):
-                    ids = block.pca_snp_ids
-                    diag["blocks"].append({
-                        "tag": block.tag,
-                        "num_snps": int(len(ids)),
-                        "num_local_components": int(
-                            _c_of(cfg, len(ids), len(subset))),
-                        "pca_snp_id_start": int(ids[0]),
-                        "pca_snp_id_end": int(ids[-1]),
-                        "local_singular_values": svals[b_idx].tolist(),
-                    })
-            _save(ckpt, "stage1_bases",
-                  {f"block_{i}": u for i, u in enumerate(local_bases)})
-            if _ckpt_stop("stage1_bases", stop_after_checkpoint):
-                return None
-    if diag is not None and cfg.diagnostic_block_tag is not None:
-        b_idx = tags.index(cfg.diagnostic_block_tag)
-        block = prep.blocks[b_idx]
-        off = sum(_c_of(cfg, len(prep.blocks[i].pca_snp_ids), len(subset))
-                  for i in range(b_idx))
-        c_b = _c_of(cfg, len(block.pca_snp_ids), len(subset))
-        diag["block_trace"] = {
-            "tag": block.tag,
-            "block_index": int(b_idx),
-            "num_snps": int(len(block.pca_snp_ids)),
-            "num_local_components": int(c_b),
-            "subset_sample_indices": [int(x) for x in subset],
-            "pca_snp_ids": [int(x) for x in block.pca_snp_ids],
-            # Bases are bucket-padded (zero rows past d_b); trace the
-            # real (d_b, c_b) basis.
-            "local_basis": np.asarray(local_bases[b_idx])[
-                : len(block.pca_snp_ids)].tolist(),
-            "local_singular_values": (
-                np.asarray(svals[b_idx]).tolist() if svals is not None else None),
-            "condensed_projection": y[off:off + c_b].cpu().numpy().tolist(),
-        }
-    _sync(a.device)
-    stage_seconds["stages_1_2"] = time.perf_counter() - t_stage
+            saved = _load(ckpt, "stage1_bases")
+            if saved is not None and len(saved) == len(prep.blocks):
+                saved_bases = [saved[f"block_{i}"] for i in range(len(prep.blocks))]
+            else:
+                log.info("EigenSNP stage 1: %d blocks, sample subset %d / %d.",
+                         len(prep.blocks), len(subset), n)
+            if use_device:
+                local_bases, svals, y = _stages12_device(a, prep, cfg, subset, runs,
+                                                         saved_bases)
+            else:
+                local_bases, svals, y = _stages12_host(prep, cfg, subset, saved_bases,
+                                                       a.device)
+            if saved_bases is None:
+                if diag is not None:
+                    for b_idx, block in enumerate(prep.blocks):
+                        ids = block.pca_snp_ids
+                        diag["blocks"].append({
+                            "tag": block.tag,
+                            "num_snps": int(len(ids)),
+                            "num_local_components": int(
+                                _c_of(cfg, len(ids), len(subset))),
+                            "pca_snp_id_start": int(ids[0]),
+                            "pca_snp_id_end": int(ids[-1]),
+                            "local_singular_values": svals[b_idx].tolist(),
+                        })
+                _save(ckpt, "stage1_bases",
+                      {f"block_{i}": u for i, u in enumerate(local_bases)})
+                if _ckpt_stop("stage1_bases", stop_after_checkpoint):
+                    return None
+        if diag is not None and cfg.diagnostic_block_tag is not None:
+            b_idx = tags.index(cfg.diagnostic_block_tag)
+            block = prep.blocks[b_idx]
+            off = sum(_c_of(cfg, len(prep.blocks[i].pca_snp_ids), len(subset))
+                      for i in range(b_idx))
+            c_b = _c_of(cfg, len(block.pca_snp_ids), len(subset))
+            diag["block_trace"] = {
+                "tag": block.tag,
+                "block_index": int(b_idx),
+                "num_snps": int(len(block.pca_snp_ids)),
+                "num_local_components": int(c_b),
+                "subset_sample_indices": [int(x) for x in subset],
+                "pca_snp_ids": [int(x) for x in block.pca_snp_ids],
+                # Bases are bucket-padded (zero rows past d_b); trace the
+                # real (d_b, c_b) basis.
+                "local_basis": np.asarray(local_bases[b_idx])[
+                    : len(block.pca_snp_ids)].tolist(),
+                "local_singular_values": (
+                    np.asarray(svals[b_idx]).tolist() if svals is not None else None),
+                "condensed_projection": to_host(y[off:off + c_b]).numpy().tolist(),
+            }
+        _sync(a.device)
+    stage_seconds["stages_1_2"] = stage.seconds
     if y is not None:
         log.info("EigenSNP stages 1+2: condensed matrix %s in %.1fs.",
                  tuple(y.shape), stage_seconds["stages_1_2"])
-    t_stage = time.perf_counter()
 
-    condensed_spectrum = None
-    if diag is not None:
-        gram = y @ y.T if y.shape[0] <= n else y.T @ y
-        sp = torch.sqrt(torch.clamp(torch.linalg.eigvalsh(gram), min=0.0))
-        condensed_spectrum = sp.flip(0).cpu().numpy()
+    with span("gp.eigensnp.global") as stage:
+        condensed_spectrum = None
+        if diag is not None:
+            gram = y @ y.T if y.shape[0] <= n else y.T @ y
+            sp = torch.sqrt(torch.clamp(torch.linalg.eigvalsh(gram), min=0.0))
+            condensed_spectrum = to_host(sp.flip(0)).numpy()
 
-    if c_total < k:
-        log.warning(
-            "Condensed feature rank %d < requested k_global %d; returning %d "
-            "components (raise components_per_block or add LD blocks for "
-            "more).", c_total, k, c_total)
-        k = c_total
+        if c_total < k:
+            log.warning(
+                "Condensed feature rank %d < requested k_global %d; returning %d "
+                "components (raise components_per_block or add LD blocks for "
+                "more).", c_total, k, c_total)
+            k = c_total
 
-    saved = _load(ckpt, "stage2_basis")
-    if saved is not None:
-        s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
-    else:
-        s_basis = _stage2_basis(y, cfg.seed, k, cfg.global_oversampling,
-                                cfg.global_power_iter)
-        # Checkpoint runs save the k-wide basis, a resumable artifact.
-        _save(ckpt, "stage2_basis", {"s_basis": s_basis.cpu().numpy()})
-        if _ckpt_stop("stage2_basis", stop_after_checkpoint):
-            return None
-    s_basis = _widen(s_basis, cfg.seed, ell_ref)
-    del y
-    _sync(a.device)
-    stage_seconds["global_pca"] = time.perf_counter() - t_stage
-    log.info("EigenSNP global PCA done in %.1fs.", stage_seconds["global_pca"])
-    t_stage = time.perf_counter()
-
-    # ---- Refinement + final eigensolve + loadings ---------------------
-    refine_residuals: List[float] = []
-    if use_pca_core:
-        v_k, sigma_k, evals_k, loadings = a.pca_core(s_basis, cfg.refine_passes, k)
-        sigma = sigma_k.cpu().numpy()
-        scores = (v_k.cpu().numpy() * sigma[None, :]).astype(np.float32)
-        loadings = loadings.astype(np.float32)
-        eigenvalues = evals_k.cpu().numpy().astype(np.float64) / max(n - 1, 1)
-    else:
-        start_pass = 0
-        for p in reversed(range(cfg.refine_passes)):
-            saved = _load(ckpt, f"refine_pass_{p}")
-            if saved is not None:
-                s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
-                start_pass = p + 1
-                break
-        for p in range(start_pass, cfg.refine_passes):
-            s_new = torch.linalg.qr(a.gram_apply(s_basis))[0]
-            if diag is not None:
-                # sin of the largest principal angle between consecutive
-                # bases: the refinement's convergence series.
-                cosines = torch.linalg.svdvals(s_new.T @ s_basis)
-                smin = float(torch.clamp(cosines.min(), 0.0, 1.0))
-                refine_residuals.append(float(np.sqrt(max(0.0, 1.0 - smin**2))))
-            s_basis = s_new
-            _save(ckpt, f"refine_pass_{p}", {"s_basis": s_basis.cpu().numpy()})
-            log.info("EigenSNP refinement pass %d/%d done.", p + 1,
-                     cfg.refine_passes)
-            if _ckpt_stop(f"refine_pass_{p}", stop_after_checkpoint):
+        saved = _load(ckpt, "stage2_basis")
+        if saved is not None:
+            s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
+        else:
+            s_basis = _stage2_basis(y, cfg.seed, k, cfg.global_oversampling,
+                                    cfg.global_power_iter)
+            # Checkpoint runs save the k-wide basis, a resumable artifact.
+            _save(ckpt, "stage2_basis", {"s_basis": to_host(s_basis).numpy()})
+            if _ckpt_stop("stage2_basis", stop_after_checkpoint):
                 return None
-        # A streamed container fuses the Rayleigh-Ritz Gram with the A B
-        # products: loadings = (A B) W / sigma without another pass over
-        # the matrix, the products kept on the device within its budget
-        # (tsq_and_project), else brought to the host (tsq_and_capture).
-        project = ab = None
-        got = (a.tsq_and_project(s_basis) if hasattr(a, "tsq_and_project")
-               else None)
-        if got is not None:
-            g, project = got
-        elif hasattr(a, "tsq_and_capture"):
-            g, ab = a.tsq_and_capture(s_basis)
-        else:
-            g = a.tsq_accumulate(s_basis)
-        evals, w = torch.linalg.eigh(g)
-        order = torch.argsort(evals, descending=True)
-        evals = torch.clamp(evals[order][:k], min=0.0)
-        w = w[:, order][:, :k]
-        sigma_t = torch.sqrt(evals)
-        v = s_basis @ w
-        inv_sigma = torch.where(sigma_t > 0, 1.0 / torch.where(
-            sigma_t > 0, sigma_t, torch.ones_like(sigma_t)), torch.zeros_like(sigma_t))
-        scores = (v * sigma_t[None, :]).cpu().numpy().astype(np.float32)
-        if project is not None:
-            c = project(w.cpu().numpy())
-        elif ab is not None:
-            c = ab @ w.cpu().numpy()
-        else:
-            c = a.right_apply(v)
-        loadings = (c * inv_sigma.cpu().numpy()[None, :]).astype(np.float32)
-        sigma = sigma_t.cpu().numpy()
-        eigenvalues = evals.cpu().numpy().astype(np.float64) / max(n - 1, 1)
+        s_basis = _widen(s_basis, cfg.seed, ell_ref)
+        del y
+        _sync(a.device)
+    stage_seconds["global_pca"] = stage.seconds
+    log.info("EigenSNP global PCA done in %.1fs.", stage_seconds["global_pca"])
 
-    stage_seconds["refinement_finalize"] = time.perf_counter() - t_stage
+    with span("gp.eigensnp.refine") as stage:
+        # ---- Refinement + final eigensolve + loadings ---------------------
+        refine_residuals: List[float] = []
+        if use_pca_core:
+            v_k, sigma_k, evals_k, loadings = a.pca_core(s_basis, cfg.refine_passes, k)
+            sigma = to_host(sigma_k).numpy()
+            scores = (to_host(v_k).numpy() * sigma[None, :]).astype(np.float32)
+            loadings = loadings.astype(np.float32)
+            eigenvalues = to_host(evals_k).numpy().astype(np.float64) / max(n - 1, 1)
+        else:
+            start_pass = 0
+            for p in reversed(range(cfg.refine_passes)):
+                saved = _load(ckpt, f"refine_pass_{p}")
+                if saved is not None:
+                    s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
+                    start_pass = p + 1
+                    break
+            for p in range(start_pass, cfg.refine_passes):
+                s_new = torch.linalg.qr(a.gram_apply(s_basis))[0]
+                if diag is not None:
+                    # sin of the largest principal angle between consecutive
+                    # bases: the refinement's convergence series.
+                    cosines = torch.linalg.svdvals(s_new.T @ s_basis)
+                    smin = float(to_host(torch.clamp(cosines.min(), 0.0, 1.0)))
+                    refine_residuals.append(float(np.sqrt(max(0.0, 1.0 - smin**2))))
+                s_basis = s_new
+                _save(ckpt, f"refine_pass_{p}", {"s_basis": to_host(s_basis).numpy()})
+                log.info("EigenSNP refinement pass %d/%d done.", p + 1,
+                         cfg.refine_passes)
+                if _ckpt_stop(f"refine_pass_{p}", stop_after_checkpoint):
+                    return None
+            # A streamed container fuses the Rayleigh-Ritz Gram with the A B
+            # products: loadings = (A B) W / sigma without another pass over
+            # the matrix, the products kept on the device within its budget
+            # (tsq_and_project), else brought to the host (tsq_and_capture).
+            project = ab = None
+            got = (a.tsq_and_project(s_basis) if hasattr(a, "tsq_and_project")
+                   else None)
+            if got is not None:
+                g, project = got
+            elif hasattr(a, "tsq_and_capture"):
+                g, ab = a.tsq_and_capture(s_basis)
+            else:
+                g = a.tsq_accumulate(s_basis)
+            evals, w = torch.linalg.eigh(g)
+            order = torch.argsort(evals, descending=True)
+            evals = torch.clamp(evals[order][:k], min=0.0)
+            w = w[:, order][:, :k]
+            sigma_t = torch.sqrt(evals)
+            v = s_basis @ w
+            inv_sigma = torch.where(sigma_t > 0, 1.0 / torch.where(
+                sigma_t > 0, sigma_t, torch.ones_like(sigma_t)), torch.zeros_like(sigma_t))
+            scores = to_host(v * sigma_t[None, :]).numpy().astype(np.float32)
+            if project is not None:
+                c = project(to_host(w).numpy())
+            elif ab is not None:
+                c = ab @ to_host(w).numpy()
+            else:
+                c = a.right_apply(v)
+            loadings = (c * to_host(inv_sigma).numpy()[None, :]).astype(np.float32)
+            sigma = to_host(sigma_t).numpy()
+            eigenvalues = to_host(evals).numpy().astype(np.float64) / max(n - 1, 1)
+
+    stage_seconds["refinement_finalize"] = stage.seconds
     log.info("EigenSNP refinement + finalization done in %.1fs.",
              stage_seconds["refinement_finalize"])
 
@@ -742,7 +743,8 @@ def compute_eigensnp_pca(
         eigenvalues=eigenvalues,
         loadings=loadings,
         diagnostics=diag,
-        stage_seconds={s: round(t, 3) for s, t in stage_seconds.items()},
+        stage_seconds={s: round(t, 3) for s, t in
+                       {**prep.stage_seconds, **stage_seconds}.items()},
         container=container,
     )
 

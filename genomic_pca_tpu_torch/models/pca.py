@@ -25,6 +25,7 @@ import torch
 from genomic_pca_tpu_torch.errors import ComputeError
 from genomic_pca_tpu_torch.ops.rsvd import subspace_residual
 from genomic_pca_tpu_torch.ops.standardize import MISSING, standardize_rows
+from genomic_pca_tpu_torch.utils.profiling import span, to_host
 from genomic_pca_tpu_torch.utils.rng import normal
 
 log = logging.getLogger(__name__)
@@ -94,75 +95,84 @@ def streamed_pca(
     Rayleigh-Ritz finalization with loadings from `right_apply`.  With a
     container over several ranks every rank makes this call: each draws
     the same sketch from the seed, and the scores and the gathered
-    loadings are the same on every rank."""
-    if not (hasattr(matrix, "pca_core") or hasattr(matrix, "power_iterate")
-            or hasattr(matrix, "gram_apply")):
-        raise TypeError(
-            "streamed_pca needs an operator with pca_core (resident), "
-            "power_iterate (host-streamed) or gram_apply (the plain loop)."
-        )
-    n = matrix.n_samples
-    d = matrix.n_rows
-    k = validate_k(k, n, d)
-    ell = min(k + n_oversamples, min(n, d))
-    if lane_fill:
-        ell = lane_fill_width(ell, n, d)
+    loadings are the same on every rank.
 
-    b = normal((n, ell), seed if seed is not None else 0, "rfit_sketch",
-               matrix.device)
-    n_iter = max(n_power_iter, 1)
-    n_done = n_iter
-    if hasattr(matrix, "pca_core"):
-        out = matrix.pca_core(b, n_iter, k, tolerance=tolerance)
-        if tolerance is None:
-            v_k, sigma_k, evals_k, loadings = out
+    The call is the span `gp.pca`; inside it `gp.pca.sketch` (the host
+    draw and its upload), the passes' and orthonormalisations' spans of
+    the container, and `gp.pca.to_host` (the results' downloads)."""
+    with span("gp.pca"):
+        if not (hasattr(matrix, "pca_core") or hasattr(matrix, "power_iterate")
+                or hasattr(matrix, "gram_apply")):
+            raise TypeError(
+                "streamed_pca needs an operator with pca_core (resident), "
+                "power_iterate (host-streamed) or gram_apply (the plain loop)."
+            )
+        n = matrix.n_samples
+        d = matrix.n_rows
+        k = validate_k(k, n, d)
+        ell = min(k + n_oversamples, min(n, d))
+        if lane_fill:
+            ell = lane_fill_width(ell, n, d)
+
+        with span("gp.pca.sketch"):
+            b = normal((n, ell), seed if seed is not None else 0, "rfit_sketch",
+                       matrix.device)
+        n_iter = max(n_power_iter, 1)
+        n_done = n_iter
+        if hasattr(matrix, "pca_core"):
+            out = matrix.pca_core(b, n_iter, k, tolerance=tolerance)
+            if tolerance is None:
+                v_k, sigma_k, evals_k, loadings = out
+            else:
+                v_k, sigma_k, evals_k, loadings, n_done = out
         else:
-            v_k, sigma_k, evals_k, loadings, n_done = out
-    else:
-        if hasattr(matrix, "power_iterate"):
-            out = matrix.power_iterate(b, n_iter, tolerance=tolerance)
-            b, n_done = (out, n_iter) if tolerance is None else out
-        else:
-            for it in range(n_iter):
-                t = matrix.gram_apply(b)  # A^T A B, one pass
-                res = None
-                if tolerance is not None and it > 0:
-                    res = float(subspace_residual(b, t))
-                b, _ = torch.linalg.qr(t)
-                if res is not None and res < tolerance:
-                    n_done = it + 1
-                    break
-        fused = compute_loadings and hasattr(matrix, "tsq_and_capture")
-        if fused:
-            g, ab = matrix.tsq_and_capture(b)  # (l, l), (D, l) host
-        else:
-            g = matrix.tsq_accumulate(b)
-        evals, w = torch.linalg.eigh(g)
-        order = torch.argsort(evals, descending=True)
-        evals = torch.clamp(evals[order], min=0.0)
-        w = w[:, order]
-        sigma = torch.sqrt(evals)
-        v_k = (b @ w)[:, :k]
-        sigma_k, evals_k = sigma[:k], evals[:k]
-        loadings = None
-        if compute_loadings:
-            s_np = sigma_k.cpu().numpy()
-            inv_sigma = np.where(s_np > 0, 1.0 / np.where(s_np > 0, s_np, 1.0), 0.0)
-            c = (ab @ w[:, :k].cpu().numpy() if fused
-                 else matrix.right_apply(v_k))
-            loadings = (c * inv_sigma[None, :]).astype(np.float32)
-    if n_done < n_iter:
-        log.info("rfit tolerance %.3g reached after %d / %d power iterations.",
-                 tolerance, n_done, n_iter)
-    sigma = sigma_k.cpu().numpy()
-    return PcaResult(
-        scores=v_k.cpu().numpy() * sigma[None, :],
-        eigenvalues=evals_k.cpu().numpy() / max(n - 1, 1),
-        singular_values=sigma,
-        loadings=loadings if compute_loadings else None,
-        k=k,
-        n_iter_done=n_done,
-    )
+            if hasattr(matrix, "power_iterate"):
+                out = matrix.power_iterate(b, n_iter, tolerance=tolerance)
+                b, n_done = (out, n_iter) if tolerance is None else out
+            else:
+                for it in range(n_iter):
+                    t = matrix.gram_apply(b)  # A^T A B, one pass
+                    res = None
+                    if tolerance is not None and it > 0:
+                        res = float(to_host(subspace_residual(b, t)))
+                    b, _ = torch.linalg.qr(t)
+                    if res is not None and res < tolerance:
+                        n_done = it + 1
+                        break
+            fused = compute_loadings and hasattr(matrix, "tsq_and_capture")
+            if fused:
+                g, ab = matrix.tsq_and_capture(b)  # (l, l), (D, l) host
+            else:
+                g = matrix.tsq_accumulate(b)
+            evals, w = torch.linalg.eigh(g)
+            order = torch.argsort(evals, descending=True)
+            evals = torch.clamp(evals[order], min=0.0)
+            w = w[:, order]
+            sigma = torch.sqrt(evals)
+            v_k = (b @ w)[:, :k]
+            sigma_k, evals_k = sigma[:k], evals[:k]
+            loadings = None
+            if compute_loadings:
+                s_np = to_host(sigma_k).numpy()
+                inv_sigma = np.where(s_np > 0, 1.0 / np.where(s_np > 0, s_np, 1.0), 0.0)
+                c = (ab @ to_host(w[:, :k]).numpy() if fused
+                     else matrix.right_apply(v_k))
+                loadings = (c * inv_sigma[None, :]).astype(np.float32)
+        if n_done < n_iter:
+            log.info("rfit tolerance %.3g reached after %d / %d power iterations.",
+                     tolerance, n_done, n_iter)
+        with span("gp.pca.to_host"):
+            sigma = to_host(sigma_k).numpy()
+            scores = to_host(v_k).numpy() * sigma[None, :]
+            evals_np = to_host(evals_k).numpy()
+        return PcaResult(
+            scores=scores,
+            eigenvalues=evals_np / max(n - 1, 1),
+            singular_values=sigma,
+            loadings=loadings if compute_loadings else None,
+            k=k,
+            n_iter_done=n_done,
+        )
 
 
 def transform(
@@ -257,4 +267,4 @@ class StripProjector:
         self._w[:r].copy_(torch.from_numpy(np.asarray(loadings, dtype=np.float32)))
         self._w[r:] = 0.0
         x = standardize_rows(self._g, self._m, self._iv)
-        return (x.T @ self._w).cpu().numpy()
+        return to_host(x.T @ self._w).numpy()

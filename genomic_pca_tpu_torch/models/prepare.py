@@ -58,7 +58,7 @@ import dataclasses
 import logging
 import socket
 from collections import Counter
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -79,6 +79,7 @@ from genomic_pca_tpu_torch.parallel.sharded import (
     PACKED_MISSING_BYTE, ShardedMatrix, dense_cols, inv_std_of, pack_int8_rows,
     packed_cols, sanitize_partial_byte,
 )
+from genomic_pca_tpu_torch.utils.profiling import span
 
 # Share of the group's memory above which `load_matrix` streams.
 STREAMING_SHARE = 0.6
@@ -181,6 +182,10 @@ class PreparedData:
     scan_ranges: Optional[List[tuple]] = None
     # The device scan's batches, when the capture fusion holds them.
     qc_capture: Optional[QcCapture] = None
+    # Seconds of the preparation's spans: "open" (BIM and FAM parse),
+    # "qc_scan" (the SNP-QC scan and its merge), "ld_map" (the block
+    # file's parse and the SNPs' mapping to blocks).
+    stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def n_samples(self) -> int:
@@ -736,12 +741,21 @@ def prepare_data(config: DataPrepConfig, device=None) -> PreparedData:
     its LD-block aligned range of BIM rows ("auto" takes the device scan
     there) and the results merge (`_allgather_qc`), bit-identical to the
     scan of one rank; without `distributed_qc` every rank scans every row
-    and nothing is captured."""
+    and nothing is captured.  All of it is the span `gp.prepare`, holding
+    `gp.prepare.open`, `gp.prepare.qc_scan` and `gp.prepare.ld_map` (two
+    ranges: the block file's parse, then the mapping), whose seconds make
+    the result's `stage_seconds`."""
     if config.qc_mode not in ("auto", "host", "device"):
         raise DataPrepError(
             f"qc_mode must be 'auto', 'host', or 'device', got {config.qc_mode!r}"
         )
-    bed = BedReader(config.bed_path)
+    with span("gp.prepare"):
+        return _prepare(config, device)
+
+
+def _prepare(config: DataPrepConfig, device) -> PreparedData:
+    with span("gp.prepare.open") as opened:
+        bed = BedReader(config.bed_path)
     qc_samples = perform_sample_qc(bed, config.sample_keep_path)
     n_qc = len(qc_samples)
     if n_qc == 0:
@@ -749,7 +763,8 @@ def prepare_data(config: DataPrepConfig, device=None) -> PreparedData:
     sample_sel = None if n_qc == bed.n_samples else qc_samples
     # Raw PLINK bytes whenever the full sample set is in play.
     packed = bool(config.packed_pipeline) and sample_sel is None
-    parsed_blocks = parse_ld_block_file(config.ld_block_path)
+    with span("gp.prepare.ld_map") as parsed:
+        parsed_blocks = parse_ld_block_file(config.ld_block_path)
     rank, world = mesh.process_index(), mesh.process_count()
     scan_ranges = None
     if world > 1:
@@ -766,31 +781,35 @@ def prepare_data(config: DataPrepConfig, device=None) -> PreparedData:
         lo, hi = scan_ranges[rank]
         log.info("Distributed SNP QC: rank %d/%d scans rows [%d, %d).", rank,
                  world, lo, hi)
-    if host_scan:
-        log.info("SNP QC: host-side %s scan (qc_mode=%s).",
-                 "packed" if sample_sel is None else "decoded-subset", config.qc_mode)
-        local = _qc_snp_range_hostscan(bed, config, n_qc, lo, hi,
-                                       sample_sel=sample_sel)
-    else:
-        device = _resolve_device(device)
-        if config.fuse_qc_matrix and (world == 1 or config.distributed_qc):
-            max_rows = (bed.n_snps if scan_ranges is None or not config.distributed_qc
-                        else max(h - l for l, h in scan_ranges))
-            capture = _capture_if_fits(max_rows, n_qc, packed, device)
-        log.info("SNP QC: device %s scan on %s (qc_mode=%s).",
-                 "packed" if packed else "int8", device, config.qc_mode)
-        local = _qc_snp_range(bed, config, sample_sel, n_qc, lo, hi, device,
-                              capture=capture, packed=packed)
-    if scan_ranges is not None and config.distributed_qc:
-        keep, mean_all, std_all = _allgather_qc(*local, scan_ranges)
-    else:
-        keep, mean_all, std_all = local
+    with span("gp.prepare.qc_scan") as scanned:
+        if host_scan:
+            log.info("SNP QC: host-side %s scan (qc_mode=%s).",
+                     "packed" if sample_sel is None else "decoded-subset",
+                     config.qc_mode)
+            local = _qc_snp_range_hostscan(bed, config, n_qc, lo, hi,
+                                           sample_sel=sample_sel)
+        else:
+            device = _resolve_device(device)
+            if config.fuse_qc_matrix and (world == 1 or config.distributed_qc):
+                max_rows = (bed.n_snps if scan_ranges is None
+                            or not config.distributed_qc
+                            else max(h - l for l, h in scan_ranges))
+                capture = _capture_if_fits(max_rows, n_qc, packed, device)
+            log.info("SNP QC: device %s scan on %s (qc_mode=%s).",
+                     "packed" if packed else "int8", device, config.qc_mode)
+            local = _qc_snp_range(bed, config, sample_sel, n_qc, lo, hi, device,
+                                  capture=capture, packed=packed)
+        if scan_ranges is not None and config.distributed_qc:
+            keep, mean_all, std_all = _allgather_qc(*local, scan_ranges)
+        else:
+            keep, mean_all, std_all = local
     qc_orig = np.nonzero(keep)[0]
     log.info("SNP QC: %d / %d SNPs passed.", len(qc_orig), bed.n_snps)
 
-    blocks, pca_orig = map_snps_to_blocks(
-        bed.bim.chrom[qc_orig], bed.bim.bp[qc_orig], qc_orig, parsed_blocks,
-    )
+    with span("gp.prepare.ld_map") as mapped:
+        blocks, pca_orig = map_snps_to_blocks(
+            bed.bim.chrom[qc_orig], bed.bim.bp[qc_orig], qc_orig, parsed_blocks,
+        )
     log.info("LD mapping: %d QC'd SNPs -> %d PCA SNPs across %d blocks.",
              len(qc_orig), len(pca_orig), len(blocks))
     return PreparedData(
@@ -809,4 +828,6 @@ def prepare_data(config: DataPrepConfig, device=None) -> PreparedData:
         # rank whose range held no batch keeps its capture too.
         qc_capture=capture if capture is not None and (capture.batches or world > 1)
         else None,
+        stage_seconds={"open": opened.seconds, "qc_scan": scanned.seconds,
+                       "ld_map": parsed.seconds + mapped.seconds},
     )

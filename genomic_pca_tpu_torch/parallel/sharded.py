@@ -44,6 +44,13 @@ PCA row, count), as the JAX container does.  A rank that owns no rows
 holds one tile of inert rows and joins every collective with an exact
 zero contribution, so every rank launches the same kernels.
 
+Spans (utils/profiling.py): each matrix pass of `pca_core` and its
+all-reduce is one `gp.pass.<pass>` range, named as the benchmark's
+roofline files name the passes (`q8_pass`, `exact_pass`, `rr_gram`,
+`loadings`); the orthonormalisations (CholQR2, the Householder QR,
+`eigh`) are `gp.pca.orth`, the loadings' gather and download
+`gp.pca.to_host`.
+
 Not ported here: the TPU tile choosers.
 """
 
@@ -60,6 +67,7 @@ from genomic_pca_tpu_torch.ops.rsvd import (
 )
 from genomic_pca_tpu_torch.ops.standardize import MISSING
 from genomic_pca_tpu_torch.parallel import mesh
+from genomic_pca_tpu_torch.utils.profiling import span, to_host
 
 PACKED_MISSING_BYTE = 0x55  # four 01 (missing) fields
 
@@ -631,7 +639,7 @@ class ShardedMatrix:
                 c = min(step, cnt - off)
                 out += (self._standardized(slice(l0 + off, l0 + off + c)).T
                         @ w_t[p0 + off:p0 + off + c])
-        return mesh.all_reduce_sum(out)[: self.n_samples].cpu().numpy()
+        return to_host(mesh.all_reduce_sum(out)[: self.n_samples]).numpy()
 
     def _power_loop(self, bp: torch.Tensor, n_iter: int, tol: Optional[float]):
         """Subspace iteration on the padded basis; returns (basis,
@@ -643,23 +651,30 @@ class ShardedMatrix:
         q8 rank-1 term makes them nonzero."""
 
         def t_exact(cur):
-            return self._gram(cur) * self._pmask
+            with span("gp.pass.exact_pass"):
+                return self._gram(cur) * self._pmask
 
         def t_q8(cur):
-            return self._gram_q8(cur) * self._pmask
+            with span("gp.pass.q8_pass"):
+                return self._gram_q8(cur) * self._pmask
+
+        def orth(t):
+            with span("gp.pca.orth"):
+                return cholqr2_q(t)
 
         def run(tfn, max_n, cur):
             if tol is None:
                 for _ in range(max_n):
-                    cur = cholqr2_q(tfn(cur))
+                    cur = orth(tfn(cur))
                 return cur, max_n
             i, res = 0, float("inf")
             while i < max_n and res >= tol:
                 t = tfn(cur)
                 # From merged data, identical on every rank: every rank
                 # exits at the same step.
-                res = float(subspace_residual(cur, t)) if i > 0 else float("inf")
-                cur = cholqr2_q(t)
+                res = (float(to_host(subspace_residual(cur, t))) if i > 0
+                       else float("inf"))
+                cur = orth(t)
                 i += 1
             return cur, i
 
@@ -669,7 +684,7 @@ class ShardedMatrix:
         out, i1 = run(t_q8, n_q8, bp)
         n_polish = n_iter - n_q8
         for _ in range(n_polish):
-            out = cholqr2_q(t_exact(out))
+            out = orth(t_exact(out))
         return out, i1 + n_polish
 
     def power_iterate(self, b0, n_iter: int, tolerance: Optional[float] = None):
@@ -677,7 +692,8 @@ class ShardedMatrix:
         (n_samples, l) orthonormal basis, plus the iteration count when
         `tolerance` is given."""
         out, n_done = self._power_loop(self._pad_b(b0), n_iter, tolerance)
-        q, _ = torch.linalg.qr(out)
+        with span("gp.pca.orth"):
+            q, _ = torch.linalg.qr(out)
         q = q[: self.n_samples]
         return q if tolerance is None else (q, n_done)
 
@@ -688,19 +704,26 @@ class ShardedMatrix:
         Rayleigh-Ritz Gram + eigh (descending, clipped at 0), and
         loadings A V / sigma with sigma = 0 giving 0."""
         out, n_done = self._power_loop(self._pad_b(b0), n_iter, tolerance)
-        q, _ = torch.linalg.qr(out)  # (n_pad, ell) orthonormal
-        evals, w = torch.linalg.eigh(self._tsq(q))
-        order = torch.argsort(evals, descending=True)
-        evals = torch.clamp(evals[order], min=0.0)
-        w = w[:, order]
-        sigma = torch.sqrt(evals)
-        v_full = q @ w  # (n_pad, ell) right singular vectors
-        v_k = v_full[:, :k].contiguous()
-        c = self._right(v_k)  # (d_pad, k) = A V
+        with span("gp.pca.orth"):
+            q, _ = torch.linalg.qr(out)  # (n_pad, ell) orthonormal
+        with span("gp.pass.rr_gram"):
+            g = self._tsq(q)
+        with span("gp.pca.orth"):
+            evals, w = torch.linalg.eigh(g)
+            order = torch.argsort(evals, descending=True)
+            evals = torch.clamp(evals[order], min=0.0)
+            w = w[:, order]
+            sigma = torch.sqrt(evals)
+            v_full = q @ w  # (n_pad, ell) right singular vectors
+            v_k = v_full[:, :k].contiguous()
         s_k = sigma[:k]
-        inv_sigma = torch.where(s_k > 0, 1.0 / torch.where(s_k > 0, s_k, 1.0),
-                                torch.zeros_like(s_k))
-        loadings = self._trim_rows(self._rows_to_host(c * inv_sigma[None, :]))
+        with span("gp.pass.loadings"):
+            c = self._right(v_k)  # (d_pad, k) = A V
+            inv_sigma = torch.where(s_k > 0, 1.0 / torch.where(s_k > 0, s_k, 1.0),
+                                    torch.zeros_like(s_k))
+            c = c * inv_sigma[None, :]
+        with span("gp.pca.to_host"):
+            loadings = self._trim_rows(self._rows_to_host(c))
         res = (v_full[: self.n_samples, :k], s_k, evals[:k], loadings)
         return res if tolerance is None else res + (n_done,)
 
@@ -779,7 +802,7 @@ class ShardedMatrix:
     def _rows_to_host(self, local: torch.Tensor) -> np.ndarray:
         """This rank's (d_pad, k) rows -> the (world d_pad, k) global rows on
         the host of every rank (a tiled all-gather in rank order)."""
-        return mesh.all_gather_rows(local).cpu().numpy()
+        return to_host(mesh.all_gather_rows(local)).numpy()
 
     # ---- device-resident block access ---------------------------------
     def fetch_blocks_device(
@@ -833,4 +856,4 @@ class ShardedMatrix:
                 hit = kernels.packed_codes(g) == 1 if self.packed else g == MISSING
                 miss += int((hit & valid).sum(dtype=torch.int64))
         total = torch.tensor([miss], dtype=torch.int64, device=self.device)
-        return int(mesh.all_reduce_sum(total).item())
+        return int(to_host(mesh.all_reduce_sum(total)).item())

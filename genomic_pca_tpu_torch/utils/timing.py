@@ -1,7 +1,9 @@
 """Per-stage wall-clock timing.
 
-A copy of `genomic_pca_tpu/utils/timing.py`, whose package init needs
-jax: the same stage summary the reference logs at the end of a workflow.
+The stage summary the JAX package's `utils/timing.py` logs at the end of
+a workflow; each stage is a span (utils/profiling.py) named
+`gp.workflow.<stage>`, so the stages also appear in `--profile-dir`
+traces, and its time is the span's.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ import contextlib
 import logging
 import time
 from typing import Dict, Iterator, List, Tuple
+
+from genomic_pca_tpu_torch.utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -23,16 +27,13 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str) -> Iterator[None]:
-        start = time.perf_counter()
+        s = span(f"gp.workflow.{name}")
         try:
-            yield
+            with s:
+                yield
         finally:
-            dur = time.perf_counter() - start
-            self._stages.append((name, dur))
-            log.info("stage '%s' completed in %.3fs", name, dur)
-
-    def record(self, name: str, seconds: float) -> None:
-        self._stages.append((name, seconds))
+            self._stages.append((name, s.seconds))
+            log.info("stage '%s' completed in %.3fs", name, s.seconds)
 
     @property
     def stages(self) -> Dict[str, float]:

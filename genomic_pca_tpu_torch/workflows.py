@@ -228,10 +228,11 @@ def run_eigensnp_workflow(
     log.info("EigenSNP matrix container: %s.", result.container)
     st, ss = timer.stages, result.stage_seconds
     log.info(
-        "EigenSNP stage split: qc_ld %.3f s, matrix_load %.3f s, stages_1_2 "
-        "%.3f s, global_pca %.3f s, refine_write %.3f s",
-        st["Data preparation (QC + LD mapping)"], ss["matrix_load"],
-        ss["stages_1_2"], ss["global_pca"],
+        "EigenSNP stage split: qc_ld %.3f s (open %.3f s, qc_scan %.3f s, "
+        "ld_map %.3f s), matrix_load %.3f s, stages_1_2 %.3f s, global_pca "
+        "%.3f s, refine_write %.3f s",
+        st["Data preparation (QC + LD mapping)"], ss["open"], ss["qc_scan"],
+        ss["ld_map"], ss["matrix_load"], ss["stages_1_2"], ss["global_pca"],
         ss["refinement_finalize"] + st["Output writing"],
     )
     log.info("Kernel launches: %s", json.dumps(kernels.LAUNCHES))

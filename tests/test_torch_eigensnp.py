@@ -212,7 +212,8 @@ def test_eigensnp_matches_reference_and_exact(tmp_path, rng):
     np.testing.assert_allclose(res.eigenvalues / exact.eigenvalues,
                                pt.n_pca_snps / (100 - 1), rtol=2e-2)
     np.testing.assert_allclose(res.eigenvalues, ref.eigenvalues, rtol=5e-3)
-    assert set(res.stage_seconds) == {"matrix_load", "stages_1_2", "global_pca",
+    assert set(res.stage_seconds) == {"open", "qc_scan", "ld_map", "matrix_load",
+                                      "stages_1_2", "global_pca",
                                       "refinement_finalize"}
 
 
