@@ -17,14 +17,19 @@ Genotype bit codes (PLINK1): 00=hom A1, 01=missing, 10=het, 11=hom A2.
 allele: 00->2, 10->1, 11->0.  `count_a1=False` (the reference oracle,
 tests/pca.py:74) counts A2: 00->0, 10->1, 11->2.
 
-A copy of `genomic_pca_tpu/io/bed.py`: the port keeps its own copy so that it
-imports nothing of the JAX package; tests/test_torch_copies.py pins
-it to the original.
+The .bim and .fam tables are parsed in one native pass
+(`native.parse_table_native`) when the library loads; the line loops
+`_bim_loop` / `_fam_loop` parse what it hands over, or all of it without
+the library, and define the values and the errors.
+
+A copy of `genomic_pca_tpu/io/bed.py`, but for that parse: the port keeps
+its own copy so that it imports nothing of the JAX package;
+tests/test_torch_copies.py pins it to the original, and
+tests/test_torch_plink_tables.py the tables to its readers.
 """
 
 from __future__ import annotations
 
-import csv
 import dataclasses
 import logging
 from pathlib import Path
@@ -33,6 +38,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 
 from genomic_pca_tpu_torch.errors import BedFormatError
+from genomic_pca_tpu_torch.io import native
+from genomic_pca_tpu_torch.utils.profiling import COUNTS
 
 log = logging.getLogger(__name__)
 
@@ -82,30 +89,26 @@ class FamTable:
         return len(self.iid)
 
 
-def read_bim(path: Union[str, Path]) -> BimTable:
-    # pandas' C tokenizer is ~20x the Python loop on genome-scale BIMs
-    # (tens of millions of rows).  It is purely an optimization: any
-    # anomaly (ragged rows, NaNs, non-integer bp) falls through to the
-    # authoritative Python loop, which defines the error behavior.
-    try:
-        import pandas as pd
+_BIM_KINDS = (native.TABLE_CODES, native.TABLE_JOIN, native.TABLE_SKIP,
+              native.TABLE_INT, native.TABLE_CODES, native.TABLE_CODES)
+_FAM_KINDS = (native.TABLE_JOIN, native.TABLE_JOIN)
 
-        df = pd.read_csv(
-            path, sep=r"\s+", header=None, dtype=str,
-            skip_blank_lines=True, engine="c", quoting=csv.QUOTE_NONE,
-        )
-        if df.shape[1] >= 6 and not df.iloc[:, :6].isna().any().any():
-            return BimTable(
-                chrom=df.iloc[:, 0].to_numpy(dtype=object),
-                sid=df.iloc[:, 1].to_numpy(dtype=object),
-                bp=df.iloc[:, 3].astype(np.int64).to_numpy(),
-                a1=df.iloc[:, 4].to_numpy(dtype=object),
-                a2=df.iloc[:, 5].to_numpy(dtype=object),
-            )
-    except (ImportError, ValueError):
-        pass
-    except Exception as e:  # pandas ParserError etc.
-        log.debug("pandas .bim parse failed (%s); using the Python loop.", e)
+
+def _read_table(path, kinds, loop):
+    """The table's columns in one native pass (io/native.py
+    `parse_table_native`), else by `loop(path)`, the line loop that
+    defines the values and the errors; counts the rows in
+    COUNTS["table_rows_native"] or COUNTS["table_rows_loop"]."""
+    columns = native.parse_table_native(Path(path).read_bytes(), kinds)
+    which = "native"
+    if columns is None:
+        columns, which = loop(path), "loop"
+    COUNTS[f"table_rows_{which}"] += len(columns[0])
+    log.debug("Parsed %s (%d rows) on the %s path.", path, len(columns[0]), which)
+    return columns
+
+
+def _bim_loop(path):
     chroms, sids, bps, a1s, a2s = [], [], [], [], []
     with open(path, "r") as fh:
         for line in fh:
@@ -119,32 +122,12 @@ def read_bim(path: Union[str, Path]) -> BimTable:
             bps.append(int(parts[3]))
             a1s.append(parts[4])
             a2s.append(parts[5])
-    return BimTable(
-        chrom=np.array(chroms, dtype=object),
-        sid=np.array(sids, dtype=object),
-        bp=np.array(bps, dtype=np.int64),
-        a1=np.array(a1s, dtype=object),
-        a2=np.array(a2s, dtype=object),
-    )
+    return [np.array(chroms, dtype=object), np.array(sids, dtype=object),
+            np.array(bps, dtype=np.int64), np.array(a1s, dtype=object),
+            np.array(a2s, dtype=object)]
 
 
-def read_fam(path: Union[str, Path]) -> FamTable:
-    try:
-        import pandas as pd
-
-        df = pd.read_csv(
-            path, sep=r"\s+", header=None, dtype=str,
-            skip_blank_lines=True, engine="c", quoting=csv.QUOTE_NONE,
-        )
-        if df.shape[1] >= 2 and not df.iloc[:, :2].isna().any().any():
-            return FamTable(
-                fid=df.iloc[:, 0].to_numpy(dtype=object),
-                iid=df.iloc[:, 1].to_numpy(dtype=object),
-            )
-    except (ImportError, ValueError):
-        pass
-    except Exception as e:
-        log.debug("pandas .fam parse failed (%s); using the Python loop.", e)
+def _fam_loop(path):
     fids, iids = [], []
     with open(path, "r") as fh:
         for line in fh:
@@ -155,7 +138,17 @@ def read_fam(path: Union[str, Path]) -> FamTable:
                 raise BedFormatError(f"Malformed .fam line in {path}: {line!r}")
             fids.append(parts[0])
             iids.append(parts[1])
-    return FamTable(fid=np.array(fids, dtype=object), iid=np.array(iids, dtype=object))
+    return [np.array(fids, dtype=object), np.array(iids, dtype=object)]
+
+
+def read_bim(path: Union[str, Path]) -> BimTable:
+    chrom, sid, bp, a1, a2 = _read_table(path, _BIM_KINDS, _bim_loop)
+    return BimTable(chrom=chrom, sid=sid, bp=bp, a1=a1, a2=a2)
+
+
+def read_fam(path: Union[str, Path]) -> FamTable:
+    fid, iid = _read_table(path, _FAM_KINDS, _fam_loop)
+    return FamTable(fid=fid, iid=iid)
 
 
 class BedReader:

@@ -4,7 +4,8 @@
 A copy of `genomic_pca_tpu/io/native.py` that builds and loads the
 port's own copy of the library: `make -C genomic_pca_tpu_torch/native`
 into `build/native/libplinkio.so` at the repository root (listed in
-.gitignore), never the JAX package's `native/libplinkio.so`.  Builds
+.gitignore), never the JAX package's `native/libplinkio.so`; it adds
+`parse_table_native`, the .bim / .fam parse of io/bed.py.  Builds
 lazily with make/g++ on first use; every caller must handle
 `get_lib() is None` and fall back to the pure numpy/Python paths
 (identical semantics, covered by equivalence tests).
@@ -17,7 +18,7 @@ import logging
 import os
 import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,7 +53,7 @@ def _resolve_threads(n_threads: int) -> int:
 
 
 # Must match plinkio_abi_version() in genomic_pca_tpu_torch/native/plinkio.cpp.
-_ABI_VERSION = 4
+_ABI_VERSION = 5
 
 
 def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -122,6 +123,17 @@ def _configure(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_void_p,  # out (uint8*, rows x ceil(n/4))
     ]
     lib.plinkio_synth_pack.restype = None
+    lib.plinkio_parse_table.argtypes = [
+        ctypes.c_char_p,  # buf
+        ctypes.c_int64,  # len
+        ctypes.c_int32,  # n_cols
+        ctypes.c_void_p,  # kinds (int32*, n_cols)
+        ctypes.c_int64,  # max_rows
+        ctypes.c_int,  # n_threads
+        ctypes.c_void_p,  # outs (void*, 2 n_cols)
+        ctypes.c_void_p,  # sizes (int64*, 2 n_cols)
+    ]
+    lib.plinkio_parse_table.restype = ctypes.c_int64
     return lib
 
 
@@ -361,3 +373,86 @@ def synth_pack_native(
         out.ctypes.data,
     )
     return out
+
+
+# Column kinds of `parse_table_native` (plinkio_parse_table).
+TABLE_SKIP, TABLE_JOIN, TABLE_CODES, TABLE_INT = 0, 1, 2, 3
+
+_TABLE_HANDOVERS = {
+    -1: "a non-blank line with too few fields",
+    -2: "an integer field that is not '-' and digits within int64",
+    -3: "a byte outside ASCII",
+    -4: "a control byte",
+    -5: "a carriage return that does not end a line",
+}
+
+
+def _split_joined(buf: np.ndarray, size: int, count: int) -> np.ndarray:
+    """The `count` values joined by '\\n' in buf[:size], as an object
+    array of str."""
+    return np.fromiter(buf[:size].tobytes().decode("ascii").split("\n"),
+                       dtype=object, count=count)
+
+
+def parse_table_native(
+    data: bytes, kinds: Sequence[int], n_threads: int = 0
+) -> Optional[List[np.ndarray]]:
+    """The columns of a whitespace-separated PLINK text table in one
+    native pass, or None: when the library is unavailable, and when the
+    bytes hold what the caller's own line parse must judge (a short line,
+    an integer field other than '-' and digits within int64, a byte
+    outside ASCII, a control byte, a lone carriage return).
+
+    `kinds[k]` says what becomes of column k; the table must have at
+    least len(kinds) fields on every non-blank line.  One array for each
+    column that is not TABLE_SKIP, in column order: TABLE_JOIN and
+    TABLE_CODES give object arrays of str (TABLE_CODES columns are built
+    from their distinct values, `values[codes]`), TABLE_INT int64."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_cols = len(kinds)
+    # A row holds n_cols fields of one byte or more and n_cols - 1
+    # separators; the joined values of a column fit in the table's bytes.
+    max_rows = len(data) // (2 * n_cols - 1) + 1
+    cap = len(data) + 1
+    kinds_arr = np.ascontiguousarray(kinds, dtype=np.int32)
+    outs = (ctypes.c_void_p * (2 * n_cols))()
+    held = []
+    for k, kind in enumerate(kinds):
+        if kind == TABLE_JOIN:
+            bufs = (np.empty(cap, dtype=np.uint8),)
+        elif kind == TABLE_CODES:
+            bufs = (np.empty(max_rows, dtype=np.int32), np.empty(cap, dtype=np.uint8))
+        elif kind == TABLE_INT:
+            bufs = (np.empty(max_rows, dtype=np.int64),)
+        else:
+            bufs = ()
+        for j, b in enumerate(bufs):
+            outs[2 * k + j] = b.ctypes.data
+        held.append(bufs)
+    sizes = np.zeros(2 * n_cols, dtype=np.int64)
+    n_rows = int(lib.plinkio_parse_table(
+        data,
+        ctypes.c_int64(len(data)),
+        ctypes.c_int32(n_cols),
+        kinds_arr.ctypes.data,
+        ctypes.c_int64(max_rows),
+        ctypes.c_int(_resolve_threads(n_threads)),
+        outs,
+        sizes.ctypes.data,
+    ))
+    if n_rows < 0:
+        log.debug("Native table parse handed over: %s.",
+                  _TABLE_HANDOVERS.get(n_rows, f"status {n_rows}"))
+        return None
+    columns = []
+    for k, (kind, bufs) in enumerate(zip(kinds, held)):
+        if kind == TABLE_JOIN:
+            columns.append(_split_joined(bufs[0], int(sizes[2 * k]), n_rows))
+        elif kind == TABLE_CODES:
+            values = _split_joined(bufs[1], int(sizes[2 * k]), int(sizes[2 * k + 1]))
+            columns.append(values[bufs[0][:n_rows]])
+        elif kind == TABLE_INT:
+            columns.append(bufs[0][:n_rows].copy())
+    return columns

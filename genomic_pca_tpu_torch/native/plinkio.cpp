@@ -1,18 +1,24 @@
 // Native host-side decoders for the genomic_pca_tpu_torch data path: a copy
-// of the JAX package's native/plinkio.cpp, built by this directory's
-// Makefile into build/native/ (io/native.py).
+// of the JAX package's native/plinkio.cpp with one addition, the PLINK text
+// table parser at the end, built by this directory's Makefile into
+// build/native/ (io/native.py).
 //
 // TPU-native equivalents of the reference's native ingest dependencies:
-//  * bed-reader (PLINK .bed 2-bit decode, reference src/prepare.rs:622-629)
+//  * bed-reader (PLINK .bed 2-bit decode, reference src/prepare.rs:622-629,
+//    and its .bim / .fam parse)
 //  * noodles-vcf GT tokenization (reference src/vcf.rs:103-279)
 //
 // Exposed as a C ABI for ctypes (no pybind11 in the build image).
 // Compile: make -C genomic_pca_tpu_torch/native (OUT=<dir> to place the library)
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cstring>
+#include <string>
+#include <string_view>
 #include <thread>
+#include <unordered_map>
 #include <vector>
 
 #include <zlib.h>
@@ -67,8 +73,8 @@ extern "C" {
 // library would otherwise misinterpret arguments and crash the
 // process).  History: 1 = initial; 2 = n_threads param added to
 // plinkio_parse_vcf_lines; 3 = plinkio_packed_qc_counts added;
-// 4 = plinkio_synth_pack added.
-int64_t plinkio_abi_version() { return 4; }
+// 4 = plinkio_synth_pack added; 5 = plinkio_parse_table added.
+int64_t plinkio_abi_version() { return 5; }
 
 // Decode selected SNP rows of a SNP-major .bed byte block into int8
 // dosages (missing = -127).  `snp_offsets[i]` is the byte offset of row
@@ -609,6 +615,282 @@ void plinkio_synth_pack(const uint8_t* a_pop, const uint8_t* b_pop,
                          n_samples, n_pops, seed, row0, out);
   }
   for (auto& w : workers) w.join();
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// PLINK text tables (.bim, .fam).
+//
+// One pass over a whole table's bytes, split across threads at line
+// boundaries, in place of a per-row Python loop.  Fields are separated by
+// runs of spaces and tabs; a line ends at '\n' or "\r\n"; blank lines are
+// skipped and fields past the first `n_cols` ignored.  Each of the first
+// `n_cols` columns comes out as its kind says:
+//   kTableSkip  - not kept;
+//   kTableJoin  - its values joined by '\n' into one buffer;
+//   kTableCodes - int32 codes of its distinct values by first appearance,
+//                 with those values joined by '\n';
+//   kTableInt   - int64, from an optional '-' and decimal digits.
+// What the Python line loop would read otherwise, or reject, is handed
+// back as a negative status, so that the loop keeps defining the values
+// and the errors: a non-blank line with fewer than `n_cols` fields, an
+// int field of any other form or outside int64, a byte outside ASCII, a
+// control byte other than '\t', '\n' and '\r', and a '\r' that does not
+// end a line (universal newlines would break the line there).
+
+namespace {
+
+enum : int32_t { kTableSkip = 0, kTableJoin = 1, kTableCodes = 2, kTableInt = 3 };
+enum : int64_t {
+  kTableShortRow = -1,
+  kTableBadInt = -2,
+  kTableNonAscii = -3,
+  kTableControl = -4,
+  kTableLoneCr = -5,
+  kTableBadArgs = -6,
+};
+constexpr int kMaxTableCols = 16;
+// Threads take at least this many bytes each (a .fam of a few thousand
+// samples parses on one).
+constexpr int64_t kTableMinChunk = 1 << 16;
+
+enum : uint8_t { kByteField, kByteSep, kByteNl, kByteCr, kByteHigh, kByteControl };
+
+struct ByteClasses {
+  uint8_t of[256];
+  ByteClasses() {
+    for (int b = 0; b < 256; ++b) {
+      if (b >= 0x80) of[b] = kByteHigh;
+      else if (b == ' ' || b == '\t') of[b] = kByteSep;
+      else if (b == '\n') of[b] = kByteNl;
+      else if (b == '\r') of[b] = kByteCr;
+      else if (b < 0x20 || b == 0x7f) of[b] = kByteControl;
+      else of[b] = kByteField;
+    }
+  }
+};
+const ByteClasses kByteClasses;
+
+// Codes of a column's distinct values in order of first appearance.
+struct Factorizer {
+  int32_t one_byte[256];  // single-byte values (A, C, G, T, 1-9, X, ...)
+  std::unordered_map<std::string_view, int32_t> longer;
+  std::string_view last;  // runs of one value (a chromosome) skip the map
+  int32_t last_code = -1;
+  std::vector<std::string_view> values;
+
+  Factorizer() { std::fill(one_byte, one_byte + 256, -1); }
+
+  int32_t code(std::string_view v) {
+    if (v.size() == 1) {
+      int32_t& c = one_byte[static_cast<uint8_t>(v[0])];
+      if (c < 0) {
+        c = static_cast<int32_t>(values.size());
+        values.push_back(v);
+      }
+      return c;
+    }
+    if (last_code >= 0 && v == last) return last_code;
+    auto it = longer.find(v);
+    int32_t c;
+    if (it == longer.end()) {
+      c = static_cast<int32_t>(values.size());
+      longer.emplace(v, c);
+      values.push_back(v);
+    } else {
+      c = it->second;
+    }
+    last = v;
+    last_code = c;
+    return c;
+  }
+};
+
+bool parse_int64(std::string_view s, int64_t* out) {
+  size_t i = 0;
+  bool neg = !s.empty() && s[0] == '-';
+  if (neg) i = 1;
+  if (i == s.size()) return false;
+  const uint64_t limit = neg ? (uint64_t{1} << 63) : (uint64_t{1} << 63) - 1;
+  uint64_t v = 0;
+  for (; i < s.size(); ++i) {
+    unsigned d = static_cast<unsigned>(static_cast<uint8_t>(s[i])) - '0';
+    if (d > 9 || v > (limit - d) / 10) return false;
+    v = v * 10 + d;
+  }
+  *out = static_cast<int64_t>(neg ? ~v + 1 : v);
+  return true;
+}
+
+// One thread's share of the table: rows [begin, end) of the bytes.
+struct TableChunk {
+  int64_t begin = 0, end = 0, rows = 0, status = 0;
+  std::vector<std::string> joined;             // kTableJoin, '\n' after each
+  std::vector<std::vector<int32_t>> codes;     // kTableCodes, local codes
+  std::vector<Factorizer> factors;             // kTableCodes, local values
+  std::vector<std::vector<int64_t>> ints;      // kTableInt
+};
+
+void parse_table_chunk(const char* buf, int32_t n_cols, const int32_t* kinds,
+                       TableChunk* ch) {
+  ch->joined.resize(n_cols);
+  ch->codes.resize(n_cols);
+  ch->factors.resize(n_cols);
+  ch->ints.resize(n_cols);
+  const uint8_t* p = reinterpret_cast<const uint8_t*>(buf) + ch->begin;
+  const uint8_t* e = reinterpret_cast<const uint8_t*>(buf) + ch->end;
+  const uint8_t* cls = kByteClasses.of;
+  std::string_view field[kMaxTableCols];
+  while (p < e) {
+    int nf = 0;
+    for (;;) {  // one line
+      while (p < e && cls[*p] == kByteSep) ++p;
+      if (p == e) break;
+      uint8_t c = cls[*p];
+      if (c == kByteField) {
+        const uint8_t* s = p;
+        while (p < e && cls[*p] == kByteField) ++p;
+        if (nf < n_cols)
+          field[nf] = std::string_view(reinterpret_cast<const char*>(s), p - s);
+        ++nf;
+      } else if (c == kByteNl) {
+        ++p;
+        break;
+      } else if (c == kByteCr && p + 1 < e && p[1] == '\n') {
+        p += 2;
+        break;
+      } else {
+        ch->status = c == kByteCr     ? kTableLoneCr
+                     : c == kByteHigh ? kTableNonAscii
+                                      : kTableControl;
+        return;
+      }
+    }
+    if (nf == 0) continue;  // blank line
+    if (nf < n_cols) {
+      ch->status = kTableShortRow;
+      return;
+    }
+    for (int k = 0; k < n_cols; ++k) {
+      switch (kinds[k]) {
+        case kTableJoin:
+          ch->joined[k].append(field[k]);
+          ch->joined[k].push_back('\n');
+          break;
+        case kTableCodes:
+          ch->codes[k].push_back(ch->factors[k].code(field[k]));
+          break;
+        case kTableInt: {
+          int64_t v;
+          if (!parse_int64(field[k], &v)) {
+            ch->status = kTableBadInt;
+            return;
+          }
+          ch->ints[k].push_back(v);
+          break;
+        }
+        default:
+          break;
+      }
+    }
+    ++ch->rows;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Parse a whole PLINK text table (module comment above).  `kinds` holds
+// n_cols column kinds; for column k, `outs[2k]` (and `outs[2k + 1]`)
+// receive:
+//   kTableJoin:  outs[2k] char[len + 1], the values joined by '\n';
+//                sizes[2k] = its bytes, with no '\n' after the last;
+//   kTableCodes: outs[2k] int32[max_rows] codes, outs[2k + 1] char[len + 1]
+//                the distinct values joined by '\n'; sizes[2k] = their
+//                bytes, sizes[2k + 1] = their count;
+//   kTableInt:   outs[2k] int64[max_rows].
+// Returns the number of rows, or a negative kTable* status (nothing the
+// caller may use was written).
+int64_t plinkio_parse_table(const char* buf, int64_t len, int32_t n_cols,
+                            const int32_t* kinds, int64_t max_rows,
+                            int n_threads, void* const* outs, int64_t* sizes) {
+  if (n_cols < 1 || n_cols > kMaxTableCols) return kTableBadArgs;
+  int64_t n_chunks = std::max<int64_t>(
+      1, std::min<int64_t>(std::max(n_threads, 1), len / kTableMinChunk));
+  // Chunk boundaries just after a '\n', so that no line is split.
+  std::vector<TableChunk> chunks(n_chunks);
+  int64_t at = 0;
+  for (int64_t t = 0; t < n_chunks; ++t) {
+    int64_t want = (t + 1 == n_chunks) ? len : len * (t + 1) / n_chunks;
+    int64_t end = std::max(at, want);
+    if (end < len && end > 0 && buf[end - 1] != '\n') {
+      const char* nl = static_cast<const char*>(
+          std::memchr(buf + end, '\n', static_cast<size_t>(len - end)));
+      end = nl ? (nl - buf) + 1 : len;
+    }
+    chunks[t].begin = at;
+    chunks[t].end = end;
+    at = end;
+  }
+  if (n_chunks == 1) {
+    parse_table_chunk(buf, n_cols, kinds, &chunks[0]);
+  } else {
+    std::vector<std::thread> workers;
+    for (auto& ch : chunks)
+      workers.emplace_back(parse_table_chunk, buf, n_cols, kinds, &ch);
+    for (auto& w : workers) w.join();
+  }
+  int64_t rows = 0;
+  for (const auto& ch : chunks) {
+    if (ch.status != 0) return ch.status;
+    rows += ch.rows;
+  }
+  if (rows > max_rows) return kTableBadArgs;
+
+  for (int k = 0; k < n_cols; ++k) {
+    sizes[2 * k] = sizes[2 * k + 1] = 0;
+    if (kinds[k] == kTableJoin) {
+      char* dst = static_cast<char*>(outs[2 * k]);
+      int64_t n = 0;
+      for (const auto& ch : chunks) {
+        std::memcpy(dst + n, ch.joined[k].data(), ch.joined[k].size());
+        n += static_cast<int64_t>(ch.joined[k].size());
+      }
+      sizes[2 * k] = n > 0 ? n - 1 : 0;
+    } else if (kinds[k] == kTableCodes) {
+      // The chunks' values in chunk order, each in its local first-
+      // appearance order, meet the global codes in global first-appearance
+      // order.
+      int32_t* codes = static_cast<int32_t*>(outs[2 * k]);
+      char* uniq = static_cast<char*>(outs[2 * k + 1]);
+      Factorizer global;
+      int64_t row = 0;
+      for (const auto& ch : chunks) {
+        const auto& local = ch.factors[k].values;
+        std::vector<int32_t> to_global(local.size());
+        for (size_t i = 0; i < local.size(); ++i) to_global[i] = global.code(local[i]);
+        for (int32_t c : ch.codes[k]) codes[row++] = to_global[c];
+      }
+      int64_t n = 0;
+      for (const auto& v : global.values) {
+        std::memcpy(uniq + n, v.data(), v.size());
+        n += static_cast<int64_t>(v.size());
+        uniq[n++] = '\n';
+      }
+      sizes[2 * k] = n > 0 ? n - 1 : 0;
+      sizes[2 * k + 1] = static_cast<int64_t>(global.values.size());
+    } else if (kinds[k] == kTableInt) {
+      int64_t* dst = static_cast<int64_t*>(outs[2 * k]);
+      int64_t row = 0;
+      for (const auto& ch : chunks) {
+        std::memcpy(dst + row, ch.ints[k].data(), ch.ints[k].size() * sizeof(int64_t));
+        row += static_cast<int64_t>(ch.ints[k].size());
+      }
+    }
+  }
+  return rows;
 }
 
 }  // extern "C"

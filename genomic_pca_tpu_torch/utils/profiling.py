@@ -31,8 +31,11 @@ number and its span cover one interval.
 
 `COUNTS["d2h_bytes"]` counts the bytes of every device-to-host copy of
 the PCA paths (models/pca.py, models/eigensnp.py, parallel/sharded.py),
-made through `to_host`; `reset_counts()` zeroes it, as
-`kernels.reset_launch_counts()` zeroes the launch counts.
+made through `to_host`; `COUNTS["table_rows_native"]` and
+`COUNTS["table_rows_loop"]` count the .bim and .fam rows that the native
+pass and the Python line loop parsed (io/bed.py).  `reset_counts()`
+zeroes them all, as `kernels.reset_launch_counts()` zeroes the launch
+counts.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ import torch.autograd.profiler as _autograd_profiler
 
 log = logging.getLogger(__name__)
 
-COUNTS = {"d2h_bytes": 0}
+COUNTS = {"d2h_bytes": 0, "table_rows_native": 0, "table_rows_loop": 0}
 
 
 def reset_counts() -> None:

@@ -190,7 +190,8 @@ def test_to_host_counts_only_card_tensors():
     profiling.reset_counts()
     out = profiling.to_host(torch.arange(6, dtype=torch.float32))
     assert out.device.type == "cpu" and out.tolist() == [0, 1, 2, 3, 4, 5]
-    assert profiling.COUNTS == {"d2h_bytes": 0}
+    assert profiling.COUNTS == {"d2h_bytes": 0, "table_rows_native": 0,
+                                "table_rows_loop": 0}
 
 
 @pytest.mark.cuda
