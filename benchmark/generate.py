@@ -4,8 +4,12 @@ device from a seed, strip by strip.
 Two population models, as a configuration's `model` names them:
 
 - `balding_nichols`: `n_pops` populations drawn from one ancestral pool
-  at `fst`, with population sizes proportional to `size_ratio ** i`, so
-  that the leading PCs are separated by eigengaps;
+  at `fst`; each sample drawn into population i with probability
+  proportional to `size_ratio ** i`, so that the leading PCs are
+  separated by eigengaps, or, where the model gives `shares` (one
+  fraction a population, summing to 1), the samples split by those
+  fractions in order, as a cohort of one dominant ancestry and small
+  groups states its make-up;
 - `hierarchical_balding_nichols`: superpopulations drawn from the
   ancestral pool at `fst_super`, and subpopulations drawn from their
   superpopulation at `fst_sub`, with the samples split evenly over the
@@ -77,6 +81,18 @@ def _bn(rng: np.random.Generator, p: np.ndarray, fst: float) -> np.ndarray:
     return rng.beta(np.maximum(a, 1e-3), np.maximum(b, 1e-3))
 
 
+def split_by_shares(n_samples: int, shares, n_pops: int) -> np.ndarray:
+    """The population of each sample, in order: population i takes the
+    samples from round(N (s_1 + ... + s_i-1)) to round(N (s_1 + ... +
+    s_i)), so each count is within one of its share of N."""
+    s = np.asarray(shares, dtype=np.float64)
+    if s.shape != (n_pops,) or (s < 0).any() or abs(s.sum() - 1.0) > 1e-9:
+        raise ValueError(f"shares {list(shares)} are not {n_pops} fractions summing to 1")
+    edges = np.rint(np.concatenate([[0.0], np.cumsum(s)]) * n_samples).astype(np.int64)
+    edges[-1] = n_samples
+    return np.repeat(np.arange(n_pops), np.diff(edges))
+
+
 def make_cohort(model: dict, n_rows: int, n_samples: int, seed: int, device,
                 row_lo: int = 0, row_hi: Optional[int] = None) -> Cohort:
     """The cohort of `model` (a configuration's `model` object) for rows
@@ -91,8 +107,11 @@ def make_cohort(model: dict, n_rows: int, n_samples: int, seed: int, device,
     if kind == "balding_nichols":
         n_pops = int(model["n_pops"])
         freqs = _bn(rng, anc[:, None].repeat(n_pops, 1), float(model["fst"]))
-        w = float(model["size_ratio"]) ** np.arange(n_pops)
-        pop_of = rng.choice(n_pops, size=n_samples, p=w / w.sum())
+        if "shares" in model:
+            pop_of = split_by_shares(n_samples, model["shares"], n_pops)
+        else:
+            w = float(model["size_ratio"]) ** np.arange(n_pops)
+            pop_of = rng.choice(n_pops, size=n_samples, p=w / w.sum())
     elif kind == "hierarchical_balding_nichols":
         cols = []
         for n_sub in model["subpops"].values():

@@ -112,8 +112,9 @@ class Context:
 
 @dataclasses.dataclass
 class Window:
-    """What a metric reader sees: the window's jobs and, in a traced run,
-    the summary of the trace."""
+    """What a metric reader sees: the window's jobs, the program's counts
+    over the window (`utils.profiling.COUNTS`, empty for a program
+    without them) and, in a traced run, the summary of the trace."""
 
     cell: Cell
     setup_s: float
@@ -121,6 +122,7 @@ class Window:
     records: List[dict]
     trace: Optional[dict] = None
     world: int = 1
+    counts: dict = dataclasses.field(default_factory=dict)
 
 
 def _sync(device: torch.device) -> None:
@@ -185,10 +187,29 @@ def judge(limits: dict, readings: List[dict]) -> tuple:
     return worst, failed
 
 
+def program_counts():
+    """The program's counter module (`utils.profiling`, with `COUNTS` and
+    `reset_counts`), or None for a program without one."""
+    try:
+        from genomic_pca_tpu_torch.utils import profiling
+    except ImportError:
+        return None
+    return profiling if hasattr(profiling, "COUNTS") else None
+
+
 def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
              device: str, tmpdir: str, t_start: float, rank: int = 0, world: int = 1,
              root: Path = ROOT) -> Optional[dict]:
     """One run of a cell; returns the result line's object on rank 0."""
+    return run_cell_window(spec, cell_name, seed, seconds, trace, device, tmpdir,
+                           t_start, rank, world, root)[0]
+
+
+def run_cell_window(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
+                    device: str, tmpdir: str, t_start: float, rank: int = 0,
+                    world: int = 1, root: Path = ROOT) -> tuple:
+    """`run_cell`'s (result, the `Window` its readers read); (None, None)
+    on ranks other than 0."""
     cell = load_cell(spec, cell_name, root)
     job = load_module(HERE / "jobs" / f"{cell.traffic['job']}.py")
     dev = torch.device(device)
@@ -204,11 +225,15 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
     setup_s = time.perf_counter() - t_start
     kernels.reset_launch_counts()
     mesh.reset_collective_counts()
+    counter = program_counts()
+    if counter is not None:
+        counter.reset_counts()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     prof = tracemod.start(dev) if trace else None
     window_s, records = closed_loop(job, state, seconds, dev, world, rank)
     summary = tracemod.stop(prof, dev, world) if trace else None
+    counts = dict(counter.COUNTS) if counter is not None else {}
     n_jobs = len(records)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
@@ -221,7 +246,7 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
     if world > 1:
         peak = _max_over_ranks(peak, dev)
     if rank != 0:
-        return None
+        return None, None
     print(f"kernel launches per job: "
           f"{ {k: v / n_jobs for k, v in launches.items()} }", file=sys.stderr)
     print(f"collectives per job: { {k: v / n_jobs for k, v in collectives.items()} }",
@@ -233,7 +258,7 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
         print(f"job stages: {[r['stage_seconds'] for r in records]}", file=sys.stderr)
     print(f"worst readings: {compare.worst(readings)}", file=sys.stderr)
     win = Window(cell=cell, setup_s=setup_s, window_s=window_s, records=records,
-                 trace=summary, world=world)
+                 trace=summary, world=world, counts=counts)
     metrics = read_metrics(cell.per_layer if trace else cell.end_to_end, win)
     worst, failed = judge(cell.limits, readings)
     result = {
@@ -247,7 +272,7 @@ def run_cell(spec: dict, cell_name: str, seed: int, seconds: float, trace: bool,
         result["breakdown"] = summary["breakdown"]
     result["checks"] = {k: {"value": worst[k], "limit": lim}
                         for k, lim in cell.limits.items()}
-    return result
+    return result, win
 
 
 def _max_over_ranks(x: int, dev: torch.device) -> int:
@@ -282,6 +307,14 @@ def per_job(win: Window, key: Callable[[dict], float]) -> Optional[float]:
         except (KeyError, TypeError):
             return None
     return float(np.mean(vals)) if vals else None
+
+
+def count_per_job(win: Window, key: str) -> Optional[float]:
+    """The program's count `key` over the window, a job; None where the
+    program does not count it."""
+    if key not in win.counts or not win.records:
+        return None
+    return win.counts[key] / len(win.records)
 
 
 def mean_job_s(win: Window) -> Optional[float]:

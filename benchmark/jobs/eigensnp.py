@@ -20,7 +20,9 @@ import torch
 from benchmark import generate
 from benchmark.reference import compare, decode, pca, qc
 
-# Rows of the BED file the reference decodes at a time.
+# Rows of the BED file the reference decodes at a time at or below
+# `pca.GRAM_MAX_SAMPLES` samples; above it, `pca.BLOCK_ELEMS` genotypes'
+# worth.
 REF_ROWS = 65_536
 
 
@@ -63,39 +65,45 @@ def release(state) -> None:
 
 
 def _read_bed(state):
-    """The fileset's packed rows, REF_ROWS at a time, on the device."""
-    nb = -(-state["n"] // 4)
-    raw = np.memmap(state["prefix"] + ".bed", dtype=np.uint8, mode="r", offset=3,
-                    shape=(state["d"], nb))
-    dev = state["ctx"].device
-    for lo in range(0, state["d"], REF_ROWS):
-        yield torch.from_numpy(np.array(raw[lo:lo + REF_ROWS])).to(dev)
-
-
-def reference(state, rounding=None):
-    """(keep, mean, std, V, eigenvalues, blocks) of the fileset: the QC
-    on exact counts, then the float64 Gram PCA of the kept rows (their
-    operands rounded to `rounding` for the control)."""
+    """The fileset's packed rows on the device, REF_ROWS at a time at or
+    below `pca.GRAM_MAX_SAMPLES` samples, else `pca.BLOCK_ELEMS` // N."""
     n = state["n"]
-    cnt = torch.cat([decode.counts(decode.codes(p, n)) for p in _read_bed(state)])
-    keep, mean, std = qc.snp_qc(cnt.cpu().numpy(), n, state["ctx"].config["qc"])
+    rows = REF_ROWS if pca.exact(n) else max(1, pca.BLOCK_ELEMS // n)
+    raw = np.memmap(state["prefix"] + ".bed", dtype=np.uint8, mode="r", offset=3,
+                    shape=(state["d"], -(-n // 4)))
     dev = state["ctx"].device
+    for lo in range(0, state["d"], rows):
+        yield torch.from_numpy(np.array(raw[lo:lo + rows])).to(dev)
+
+
+def reference(state, rounding=None, seed=None):
+    """(keep, mean, std, V, eigenvalues, blocks) of the fileset: the QC
+    on exact counts, then the judge's PCA of the kept rows (`pca.solve`:
+    the float64 Gram, or above `pca.GRAM_MAX_SAMPLES` samples subspace
+    iteration over float32 blocks from `seed`, the run's by default),
+    every operand rounded to `rounding` for the control; `blocks` yields
+    the kept rows standardized and rounded as the solver read them."""
+    ctx, n = state["ctx"], state["n"]
+    cnt = torch.cat([decode.counts(decode.codes(p, n)) for p in _read_bed(state)])
+    keep, mean, std = qc.snp_qc(cnt.cpu().numpy(), n, ctx.config["qc"])
+    dev = ctx.device
     keep_t = torch.as_tensor(keep, device=dev)
     mean_t = torch.as_tensor(mean, device=dev)
     std_t = torch.as_tensor(std, device=dev)
+    dtype = torch.float64 if pca.exact(n) else torch.float32
 
     def blocks():
         lo = 0
         for p in _read_bed(state):
             r = p.shape[0]
             sel = keep_t[lo:lo + r]
-            x = decode.standardized(p[sel], n, mean_t[lo:lo + r][sel],
-                                    std_t[lo:lo + r][sel], torch.float64)
-            yield pca.round_to(x, rounding)
+            yield decode.standardized(p[sel], n, mean_t[lo:lo + r][sel],
+                                      std_t[lo:lo + r][sel], dtype)
             lo += r
 
-    v, ev = pca.gram_pca(blocks, n, dev)
-    return keep, mean, std, v, ev, blocks
+    v, ev = pca.solve(blocks, n, ctx.config["eigensnp"]["k_global"], dev,
+                      seed=ctx.seed if seed is None else seed, rounding=rounding)
+    return keep, mean, std, v, ev, pca.rounded(blocks, rounding)
 
 
 def check(state, records) -> list:
@@ -151,7 +159,7 @@ def control(state, seed: int, rounding) -> dict:
     """The reference in the program's place, its operands rounded to
     `rounding`: its QC, moments, scores, eigenvalues and loadings."""
     k = state["ctx"].config["eigensnp"]["k_global"]
-    keep, mean, std, v, ev, blocks = reference(state, rounding=rounding)
+    keep, mean, std, v, ev, blocks = reference(state, rounding=rounding, seed=seed)
     n = state["n"]
     u = pca.row_loadings(blocks, v[:, :k])
     sigma = torch.sqrt(ev[:k] * max(n - 1, 1))

@@ -17,19 +17,6 @@ import torch
 from benchmark import generate
 from benchmark.reference import compare, decode, pca
 
-# Above this many samples the reference solves by subspace iteration; at
-# or below it by the exact float64 Gram.
-GRAM_MAX_SAMPLES = 16_384
-# The reference's subspace: k + this many columns, and its passes.  Its
-# error in the compared PCs falls as (bulk edge / lambda_m)^passes from
-# a Gaussian start: at ukb_pca's size 2 passes leave a sine of 1.3e-3
-# against 16, 4 passes 1.1e-7 and 8 passes 8e-8, float32 rounding.
-REF_EXTRA_COLS = 24
-REF_ITERS = 8
-# Genotypes in one block of the reference's products.
-BLOCK_ELEMS = 1 << 29
-
-
 def rank_rows(n_rows: int, strip_rows: int, world: int):
     """Each rank's rows [lo, hi): equal shares rounded up to whole
     strips, so every rank starts on the generator's strip grid."""
@@ -79,8 +66,8 @@ def release(state) -> None:
 def _blocks(state, dtype):
     """(blocks, device): the cohort's rows standardized with the
     reference's own moments, strips grouped into blocks of about
-    BLOCK_ELEMS genotypes so that each product has rows enough to fill
-    the card."""
+    `pca.BLOCK_ELEMS` genotypes so that each product has rows enough to
+    fill the card."""
     cohort = state["cohort"]
     n, dev = cohort.n_samples, cohort.freqs.device
     packed = [generate.packed_strip(cohort, lo, hi) for lo, hi in cohort.strips()]
@@ -88,7 +75,7 @@ def _blocks(state, dtype):
                     or [torch.zeros((0, 4), dtype=torch.int64, device=dev)])
     mean, std = decode.moments(cnt)
     std = None if state["centered"] else std
-    group = max(1, BLOCK_ELEMS // max(cohort.strip_rows * n, 1))
+    group = max(1, pca.BLOCK_ELEMS // max(cohort.strip_rows * n, 1))
 
     def blocks():
         lo = 0
@@ -101,23 +88,15 @@ def _blocks(state, dtype):
     return blocks, dev
 
 
-def _exact(state) -> bool:
-    return state["cohort"].n_samples <= GRAM_MAX_SAMPLES
-
-
 def reference(state, rounding=None, n_iter=None, ell=None, seed=0):
     """The reference's (V, eigenvalues) of the cohort's matrix, with its
     own moments.  Defaults give the converged reference; `rounding`,
     `n_iter` and `ell` put it in the program's place (the control)."""
     ctx, n = state["ctx"], state["cohort"].n_samples
-    k = ctx.config["pca"]["k"]
-    exact = _exact(state) and n_iter is None
+    exact = pca.exact(n) and n_iter is None
     blocks, dev = _blocks(state, torch.float64 if exact else torch.float32)
-    if exact:
-        return pca.gram_pca(blocks, n, dev, ctx.all_reduce)
-    ell = ell or min(k + REF_EXTRA_COLS, n)
-    return pca.subspace_pca(blocks, n, ell, n_iter or REF_ITERS, seed, dev,
-                            ctx.all_reduce, rounding=rounding)
+    return pca.solve(blocks, n, ctx.config["pca"]["k"], dev, ctx.all_reduce, seed,
+                     rounding, n_iter, ell)
 
 
 def check(state, records) -> list:
@@ -134,7 +113,7 @@ def check(state, records) -> list:
     if m == 0:
         raise RuntimeError("the reference spectrum has no gap among the first "
                            f"{k} PCs: nothing to compare")
-    blocks, dev = _blocks(state, torch.float64 if _exact(state) else torch.float32)
+    blocks, dev = _blocks(state, torch.float64 if pca.exact(n) else torch.float32)
     sums = pca.ritz_sums(blocks, [(r["scores"], r["evals"]) for r in records], n, dev,
                          ctx.all_reduce)
     out = []

@@ -1,7 +1,9 @@
 """PCA of a standardized matrix A (D x N) given as row blocks.
 
 `blocks()` yields (R, N) standardized row blocks on the device, the same
-rows in the same order every time it is called.  Two solvers:
+rows in the same order every time it is called.  Two solvers, and
+`solve`, which chooses between them by the sample count as every job's
+judge does:
 
 - `gram_pca`: the float64 Gram A^T A accumulated over the blocks, then
   `eigh`: exact, for N up to some ten thousand samples (the control
@@ -34,6 +36,20 @@ Blocks = Callable[[], Iterable[torch.Tensor]]
 # Columns (jobs x k) that one pass of `ritz_sums` carries.
 RITZ_COLS = 512
 
+# Above this many samples the reference solves by subspace iteration; at
+# or below it by the exact float64 Gram.
+GRAM_MAX_SAMPLES = 16_384
+# The reference's subspace: k + this many columns, and its passes.  Its
+# error in the compared PCs falls as (bulk edge / lambda_m)^passes from
+# a Gaussian start: at ukb_pca's size 2 passes leave a sine of 1.3e-3
+# against 16, 4 passes 1.1e-7 and 8 passes 8e-8, float32 rounding.
+REF_EXTRA_COLS = 24
+REF_ITERS = 8
+# Genotypes in one block of the reference's products: rfit groups its
+# strips to it, the EigenSNP judge reads this many above
+# GRAM_MAX_SAMPLES, so that no block of a wide cohort grows with N.
+BLOCK_ELEMS = 1 << 29
+
 
 def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -54,6 +70,34 @@ def round_to(x: torch.Tensor, rounding, per_column: bool = False) -> torch.Tenso
     amax = x.abs().amax(dim=0, keepdim=True) if per_column else x.abs().amax()
     scale = torch.finfo(rounding).max / torch.clamp(amax, min=1e-30)
     return (x * scale).to(rounding).to(x.dtype) / scale
+
+
+def exact(n: int) -> bool:
+    """Whether the judge of `n` samples solves by the float64 Gram (its
+    blocks float64) rather than by subspace iteration (float32 blocks)."""
+    return n <= GRAM_MAX_SAMPLES
+
+
+def rounded(blocks: Blocks, rounding) -> Blocks:
+    """`blocks` with each block rounded to `rounding` (`round_to`); None
+    gives `blocks` itself."""
+    if rounding is None:
+        return blocks
+    return lambda: (round_to(x, rounding) for x in blocks())
+
+
+def solve(blocks: Blocks, n: int, k: int, device, all_reduce=_identity, seed: int = 0,
+          rounding=None, n_iter: Optional[int] = None, ell: Optional[int] = None):
+    """(V, eigenvalues) of the judge: the float64 Gram of the blocks, each
+    rounded to `rounding`, at or below GRAM_MAX_SAMPLES; above it, or
+    with `n_iter` given (the control in the program's place),
+    `subspace_pca` over `ell` (k + REF_EXTRA_COLS) columns for `n_iter`
+    (REF_ITERS) passes from `seed`, every operand rounded to
+    `rounding`."""
+    if exact(n) and n_iter is None:
+        return gram_pca(rounded(blocks, rounding), n, device, all_reduce)
+    return subspace_pca(blocks, n, ell or min(k + REF_EXTRA_COLS, n), n_iter or REF_ITERS,
+                        seed, device, all_reduce, rounding=rounding)
 
 
 def gram_pca(blocks: Blocks, n: int, device, all_reduce=_identity):

@@ -24,12 +24,14 @@ ranges at any depth (`syncs_per_pca`: the fewest and the most in one
 range), and `idle_in_spans_s`: the idle time that some `gp.` range
 covers.  Times in the profiler's microseconds in, seconds out.
 
-`python3 -m benchmark.spans --workload <cell> --seed <n> --seconds <s>`
-runs a cell's traced run as `python3 -m benchmark.run ... --trace 1`
-does and prints its result line with three more keys: `spans` (the
-reduction of the window), `counts` (the program's
-`utils.profiling.COUNTS` over the window) and `span_metrics` (the
-per-layer readings the spans give a job).
+`window_trace.summarize` keeps the reduction of a traced window under
+`spans`; the per-layer readers (`metrics/*.pca.py`) read it through
+`of_window`.  `python3 -m benchmark.spans --workload <cell> --seed <n>
+--seconds <s>` runs a cell's traced run as `python3 -m benchmark.run ...
+--trace 1` does and prints its result line with three more keys: `spans`
+(the reduction of the window), `counts` (the program's
+`utils.profiling.COUNTS` over the window) and `span_metrics` (every
+per-layer reading the spans give a job).
 """
 
 from __future__ import annotations
@@ -196,14 +198,6 @@ def idle_gaps(events, w0: float, w1: float) -> np.ndarray:
     return gaps[gaps[:, 1] > gaps[:, 0]]
 
 
-def of_profile(prof) -> dict:
-    """`reduce` over a stopped profiler's `bench.window`."""
-    events = prof.events()
-    win = next(e for e in events if e.name == "bench.window" and _is_cpu(e))
-    w0, w1 = win.time_range.start, win.time_range.end
-    return reduce(events, w0, w1, idle_gaps(events, w0, w1))
-
-
 # ---- the per-layer readings the spans give a job ---------------------------
 def span_metrics(sp: dict, counts: dict, n_jobs: int,
                  bound_ms: Optional[float]) -> dict:
@@ -236,55 +230,31 @@ def span_metrics(sp: dict, counts: dict, n_jobs: int,
     return out
 
 
-def _program_counts():
-    """The program's byte counter module, where the program has one."""
-    try:
-        from genomic_pca_tpu_torch.utils import profiling
-    except ImportError:
-        return None
-    return profiling if hasattr(profiling, "COUNTS") else None
+def of_window(win) -> dict:
+    """`span_metrics` of a traced window (`harness.Window`), the passes'
+    least time from its traffic's `passes`; {} untraced."""
+    if win.trace is None or "spans" not in win.trace:
+        return {}
+    bound = None
+    if "passes" in win.cell.traffic:
+        from benchmark import roofline
+
+        bound = roofline.job_bound_ms(win.cell.config, win.cell.traffic, win.world)
+    return span_metrics(win.trace["spans"], win.counts, len(win.records), bound)
 
 
 def traced_run(spec: dict, cell_name: str, seed: int, seconds: float, device: str,
                tmpdir: str, t_start: float, root=None) -> dict:
-    """`harness.run_cell` traced, with the spans of its window reduced and
-    the program's counts taken over the window (zeroed where the trace
-    starts, read where it stops)."""
+    """`harness.run_cell` traced, with the spans of its window, the
+    program's counts over it and the readings they give a job."""
     from benchmark import harness
-    from benchmark import window_trace as tracemod
 
-    held: dict = {}
-    start, stop = tracemod.start, tracemod.stop
-    counter = _program_counts()
-
-    def start_counting(dev):
-        if counter is not None:
-            counter.reset_counts()
-        return start(dev)
-
-    def stop_reducing(prof, dev, world):
-        held["counts"] = dict(counter.COUNTS) if counter is not None else {}
-        summary = stop(prof, dev, world)
-        held["spans"] = of_profile(prof)
-        return summary
-
-    tracemod.start, tracemod.stop = start_counting, stop_reducing
-    try:
-        kw = {} if root is None else {"root": root}
-        result = harness.run_cell(spec, cell_name, seed, seconds, True, device, tmpdir,
-                                  t_start, **kw)
-    finally:
-        tracemod.start, tracemod.stop = start, stop
-    cell = harness.load_cell(spec, cell_name, **kw)
-    bound = None
-    if "passes" in cell.traffic:
-        from benchmark import roofline
-
-        bound = roofline.job_bound_ms(cell.config, cell.traffic, cell.chips)
-    result["spans"] = held["spans"]
-    result["counts"] = held["counts"]
-    result["span_metrics"] = span_metrics(held["spans"], held["counts"],
-                                          result["attempted"], bound)
+    kw = {} if root is None else {"root": root}
+    result, win = harness.run_cell_window(spec, cell_name, seed, seconds, True, device,
+                                          tmpdir, t_start, **kw)
+    result["spans"] = win.trace["spans"]
+    result["counts"] = win.counts
+    result["span_metrics"] = of_window(win)
     return result
 
 

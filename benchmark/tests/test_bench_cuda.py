@@ -9,18 +9,17 @@ import torch
 
 from benchmark import control, harness
 from benchmark.tests import tiny
-from benchmark.tests.test_bench_cpu_cell import ONE_CHIP, TINY_LIMITS
 
 
 @pytest.fixture
 def root(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    return tiny.tiny_root(tmp_path, TINY_LIMITS)
+    return tiny.tiny_root(tmp_path)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ONE_CHIP)
+@pytest.mark.parametrize("cell", tiny.one_chip())
 def test_tiny_cell_on_the_card(root, cell):
     with tempfile.TemporaryDirectory() as tmp:
         res = harness.run_cell(tiny.spec_of(root), cell, 2**31 + 3, 0.5, True, "cuda",

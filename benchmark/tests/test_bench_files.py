@@ -97,6 +97,26 @@ def test_metric_reader_found_by_name(metric):
         assert cell in CELLS
 
 
+@pytest.mark.parametrize("name", [c["name"] for c in SPEC["configs"]])
+def test_tiny_config_found_by_name(name):
+    """The CPU tests' cut of each configuration: only keys the
+    configuration has, and its sizes."""
+    from benchmark.tests import tiny
+
+    cut = harness.load_json(harness.ROOT / tiny.TINY / f"{name}.json")
+    conf = next(c for c in SPEC["configs"] if c["name"] == name)
+    cfg = harness.load_json(harness.ROOT / conf["file"])
+    assert set(cut) <= set(cfg) and set(cut["sizes"]) == set(cfg["sizes"])
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_tiny_limits_found_by_name(cell):
+    from benchmark.tests import tiny
+
+    lims = harness.load_json(harness.ROOT / tiny.TINY / "limits" / f"{cell}.json")
+    assert set(lims) == set(harness.load_cell(SPEC, cell).limits)
+
+
 def test_configs_state_source_and_cuts():
     for c in SPEC["configs"]:
         cfg = harness.load_json(harness.ROOT / c["file"])

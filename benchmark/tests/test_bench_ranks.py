@@ -11,7 +11,6 @@ from pathlib import Path
 import pytest
 
 from benchmark.tests import tiny
-from benchmark.tests.test_bench_cpu_cell import TINY_LIMITS
 
 CELL = "kgp3_chr22-rfit"
 WORLD = 2
@@ -71,7 +70,7 @@ def run_ranks(root, fault=None):
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    return tiny.tiny_root(tmp_path_factory.mktemp("ranks"), TINY_LIMITS)
+    return tiny.tiny_root(tmp_path_factory.mktemp("ranks"))
 
 
 def test_two_ranks_sound(root):

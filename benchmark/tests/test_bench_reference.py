@@ -1,6 +1,8 @@
 """The plain reference at a tiny size: decoding, QC, the two PCA solvers
 against float64 `numpy.linalg.eigh`, and the comparison numbers."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -43,6 +45,39 @@ def test_strips_are_reproducible():
     c = _cohort(seed=2**31 + 6)
     assert not torch.equal(generate.packed_strip(a, lo, hi),
                            generate.packed_strip(c, lo, hi))
+
+
+def test_size_ratio_cohort_bytes_unchanged():
+    """A cohort of `size_ratio` draws the bytes and populations it drew
+    before `shares` existed (digest of the packed rows and `pop_of`)."""
+    c = _cohort(seed=2**31 + 5)
+    h = hashlib.sha256()
+    for lo, hi in c.strips():
+        h.update(generate.packed_strip(c, lo, hi).numpy().tobytes())
+    h.update(c.pop_of.numpy().astype("<i8").tobytes())
+    assert h.hexdigest() == \
+        "31f0b6720da8a656637f7009ea5c3fe7cb30a22c36ecfad996c4b712962e54d0"
+
+
+def test_shares_come_out_as_stated():
+    """At 407,219 samples each population holds its share, to within one
+    sample, in order; shares that do not sum to 1 are refused."""
+    shares = [0.94, 0.025, 0.02, 0.01, 0.005]
+    model = dict(MODEL, n_pops=5, shares=shares)
+    del model["size_ratio"]
+    n = 407_219
+    c = generate.make_cohort(model, 8, n, 2**31 + 77, "cpu")
+    pop = c.pop_of.numpy()
+    counts = np.bincount(pop, minlength=5)
+    assert counts.sum() == n and len(counts) == 5
+    assert np.abs(counts - n * np.array(shares)).max() <= 1
+    assert (np.diff(pop) >= 0).all()
+    # The frequency table is drawn as for `size_ratio`.
+    ratio = generate.make_cohort(dict(MODEL, n_pops=5), 8, n, 2**31 + 77, "cpu")
+    assert torch.equal(c.freqs, ratio.freqs)
+    with pytest.raises(ValueError):
+        generate.make_cohort(dict(model, shares=[0.5, 0.3, 0.1, 0.05, 0.01]), 8, n, 1,
+                             "cpu")
 
 
 def test_moments_match_numpy():

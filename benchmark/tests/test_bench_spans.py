@@ -10,7 +10,7 @@ from torch.autograd import DeviceType
 
 from benchmark import harness, spans
 from benchmark.tests import tiny
-from benchmark.tests.test_bench_cpu_cell import SEED, TINY_LIMITS
+from benchmark.tests.test_bench_cpu_cell import SEED
 
 CPU, CUDA = DeviceType.CPU, DeviceType.CUDA
 
@@ -109,9 +109,39 @@ def test_span_readers(name):
     assert mod.read(win) is None
 
 
+def test_span_and_count_readers_read_the_window():
+    """The per-layer readers of spans and counts read a traced window's
+    `spans` and the window's counts, a job; untraced, the span readers
+    read nothing and the counters still do."""
+    sp = spans.reduce(EVENTS, 0, 100, spans.idle_gaps(EVENTS, 0, 100))
+    cell = SimpleNamespace(config={"sizes": {"n_snps": 262_144, "n_samples": 2_048},
+                                   "pca": {"k": 10, "n_oversamples": 118}},
+                           traffic={"passes": [["q8_pass", 1]]})
+    win = harness.Window(cell=cell, setup_s=1.0, window_s=2.0, records=[{}, {}],
+                         trace={"spans": sp},
+                         counts={"d2h_bytes": 4_000_000, "table_rows_native": 10,
+                                 "table_rows_loop": 0})
+    bound = 4 * 262_144 * 2_048 * 128 / 1979e12 * 1e3
+    want = dict(spans.span_metrics(sp, win.counts, 2, bound),
+                table_rows_native=5.0, table_rows_loop=0.0)
+    def reader(name):
+        return harness.load_module(harness.HERE / "metrics" / f"{name}.py")
+
+    names = ["pass_device_ms.pca", "kernel_roofline.pca", "d2h_mb.pca",
+             "host_syncs.pca", "table_rows_native", "table_rows_loop"]
+    for name in names + ["sketch_ms.pca"]:
+        assert reader(name).read(win) == want.get(name), name
+    assert want["kernel_roofline.pca"] == pytest.approx(100 * bound / 7.5e-3)
+    win.trace = None
+    for name in names[:4]:
+        assert reader(name).read(win) is None
+    win.counts = {}
+    assert reader("table_rows_loop").read(win) is None
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    return tiny.tiny_root(tmp_path_factory.mktemp("spans"), TINY_LIMITS)
+    return tiny.tiny_root(tmp_path_factory.mktemp("spans"))
 
 
 def _traced(root, cell):
@@ -143,9 +173,11 @@ def test_tiny_rfit_reads_the_sketch_and_keeps_the_result_line(root):
     assert {k: by[k]["count"] for k in by if k.startswith("gp.pass.")} == {
         "gp.pass.q8_pass": 3 * n, "gp.pass.exact_pass": n, "gp.pass.rr_gram": n,
         "gp.pass.loadings": n}
-    # No device on the CPU: nothing launched, no bytes brought back.
+    # No device on the CPU: nothing launched, no bytes brought back; no
+    # fileset opened, so no table row parsed.
     assert "pass_device_ms.pca" not in res["span_metrics"]
-    assert res["counts"] == {"d2h_bytes": 0}
+    assert res["counts"] == {"d2h_bytes": 0, "table_rows_native": 0,
+                             "table_rows_loop": 0}
     # The result line of the traced run, its keys and its breakdown as
     # `benchmark.run` prints them, and three more.
     assert list(res)[:6] == ["correct", "attempted", "failed", "metrics", "device",

@@ -1,6 +1,10 @@
-"""A tiny copy of the benchmark's data files for CPU tests: each cell's
-configuration with the sizes cut to a few thousand SNPs and a few
-hundred samples, the traffic and limits as they are."""
+"""A tiny copy of the benchmark's data files for CPU tests, found by
+name like the benchmark's own: for each configuration `tiny/<config>.json`
+holds what the tiny copy changes (its sizes cut to a few thousand SNPs
+and a few hundred samples, and the parameters that must follow them),
+merged key by key into the configuration; for each cell
+`tiny/limits/<cell>.json` holds its limits at that size, which take the
+place of its own (those are set from chip readings)."""
 
 from __future__ import annotations
 
@@ -10,32 +14,43 @@ from pathlib import Path
 
 from benchmark import harness
 
-SIZES = {
-    "kgp3_chr22": {"n_snps": 6000, "n_samples": 260},
-}
+# Where the tiny files sit under a root, as under the repository's.
+TINY = Path("benchmark") / "tests" / "tiny"
+SPEC = harness.load_json(harness.ROOT / "BENCHMARK.json")
 
 
-def tiny_root(tmp: Path, limits=None) -> Path:
-    """A root holding BENCHMARK.json and benchmark/{configs,traffic,
-    limits} with tiny sizes; `limits` {cell: {number: limit}} overrides."""
+def one_chip(spec: dict = SPEC) -> list:
+    """The cells of one chip, as the CPU tests run them."""
+    return [w["name"] for w in spec["workloads"] if w["chips"] == 1]
+
+
+def merged(base: dict, over: dict) -> dict:
+    """`base` with `over`'s keys put in, nested objects merged key by key."""
+    out = dict(base)
+    for key, val in over.items():
+        both = isinstance(val, dict) and isinstance(out.get(key), dict)
+        out[key] = merged(out[key], val) if both else val
+    return out
+
+
+def tiny_root(tmp: Path, src: Path = harness.ROOT) -> Path:
+    """A root holding `src`'s BENCHMARK.json and benchmark/{configs,
+    traffic,limits,tests/tiny}, each configuration cut by its tiny file
+    and each cell's limits its tiny ones."""
     root = tmp / "root"
-    src = harness.ROOT
     (root / "benchmark").mkdir(parents=True)
     shutil.copy(src / "BENCHMARK.json", root / "BENCHMARK.json")
     for sub in ("traffic", "limits", "configs"):
         shutil.copytree(src / "benchmark" / sub, root / "benchmark" / sub)
-    for name, sizes in SIZES.items():
-        p = root / "benchmark" / "configs" / f"{name}.json"
-        cfg = json.loads(p.read_text())
-        cfg["sizes"] = sizes
-        if "fileset" in cfg:
-            cfg["fileset"]["ld_blocks"] = 6
-        if "eigensnp" in cfg:
-            cfg["eigensnp"]["min_subset_size"] = 100
-        p.write_text(json.dumps(cfg))
-    for cell, lims in (limits or {}).items():
-        p = root / "benchmark" / "limits" / f"{cell}.json"
-        p.write_text(json.dumps(lims))
+    shutil.copytree(src / TINY, root / TINY)
+    spec = spec_of(root)
+    for conf in spec["configs"]:
+        p = root / conf["file"]
+        cut = harness.load_json(root / TINY / f"{conf['name']}.json")
+        p.write_text(json.dumps(merged(harness.load_json(p), cut)))
+    for w in spec["workloads"]:
+        shutil.copy(root / TINY / "limits" / f"{w['name']}.json",
+                    root / "benchmark" / "limits" / f"{w['name']}.json")
     return root
 
 

@@ -12,7 +12,9 @@ memset), each with its interval.  The summary holds:
   kernels;
 - `breakdown`: the ten device operations that took most time, and the
   ten host operations under which the device stood idle longest (each
-  idle gap charged to the shortest host event that covers its middle).
+  idle gap charged to the shortest host event that covers its middle);
+- `spans`: what each of the program's `gp.` spans covered in the window
+  (`spans.reduce`, over the same idle gaps).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 from torch.autograd import DeviceType
+
+from benchmark import spans
 
 # The longest gaps attributed to a host operation.
 GAPS_ATTRIBUTED = 2000
@@ -96,6 +100,7 @@ def summarize(prof) -> dict:
             "device_ops": [[k, v / 1e6] for k, v in top_ops],
             "idle_gaps": [[k, v / 1e6] for k, v in idle_by_host[:10]],
         },
+        "spans": spans.reduce(events, w0, w1, gaps),
     }
 
 
