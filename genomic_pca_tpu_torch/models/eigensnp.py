@@ -72,7 +72,7 @@ from genomic_pca_tpu_torch.errors import ComputeError
 from genomic_pca_tpu_torch.models.pca import lane_fill_width
 from genomic_pca_tpu_torch.models.prepare import PreparedData
 from genomic_pca_tpu_torch.ops import kernels
-from genomic_pca_tpu_torch.ops.rsvd import rsvd, sketch_width
+from genomic_pca_tpu_torch.ops.rsvd import centre_samples, rsvd, sketch_width
 from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.models.prepare import group_memory_budget
 from genomic_pca_tpu_torch.utils.checkpoint import StageCheckpointer, fingerprint
@@ -666,8 +666,11 @@ def compute_eigensnp_pca(
                     s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
                     start_pass = p + 1
                     break
+            # Held orthogonal to the ones vector, as pca_core holds its
+            # basis (ops/rsvd.centre_samples).
+            s_basis = centre_samples(s_basis, n)
             for p in range(start_pass, cfg.refine_passes):
-                s_new = torch.linalg.qr(a.gram_apply(s_basis))[0]
+                s_new = torch.linalg.qr(centre_samples(a.gram_apply(s_basis), n))[0]
                 if diag is not None:
                     # sin of the largest principal angle between consecutive
                     # bases: the refinement's convergence series.

@@ -97,6 +97,31 @@ def quantize_basis(bp: torch.Tensor):
     return bq, sb.reshape(1, 1), csum
 
 
+def centre_samples(t: torch.Tensor, n: int) -> torch.Tensor:
+    """(N_pad, L) sample-space columns with each column's mean over the
+    first `n` rows (the real samples) taken out and the rows past them
+    zero: the columns projected orthogonal to the ones vector of the
+    samples.
+
+    Each row of the standardized matrix A is centred on its own valid
+    calls, so A 1 = 0: every right singular vector of a nonzero singular
+    value, and every exact A^T A B, is orthogonal to the ones vector.
+    The passes do not keep that.  bf16 rounds each row's scale and shift
+    apart, so A_bf16 1 = n delta, delta_i up to half a bf16 step of
+    mean_i / std_i, and A_bf16^T A_bf16 gains a direction along the ones
+    vector of eigenvalue sum(delta_i^2) (in sigma^2 / (n - 1)): it grows
+    with the rows, and stands above the bulk of the spectrum, which falls
+    towards 1 as the samples outnumber the rows.  A q8 steering pass,
+    which reads a missing call as -mean_i / std_i, adds one of its own.
+    A power loop whose basis is held orthogonal to the ones vector never
+    takes that direction in, so its Rayleigh-Ritz pairs are pairs of the
+    data."""
+    real = t[:n]
+    out = torch.zeros_like(t)
+    out[:n] = real - real.mean(dim=0, keepdim=True)
+    return out
+
+
 def subspace_residual(b: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """||T - B (B^T T)||_F / ||T||_F, the rfit tolerance metric."""
     proj = b.T @ t

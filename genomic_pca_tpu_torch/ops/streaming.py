@@ -65,7 +65,9 @@ import torch
 
 from genomic_pca_tpu_torch.io.prefetch import StripPrefetcher
 from genomic_pca_tpu_torch.ops import kernels
-from genomic_pca_tpu_torch.ops.rsvd import quantize_basis, subspace_residual
+from genomic_pca_tpu_torch.ops.rsvd import (
+    centre_samples, quantize_basis, subspace_residual,
+)
 from genomic_pca_tpu_torch.ops.standardize import MISSING
 from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.parallel.sharded import (
@@ -359,8 +361,11 @@ class StreamingMatrix:
         the last q8_polish run exact; with `tolerance` the steering passes
         exit early on the subspace residual of the merged pass, the same
         on every rank (the exact polish always runs), and the return is
-        (basis, passes run)."""
+        (basis, passes run).  The basis and every pass's result are held
+        orthogonal to the ones vector of the samples (`centre_samples`)."""
+        n = self.n_samples
         b = torch.as_tensor(b0, dtype=torch.float32, device=self.device)
+        b = centre_samples(b, n)
         use_q8 = self.kernel_precision == "q8"
         n_q8 = max(n_iter - self.q8_polish, 0) if use_q8 else 0
         n_done = 0
@@ -369,7 +374,8 @@ class StreamingMatrix:
             is_polish = use_q8 and t >= n_q8
             if converged and not is_polish:
                 continue
-            tmat = self._gram_apply_q8(b) if t < n_q8 else self.gram_apply(b)
+            tmat = centre_samples(self._gram_apply_q8(b) if t < n_q8
+                                  else self.gram_apply(b), n)
             res = None
             if tolerance is not None and t > 0 and not converged:
                 res = float(subspace_residual(b, tmat))

@@ -49,7 +49,9 @@ all-reduce is one `gp.pass.<pass>` range, named as the benchmark's
 roofline files name the passes (`q8_pass`, `exact_pass`, `rr_gram`,
 `loadings`); the orthonormalisations (CholQR2, the Householder QR,
 `eigh`) are `gp.pca.orth`, the loadings' gather and download
-`gp.pca.to_host`.
+`gp.pca.to_host`.  `COUNTS["passes_2d"]` counts the passes that run in
+the 2-D mode: each exact pass, q8 pass, Rayleigh-Ritz Gram and right
+product (the loadings, `right_apply`) once.
 
 Not ported here: the TPU tile choosers.
 """
@@ -63,11 +65,11 @@ import torch
 
 from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.rsvd import (
-    cholqr2_q, quantize_basis, subspace_residual,
+    centre_samples, cholqr2_q, quantize_basis, subspace_residual,
 )
 from genomic_pca_tpu_torch.ops.standardize import MISSING
 from genomic_pca_tpu_torch.parallel import mesh
-from genomic_pca_tpu_torch.utils.profiling import span, to_host
+from genomic_pca_tpu_torch.utils.profiling import count, span, to_host
 
 PACKED_MISSING_BYTE = 0x55  # four 01 (missing) fields
 
@@ -257,9 +259,6 @@ class ShardedMatrix:
         self._k1d = _KERNELS_1D[self.packed]
         self._k2d = _KERNELS_2D[self.packed]
         self._u = mean * inv_std
-        self._pmask = (
-            torch.arange(self.n_pad, device=self.device) < n_samples
-        ).to(torch.float32)[:, None]
         self.rank = mesh.process_index()
         self.world = mesh.process_count()
         self.row_offset = self.rank * self.d_pad  # global row of local row 0
@@ -563,8 +562,14 @@ class ShardedMatrix:
     # psum (:1136-1156).  In 2-D mode gram is W = A B then A^T W, tsq is
     # W^T W on the f32 W (a plain f32 product, TF32 off, as the
     # reference's jnp.dot at HIGHEST outside any kernel), and the q8 pass
-    # is q8_power_pass_2d; both layouts.
+    # is q8_power_pass_2d; both layouts.  Each counts one pass of the 2-D
+    # mode (`_count_2d`), the Rayleigh-Ritz Gram's right product inside it.
+    def _count_2d(self) -> None:
+        if self.mode == "2d":
+            count("passes_2d")
+
     def _gram(self, bp: torch.Tensor) -> torch.Tensor:
+        self._count_2d()
         args = (self.geno, self.mean, self.inv_std)
         if self.mode == "2d":
             w = self._k2d[0](*args, bp, self.exact_precision)
@@ -574,17 +579,20 @@ class ShardedMatrix:
         return mesh.all_reduce_sum(out)
 
     def _tsq(self, bp: torch.Tensor) -> torch.Tensor:
+        self._count_2d()
+        args = (self.geno, self.mean, self.inv_std, bp, self.exact_precision)
         if self.mode == "2d":
-            w = self._right(bp)
+            w = self._k2d[0](*args)
             return mesh.all_reduce_sum(w.T @ w)
-        return mesh.all_reduce_sum(self._k1d[1](
-            self.geno, self.mean, self.inv_std, bp, self.exact_precision))
+        return mesh.all_reduce_sum(self._k1d[1](*args))
 
     def _right(self, bp: torch.Tensor) -> torch.Tensor:
+        self._count_2d()
         fn = self._k2d[0] if self.mode == "2d" else self._k1d[2]
         return fn(self.geno, self.mean, self.inv_std, bp, self.exact_precision)
 
     def _gram_q8(self, bp: torch.Tensor) -> torch.Tensor:
+        self._count_2d()
         fn = kernels.q8_power_pass_2d if self.mode == "2d" else self._k1d[3]
         bq, sb, csum = quantize_basis(bp)
         out, ru = fn(self.geno, self.inv_std, self._u, bq, sb, csum,
@@ -647,16 +655,19 @@ class ShardedMatrix:
         steering passes come first and the exact polish passes always
         run in full; `tol` early-exits the steering loop on the subspace
         residual (never before one orthonormalised pass: the i > 0
-        guard).  Rows of padded samples are zeroed after every pass: the
-        q8 rank-1 term makes them nonzero."""
+        guard).  The basis and every pass's result are held orthogonal to
+        the ones vector over the real samples, the rows of padded samples
+        zero (`centre_samples`: the q8 rank-1 term makes them nonzero)."""
 
         def t_exact(cur):
             with span("gp.pass.exact_pass"):
-                return self._gram(cur) * self._pmask
+                t = self._gram(cur)
+            return centre_samples(t, self.n_samples)
 
         def t_q8(cur):
             with span("gp.pass.q8_pass"):
-                return self._gram_q8(cur) * self._pmask
+                t = self._gram_q8(cur)
+            return centre_samples(t, self.n_samples)
 
         def orth(t):
             with span("gp.pca.orth"):
@@ -678,6 +689,7 @@ class ShardedMatrix:
                 i += 1
             return cur, i
 
+        bp = centre_samples(bp, self.n_samples)
         if self.kernel_precision != "q8":
             return run(t_exact, n_iter, bp)
         n_q8 = max(n_iter - self.q8_polish, 0)

@@ -33,9 +33,12 @@ number and its span cover one interval.
 the PCA paths (models/pca.py, models/eigensnp.py, parallel/sharded.py),
 made through `to_host`; `COUNTS["table_rows_native"]` and
 `COUNTS["table_rows_loop"]` count the .bim and .fam rows that the native
-pass and the Python line loop parsed (io/bed.py).  `reset_counts()`
-zeroes them all, as `kernels.reset_launch_counts()` zeroes the launch
-counts.
+pass and the Python line loop parsed (io/bed.py).  `COUNTS["passes_2d"]`
+counts the matrix passes the resident container runs in its 2-D mode
+(parallel/sharded.py); it is there only once such a pass has run, so a
+run in the 1-D mode has the three counts alone.  `reset_counts()` zeroes
+the three and takes the others out, as `kernels.reset_launch_counts()`
+zeroes the launch counts.
 """
 
 from __future__ import annotations
@@ -51,12 +54,19 @@ import torch.autograd.profiler as _autograd_profiler
 
 log = logging.getLogger(__name__)
 
-COUNTS = {"d2h_bytes": 0, "table_rows_native": 0, "table_rows_loop": 0}
+# The counts every run has; a count of one mode, as "passes_2d", is added
+# by the first pass that runs in it (`count`).
+_ALWAYS = ("d2h_bytes", "table_rows_native", "table_rows_loop")
+COUNTS = dict.fromkeys(_ALWAYS, 0)
 
 
 def reset_counts() -> None:
-    for key in COUNTS:
-        COUNTS[key] = 0
+    COUNTS.clear()
+    COUNTS.update(dict.fromkeys(_ALWAYS, 0))
+
+
+def count(key: str) -> None:
+    COUNTS[key] = COUNTS.get(key, 0) + 1
 
 
 def to_host(t: torch.Tensor) -> torch.Tensor:
