@@ -47,8 +47,12 @@ no result line):
    --bed-file ... --ld-block-file ... -o ...` at its default settings on
    a PLINK fileset of 65,536 SNPs x 16,384 samples in 64 LD blocks, made
    on the card, with `--write-moments`; its stage split and launch counts
-   (5 and 6 ran), and its TSVs against a float64 PCA of the PCA-SNP set it
-   kept;
+   (5 and 6 ran, and the block batch kernel `standardize_runs` once for
+   each stage 1-2 batch the run logged), and its TSVs against a float64
+   PCA of the PCA-SNP set it kept; then that kernel, packed and dense
+   (`standardize_runs_i8`), bit for bit its plain version, with a
+   bit-identical second launch and CUDA-event times, at the UK Biobank
+   chunk (1, 512, 407,552) and at kgp3's (4, 25,600, 2,560);
 9. the four dense int8 kernels (9-12) against their plain versions at
    262,144 x 2,048 (L = 128; 10 for the right product) and at 70,001 x
    2,504 (container width 2,560), the exact three (10-12) at 65,536 x
@@ -61,7 +65,8 @@ no result line):
    float64 gate, and per-PC agreement with the packed run of phase 5;
 11. EigenSNP on the dense container (`run_eigensnp_workflow` with
    `packed_pipeline=False`, in-process) on a PLINK fileset of 65,536 SNPs
-   x 10,000 samples: its stage split, launches of 10, 11 and 12 only, its
+   x 10,000 samples: its stage split, launches of 10, 11 and 12 and of
+   the dense block batch kernel once a logged stage 1-2 batch only, its
    TSVs against a float64 PCA; then `python -m genomic_pca_tpu_torch
    --project` of the same fileset through the fitted model: its scores
    against the fit's (self-projection) and against a float64 host
@@ -229,6 +234,8 @@ TOL = {
     "fused_left_apply_2d": 1e-5,
     "right_apply_2d_q8_i8": 0.0,
     "left_apply_2d_q8_i8": 0.0,
+    "standardize_runs": 0.0,
+    "standardize_runs_i8": 0.0,
 }
 KERNELS_1D = ("fused_gram_q8_packed", "fused_gram_apply_packed",
               "fused_tsq_packed", "fused_right_apply_packed")
@@ -238,12 +245,16 @@ KERNELS_DENSE = ("fused_gram_q8", "fused_gram_apply", "fused_tsq",
                  "fused_right_apply")
 KERNELS_DENSE_2D = ("fused_right_apply_2d", "fused_left_apply_2d",
                     "right_apply_2d_q8_i8", "left_apply_2d_q8_i8")
+# The EigenSNP stage 1-2 block batch (`standardize_runs`), packed and dense.
+KERNELS_RUNS = ("standardize_runs", "standardize_runs_i8")
 # The wrapper of each kernel whose launch count has another name: the
-# 2-D q8 products dispatch on the genotype dtype.
+# 2-D q8 products and the block batch dispatch on the genotype dtype.
 WRAPPER = {"right_apply_2d_q8_i8": "right_apply_2d_q8",
-           "left_apply_2d_q8_i8": "left_apply_2d_q8"}
+           "left_apply_2d_q8_i8": "left_apply_2d_q8",
+           "standardize_runs_i8": "standardize_runs"}
 CSRC = "genomic_pca_tpu_torch/csrc/"
 PK = "genomic_pca_tpu/ops/pallas_kernels.py:"
+SLICERS = "genomic_pca_tpu/parallel/sharded.py:305-376"
 SOURCES = {
     "fused_gram_q8_packed": (CSRC + "q8_pass.cuh", PK + "977"),
     "fused_gram_apply_packed": (CSRC + "exact_kernels.cu", PK + "492"),
@@ -261,9 +272,13 @@ SOURCES = {
     "fused_left_apply_2d": (CSRC + "wide_kernels.cu", PK + "346"),
     "right_apply_2d_q8_i8": (CSRC + "q8_right2d_kernels.cu", PK + "1096"),
     "left_apply_2d_q8_i8": (CSRC + "q8_left2d_kernels.cu", PK + "1139"),
+    # No Pallas kernel: the XLA slicers _slice_blocks_packed_impl and
+    # _slice_blocks_impl of the JAX package's fetch_blocks_device.
+    "standardize_runs": (CSRC + "block_fetch_kernels.cu", SLICERS),
+    "standardize_runs_i8": (CSRC + "block_fetch_kernels.cu", SLICERS),
 }
 ZERO_LAUNCHES = dict.fromkeys(
-    KERNELS_1D + KERNELS_2D + KERNELS_DENSE + KERNELS_DENSE_2D, 0)
+    KERNELS_1D + KERNELS_2D + KERNELS_DENSE + KERNELS_DENSE_2D + KERNELS_RUNS, 0)
 # Kernels with a fixed sum order and no atomics: a second launch on the
 # same inputs must give the same bits.  The tensor-core products, left
 # and right, exact and q8.
@@ -278,7 +293,7 @@ TSQ_MMA = ("fused_tsq_packed", "fused_tsq")  # bf16 mode
 # bf16 mode: the narrow kernel (L <= 16), else the 2-D right product's store.
 RIGHT1D_MMA = ("fused_right_apply_packed", "fused_right_apply")
 BITWISE_RERUN = (LEFT_MMA + RIGHT_MMA + GRAM_MMA + Q8_RIGHT_MMA + TSQ_MMA + RIGHT1D_MMA
-                 + Q8_LEFT_MMA + Q8_PASS)
+                 + Q8_LEFT_MMA + Q8_PASS + KERNELS_RUNS)
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet, dense):
 # device memory rate, and tensor-core rates for the operand type of each
@@ -439,11 +454,12 @@ def median_ms(torch, fn, reps):
 
 
 def kernel_cases(torch, d, n, seed, device, names, ell=128, right1d_ell=10,
-                 q8_tile=1024):
+                 q8_tile=1024, runs=None):
     """Inputs for each kernel of `names` at one shape: {name: (args,
     kwargs)}; `ell` the columns of B of the 2-D right products,
     `right1d_ell` those of the 1-D ones (the others take 128); `q8_tile`
-    the row tile of the 2-D q8 left products' z8."""
+    the row tile of the 2-D q8 left products' z8; `runs` (starts, lens,
+    bucket) the row runs of the block batch kernels."""
     from genomic_pca_tpu_torch.ops.kernels import (
         fused_right_apply_2d_packed_plain, quantize_rows,
     )
@@ -475,7 +491,10 @@ def kernel_cases(torch, d, n, seed, device, names, ell=128, right1d_ell=10,
     # z8 / sz of a 2-D q8 pass, quantized per row tile of q8_tile.
     z8, sz = quantize_rows(torch.randn((d, 128), generator=gen, device=device), q8_tile)
     geno = (dense_from_packed(torch, packed[:, : n_d // 4])
-            if set(names) & set(KERNELS_DENSE + KERNELS_DENSE_2D) else None)
+            if set(names) & set(KERNELS_DENSE + KERNELS_DENSE_2D + KERNELS_RUNS[1:])
+            else None)
+    starts, lens, bucket = runs or ((), (), 0)
+    starts, lens = (torch.tensor(x, dtype=torch.int64) for x in (starts, lens))
     b_d = b128[:n_d]
     cases = {
         "fused_gram_q8_packed": lambda: ((packed, inv, mean * inv, bq, sb, csum),
@@ -507,6 +526,8 @@ def kernel_cases(torch, d, n, seed, device, names, ell=128, right1d_ell=10,
             {"precision": "bf16"}),
         "right_apply_2d_q8_i8": lambda: ((geno, quantize_basis(b_d)[0]), {}),
         "left_apply_2d_q8_i8": lambda: ((geno, z8, sz), {"tile_d": q8_tile}),
+        "standardize_runs": lambda: ((packed, mean, inv, starts, lens, bucket), {}),
+        "standardize_runs_i8": lambda: ((geno, mean, inv, starts, lens, bucket), {}),
     }
     return {name: cases[name]() for name in names}
 
@@ -517,9 +538,16 @@ def bound_of(torch, name, args, out):
     (each input read once, each output written once) over the memory rate
     and its operations (2 D N L per product, N the padded sample count
     the kernel runs over, plus 2 D L^2 for tsq's W^T W) over the
-    tensor-core peak of its operand type."""
+    tensor-core peak of its operand type.  The block batch kernels read
+    only their runs' rows and do no products."""
     from genomic_pca_tpu_torch.ops import kernels as tk
 
+    if name in KERNELS_RUNS:
+        # The batch written, and the runs' rows and their moments read.
+        geno, lens = args[0], args[4]
+        nbytes = (out.numel() * out.element_size()
+                  + int(lens.sum()) * (geno.shape[1] * geno.element_size() + 8))
+        return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
     outs = out if isinstance(out, tuple) else (out,)
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
                  if torch.is_tensor(t))
@@ -538,10 +566,12 @@ def library_call(torch, name, args):
     """(label, fn) of the one PyTorch call that computes a kernel's
     product on the same inputs already decoded (and standardized in bf16),
     or None where no single call does (the q8 passes: two integer
-    products with a requantization between).  A yardstick only: the port
+    products with a requantization between; the block batch: no product).  A yardstick only: the port
     never calls it."""
     from genomic_pca_tpu_torch.ops import kernels as tk
 
+    if name in KERNELS_RUNS:  # a decode, no product
+        return None
     geno = args[0]
     if name in ("right_apply_2d_q8", "right_apply_2d_q8_i8"):
         g0 = tk.dosages_g0(geno).contiguous()
@@ -632,21 +662,26 @@ def check_tsq(torch, name, args, got):
 
 
 def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
-                  ties_allowed=False, right1d_ell=10, q8_tile=1024):
+                  ties_allowed=False, right1d_ell=10, q8_tile=1024, runs=None):
     """Each kernel of `names` against its plain version at D x N (see TOL;
     `ties_allowed`: the gram passes' W ties, see `check_gram`; the q8 left
     products' plain version at their plan's row ranges), its plans and a
     second launch's bits where it has them, and CUDA-event times of
     kernel, plain version and library call.  A 1-D right product wider
-    than the narrow kernel must equal the 2-D one (its route) bit for bit."""
+    than the narrow kernel must equal the 2-D one (its route) bit for bit.
+    `runs` (starts, lens, bucket): the block batch kernels' row runs, host
+    integers to the wrapper as the container gives them, on the card to
+    the plain version."""
     from genomic_pca_tpu_torch.ops import kernels as tk
 
     results = {}
-    for name, (args, kw) in kernel_cases(torch, d, n, seed, device, names,
-                                         ell, right1d_ell, q8_tile).items():
+    for name, (args, kw) in kernel_cases(torch, d, n, seed, device, names, ell,
+                                         right1d_ell, q8_tile, runs).items():
         kern = getattr(tk, WRAPPER.get(name, name))
         plain = tk.PLAIN[name]
-        plain_kw = kw
+        plain_args, plain_kw = args, kw
+        if name in KERNELS_RUNS:
+            plain_args = (*args[:3], args[3].to(device), args[4].to(device), args[5])
         if name in Q8_LEFT_MMA:
             q8_plan = tk.q8_left2d_plan(d, tk._samples(tk.aligned_rows(args[0])),
                                         args[1].shape[1], q8_tile)
@@ -660,7 +695,7 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
             return kern(*args, **kw)
 
         def run_p():
-            return plain(*args, **plain_kw)
+            return plain(*plain_args, **plain_kw)
 
         got, ref = run_k(), run_p()
         torch.cuda.synchronize()
@@ -724,6 +759,11 @@ def check_kernels(torch, d, n, seed, device, reps, names, ell=128,
                         f"the rows in {len(lr)} range(s) from tiles {list(lr)}; "
                         f"workspace {work / 2**20:.2f} MiB; out bit for bit the plain "
                         "pass at those ranges")
+            elif name in KERNELS_RUNS:
+                b, bucket, cols = got.shape
+                plan = (f"batch {(b, bucket, cols)} of runs of {args[4].tolist()} rows: "
+                        f"grid ({b * bucket}, {-(-cols // 4096)}) of 256 threads, a "
+                        "block 4,096 samples of one row")
             elif name in Q8_RIGHT_MMA:
                 tile, grid, splits = tk.q8_right2d_plan(
                     d, tk._samples(tk.aligned_rows(args[0])), ell)
@@ -1088,7 +1128,8 @@ def check_eigensnp_cli(torch, np, device, d, n, n_blocks, k, seed):
     missing.  Gate: its TSVs against a float64 PCA of the PCA SNPs its
     loadings list, with the QC moments (mean, sample std over valid
     genotypes).  The fileset stays in FILESET for phase 14; returns
-    (prefix, the CLI's scores, the float64 oracle, its separated prefix)."""
+    ((prefix, the CLI's scores, the float64 oracle, its separated prefix),
+    the launches of the packed block batch kernel)."""
     from genomic_pca_tpu_torch.parallel.sharded import inv_std_of
 
     label = "eigensnp cli"
@@ -1112,20 +1153,18 @@ def check_eigensnp_cli(torch, np, device, d, n, n_blocks, k, seed):
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=900,
     )
     wall = time.perf_counter() - t0
-    launches = None
-    for line in proc.stderr.splitlines():
-        msg = line.split("] ", 1)[-1]
-        if msg.startswith(("SNP QC:", "LD mapping:", "EigenSNP matrix loaded",
-                           "EigenSNP stage split:", "Total run time")):
-            log(f"[{label}] {msg}")
-        if msg.startswith("Kernel launches: "):
-            launches = json.loads(msg[len("Kernel launches: "):])
+    msgs = [line.split("] ", 1)[-1] for line in proc.stderr.splitlines()]
+    log_messages(label, msgs, ("SNP QC:", "LD mapping:", "EigenSNP matrix loaded",
+                               "EigenSNP stages 1-2:", "EigenSNP stage split:",
+                               "Total run time"))
     if proc.returncode != 0:
         raise AssertionError(f"CLI exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    launches = kernel_launches(msgs)
     log(f"[{label}] python -m genomic_pca_tpu_torch --eigensnp exit 0 in "
         f"{wall:.2f} s; launches {launches}")
+    batches = block_batches(label, msgs)
     want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=3,
-                fused_left_apply_2d_packed=1)
+                fused_left_apply_2d_packed=1, standardize_runs=batches)
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != {want}")
     pcs = np.loadtxt(f"{out}.eigensnp.pca.tsv", skiprows=1,
@@ -1150,7 +1189,7 @@ def check_eigensnp_cli(torch, np, device, d, n, n_blocks, k, seed):
     log(f"[{label}] float64 oracle in {time.perf_counter() - t0:.1f} s")
     oracle = (v_true.cpu().numpy(), ev_true.cpu().numpy())
     sep, _, _ = check_pcs(np, pcs, *oracle, evs * (n - 1), k, label)
-    return prefix, pcs, oracle, sep
+    return (prefix, pcs, oracle, sep), batches
 
 
 def log_messages(label, messages, prefixes):
@@ -1187,7 +1226,8 @@ def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
     projection: the CLI in a subprocess; its scores against the fit's
     over the separated prefix (self-projection, tests/test_project.py)
     and against the float64 host `transform` of the genotypes made on the
-    card (not read back from the BED), summed over SNP strips."""
+    card (not read back from the BED), summed over SNP strips.  Returns
+    (the fileset's prefix, the launches of the dense block batch kernel)."""
     from genomic_pca_tpu_torch.models.pca import transform
     from genomic_pca_tpu_torch.ops import kernels as tk
     from genomic_pca_tpu_torch.parallel.sharded import inv_std_of
@@ -1218,13 +1258,15 @@ def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
     launches = dict(tk.LAUNCHES)
     log_messages(label, messages, ("SNP QC:", "LD mapping:", "QC->matrix capture",
                                    "Matrix assembly", "EigenSNP matrix loaded",
-                                   "EigenSNP stage split:"))
+                                   "EigenSNP stages 1-2:", "EigenSNP stage split:"))
     log(f"[{label}] run_eigensnp_workflow(packed_pipeline=False) in {wall:.2f} s; "
         f"launches {launches}")
     if not any(m.startswith("Matrix assembly from the QC scan") for m in messages):
         raise AssertionError(f"{label}: 'auto' did not take the device scan and "
                              "its int8 capture")
-    want = dict(ZERO_LAUNCHES, fused_gram_apply=1, fused_tsq=1, fused_right_apply=1)
+    batches = block_batches(label, messages)
+    want = dict(ZERO_LAUNCHES, fused_gram_apply=1, fused_tsq=1, fused_right_apply=1,
+                standardize_runs_i8=batches)
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != {want}")
     pcs = np.loadtxt(f"{fit}.eigensnp.pca.tsv", skiprows=1,
@@ -1295,7 +1337,7 @@ def check_dense_eigensnp_and_projection(torch, np, device, d, n, n_blocks, k,
         raise AssertionError(f"{label}: projection disagrees: |r| {rs}, rel {rel}")
     shutil.rmtree(DENSE_KEPT, ignore_errors=True)
     shutil.move(str(WORK), str(DENSE_KEPT))
-    return DENSE_KEPT / "cohort"
+    return DENSE_KEPT / "cohort", batches
 
 
 def check_streamed_main(torch, np, device, d, n, k, seed, strip, resident):
@@ -1487,6 +1529,19 @@ def kernel_launches(messages):
                 if m.startswith("Kernel launches: "))
 
 
+def block_batches(label, messages):
+    """The stage 1-2 block batches an EigenSNP run logged when it sliced its
+    blocks from the resident matrix (rank 0's), each one launch of the
+    block batch kernel; raises where it logged none."""
+    prefix = "EigenSNP stages 1-2: "
+    got = [int(m[len(prefix):].split()[0]) for m in messages
+           if m.startswith(prefix) and "block batches" in m]
+    if not got or got[0] < 1:
+        raise AssertionError(f"{label}: stages 1-2 sliced no block batches from the "
+                             f"resident matrix: {got}")
+    return got[0]
+
+
 def torchrun(args, label, timeout=900):
     """`python -m torch.distributed.run --standalone --nproc-per-node 2
     -m genomic_pca_tpu_torch <args>`: (rank 0's log messages, wall)."""
@@ -1630,12 +1685,14 @@ def check_multirank(torch, np, device, main, main_res, vcf_run, fileset):
                            "--eigensnp-qc-mode", "host"], label)
     log_messages(label, msgs, ("Process group:", "Distributed SNP QC", "SNP QC:",
                                "LD mapping:", "EigenSNP matrix loaded",
-                               "EigenSNP stage split:", "Total run time"))
+                               "EigenSNP stages 1-2:", "EigenSNP stage split:",
+                               "Total run time"))
     launches = kernel_launches(msgs)
     log(f"[{label}] torch.distributed.run --nproc-per-node 2 exit 0 in "
         f"{wall:.2f} s; rank 0 launches {launches}")
     want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=3,
-                fused_left_apply_2d_packed=1)
+                fused_left_apply_2d_packed=1,
+                standardize_runs=block_batches(label, msgs))
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != {want}")
     one_rank = FILESET / "out.eigensnp.moments.tsv"
@@ -1678,14 +1735,16 @@ def check_device_scan(torch, np, device, fileset, dense_prefix):
     msgs = [line.split("] ", 1)[-1] for line in proc.stderr.splitlines()]
     log_messages(label, msgs, ("SNP QC", "QC->matrix capture", "Matrix assembly",
                                "Memory preflight", "EigenSNP matrix loaded",
-                               "EigenSNP stage split:", "Total run time"))
+                               "EigenSNP stages 1-2:", "EigenSNP stage split:",
+                               "Total run time"))
     launches = kernel_launches(msgs)
     same = (Path(f"{out}.eigensnp.moments.tsv").read_bytes()
             == (FILESET / "out.eigensnp.moments.tsv").read_bytes())
     log(f"[{label}] --eigensnp-qc-mode device exit 0 in {wall:.2f} s; launches "
         f"{launches}; moments TSV byte for byte phase 8's: {same}")
     want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=3,
-                fused_left_apply_2d_packed=1)
+                fused_left_apply_2d_packed=1,
+                standardize_runs=block_batches(label, msgs))
     if launches != want or not same:
         raise AssertionError(f"{label}: launches {launches} or moments differ")
     if not any(m.startswith("Matrix assembly from the QC scan") for m in msgs):
@@ -1895,15 +1954,16 @@ def check_streamed_ranks(torch, np, device, streamed_main, fileset):
                            f"{prefix}.blocks.tsv", "-o", str(out), "--write-moments",
                            "--eigensnp-qc-mode", "device"], label)
     log_messages(label, msgs, ("Distributed SNP QC", "SNP QC:", "QC->matrix capture",
-                               "Rank 0/2 holds", "EigenSNP stage split:",
-                               "Total run time"))
+                               "Rank 0/2 holds", "EigenSNP stages 1-2:",
+                               "EigenSNP stage split:", "Total run time"))
     launches = kernel_launches(msgs)
     same = (Path(f"{out}.eigensnp.moments.tsv").read_bytes()
             == (FILESET / "ranks2.eigensnp.moments.tsv").read_bytes())
     log(f"[{label}] torch.distributed.run --nproc-per-node 2 exit 0 in {wall:.2f} s; "
         f"rank 0 launches {launches}; moments TSV byte for byte phase 15d's: {same}")
     want = dict(ZERO_LAUNCHES, fused_right_apply_2d_packed=3,
-                fused_left_apply_2d_packed=1)
+                fused_left_apply_2d_packed=1,
+                standardize_runs=block_batches(label, msgs))
     if launches != want or not same:
         raise AssertionError(f"{label}: launches {launches} or moments differ")
     if not any(m.startswith("Rank 0/2 holds") and "from its QC capture" in m
@@ -2209,9 +2269,9 @@ def check_bench(torch, np):
             raise AssertionError(f"{label}: {row} launches {launches.get(row)} != {counts}")
     legs = [launches[f"biobank_e2e {leg}"] for leg in d["biobank_e2e_legs_seconds"]]
     reached = set().union(*legs)
-    if not reached or reached - set(KERNELS_2D):
+    if not reached or reached - set(KERNELS_2D + KERNELS_RUNS[:1]):
         raise AssertionError(f"{label}: the compact biobank legs launched {legs}, "
-                             "not 2-D kernels only")
+                             "not 2-D kernels and packed block batches only")
     r_min = d["biobank_e2e_per_pc_abs_r_min_separated"]
     if not r_min > ORACLE_R_MIN:
         raise AssertionError(f"{label}: compact biobank subset oracle min |r| {r_min} "
@@ -2363,8 +2423,17 @@ def main() -> int:
     vcf_run = check_cli(torch, np, device, 65_536, 16, 11, SEED + 3, 10, keep=True)
 
     # 8. The EigenSNP CLI at 16,384 samples; its fileset stays for 14.
-    fileset = check_eigensnp_cli(torch, np, device, 65_536, 16_384, 64, 10,
-                                 SEED + 5)
+    fileset, launches["standardize_runs"] = check_eigensnp_cli(
+        torch, np, device, 65_536, 16_384, 64, 10, SEED + 5)
+    # Its stage 1-2 block batch kernel, packed and dense, at the UK Biobank
+    # chunk (one run of 56 rows in a bucket of 512, 407,552 samples) and at
+    # kgp3's (four runs of 24,000-25,600 rows, 2,560 samples).
+    results.update(check_kernels(torch, 600, 407_552, SEED + 15, device, 5,
+                                 KERNELS_RUNS, runs=([40], [56], 512)))
+    check_kernels(torch, 102_500, 2_560, SEED + 16, device, 5, KERNELS_RUNS,
+                  runs=([0, 25_600, 51_200, 76_900], [25_600, 25_000, 24_000, 25_600],
+                        25_600))
+    torch.cuda.empty_cache()
 
     # 9. The dense int8 kernels at the 1-D main shape, a ragged one, and
     # the exact three at the width of the dense EigenSNP run (10,000
@@ -2402,8 +2471,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11. EigenSNP on the dense container at 10,000 samples, then --project.
-    dense_prefix = check_dense_eigensnp_and_projection(torch, np, device, 65_536,
-                                                       10_000, 64, 10, SEED + 8)
+    dense_prefix, launches["standardize_runs_i8"] = (
+        check_dense_eigensnp_and_projection(torch, np, device, 65_536, 10_000, 64,
+                                            10, SEED + 8))
 
     # 12. The dense 2-D kernels at the 2-D kernel shape and a ragged one.
     results.update(check_kernels(torch, 65_536, 16_384, SEED + 6, device, 5,

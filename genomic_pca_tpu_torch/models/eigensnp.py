@@ -230,10 +230,12 @@ def _stages12_device(a, prep: PreparedData, cfg: EigenSnpConfig,
     """Stages 1+2 with every chunk's blocks sliced from the resident
     matrix (`fetch_blocks_device`), each rank over the blocks it holds."""
     owned = [int(b) for b in np.nonzero(a.rank_of_runs(runs) == a.rank)[0]]
+    tasks = list(_chunks(_device_group_plan(a, prep, cfg, subset, owned)))
+    log.info("EigenSNP stages 1-2: %d block batches over this rank's %d blocks.",
+             len(tasks), len(owned))
 
     def batches():
-        for bucket, c_b, chunk, chunk_b in _chunks(
-                _device_group_plan(a, prep, cfg, subset, owned)):
+        for bucket, c_b, chunk, chunk_b in tasks:
             starts = np.zeros(chunk_b, dtype=np.int64)
             lens = np.zeros(chunk_b, dtype=np.int64)
             starts[:len(chunk)] = runs[chunk, 0]

@@ -69,6 +69,8 @@ SIGNATURES = {
     "gp_q8_left2d_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "gp_q8_pass_packed": [_P] * 9 + [_I] * 6 + [_P],
     "gp_q8_pass_dense": [_P] * 9 + [_I] * 6 + [_P],
+    "gp_standardize_runs_packed": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gp_standardize_runs_dense": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

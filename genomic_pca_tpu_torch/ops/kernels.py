@@ -11,7 +11,9 @@ genotypes in ORIGINAL sample order - packed as a (D, N4) uint8 tensor
 a (D, N) int8 tensor with -127 missing - per-SNP (D, 1) f32 columns, and
 sample- or variant-indexed (., L) operands, and returns what the TPU
 kernel of the same name in `genomic_pca_tpu/ops/pallas_kernels.py`
-returns, un-permuted.
+returns, un-permuted.  One more, `standardize_runs`, builds the
+standardized block batches of EigenSNP stages 1-2 from either layout
+(counted as `standardize_runs` packed, `standardize_runs_i8` dense).
 
 Dispatch rule: a CPU tensor runs the plain PyTorch version beside each
 kernel; a CUDA tensor launches the hand-written CUDA kernel (csrc/, built
@@ -33,6 +35,7 @@ from typing import Dict
 import torch
 
 from genomic_pca_tpu_torch.ops.standardize import MISSING, standardize_rows
+from genomic_pca_tpu_torch.utils.profiling import count
 
 LAUNCHES: Dict[str, int] = {
     "fused_gram_q8_packed": 0,
@@ -51,6 +54,8 @@ LAUNCHES: Dict[str, int] = {
     "fused_left_apply_2d": 0,
     "right_apply_2d_q8_i8": 0,
     "left_apply_2d_q8_i8": 0,
+    "standardize_runs": 0,
+    "standardize_runs_i8": 0,
 }
 
 
@@ -129,6 +134,19 @@ def standardize(geno, mean, inv_std, precision: str = "bf16"):
     """The standardized tile A of either layout (uint8 packed, int8 dense)."""
     fn = standardize_packed if geno.dtype == torch.uint8 else standardize_dense
     return fn(geno, mean, inv_std, precision)
+
+
+def standardize_runs_plain(geno, mean, inv_std, starts, lens, bucket: int):
+    """(B, bucket, C) f32 standardized row runs of either layout: row i of
+    block b is row starts[b] + i standardized in f32 for i < lens[b], else
+    0; C = 4 * N4 packed, N dense.  `starts` and `lens` are (B,) int64
+    tensors on the genotypes' device."""
+    offs = torch.arange(bucket, device=geno.device)
+    rows = torch.clamp(starts[:, None] + offs, max=geno.shape[0] - 1).reshape(-1)
+    x = standardize(geno[rows], mean[rows], inv_std[rows], "f32").reshape(
+        len(starts), bucket, -1)
+    in_run = offs[None, :] < lens[:, None]
+    return torch.where(in_run[:, :, None], x, torch.zeros((), device=geno.device))
 
 
 def _operand(b: torch.Tensor, bf16: bool) -> torch.Tensor:
@@ -1222,6 +1240,58 @@ def fused_left_apply_2d(geno, mean, inv_std, w, precision="bf16"):
                    "fused_left_apply_2d")
 
 
+# standardize_runs replaces no Pallas kernel: it is the port's counterpart
+# of the XLA slicers _slice_blocks_packed_impl / _slice_blocks_impl
+# (genomic_pca_tpu/parallel/sharded.py:305-376), the block batches of
+# EigenSNP stages 1-2 (ShardedMatrix.fetch_blocks_device).  Bound on an
+# H100 by bytes: at the UK Biobank chunk (1, 512, 407,552) 834.7 MB written
+# and the run's rows read (5.7 MB packed for 56 rows), 0.251 ms.  One C call
+# (gp_standardize_runs_packed / _dense, csrc/block_fetch_kernels.cu) reads
+# each byte of a run once and writes the f32 batch once, in the plain
+# version's arithmetic, where the plain chain builds int32 and f32
+# intermediates of the batch's size.
+
+
+def standardize_runs(geno, mean, inv_std, starts, lens, bucket: int):
+    """The (B, bucket, C) f32 block batch of `standardize_runs_plain`:
+    `starts`, `lens` (B,) host integer arrays of local row runs, every
+    run of nonzero length inside the D rows and at most `bucket` long
+    (ValueError otherwise); the starts of zero-length runs (batch padding)
+    are ignored.  Genotypes uint8 packed or int8 dense, moments (D, 1)
+    f32; bit for bit the plain version.  Each launch also adds one to
+    `COUNTS["block_fetch_kernel"]` (utils/profiling.py)."""
+    dtype = _layout(geno)
+    geno = _check_geno(geno, dtype)
+    d, dev = geno.shape[0], geno.device
+    mean = _require(mean, "mean", torch.float32, (d, 1), dev)
+    inv_std = _require(inv_std, "inv_std", torch.float32, (d, 1), dev)
+    starts = torch.as_tensor(starts, dtype=torch.int64).reshape(-1)
+    lens = torch.as_tensor(lens, dtype=torch.int64).reshape(-1)
+    if starts.shape != lens.shape:
+        raise ValueError(f"starts {tuple(starts.shape)} and lens {tuple(lens.shape)} "
+                         "must be the same length")
+    if bucket < 1 or not len(lens):
+        raise ValueError(f"need a bucket >= 1 and a run, got {bucket}, {len(lens)} runs")
+    if int(lens.max()) > bucket:
+        raise ValueError(f"block longer than bucket: {int(lens.max())} > {bucket}")
+    used = lens > 0
+    if bool((lens < 0).any() | (used & ((starts < 0) | (starts + lens > d))).any()):
+        raise ValueError(f"a run lies outside the {d} rows")
+    starts = torch.where(used, starts, 0)
+    if _route(geno) == "plain":
+        return standardize_runs_plain(geno, mean, inv_std, starts, lens, bucket)
+    runs = torch.stack([starts, lens]).to(torch.int32).to(dev)
+    out = torch.empty((len(lens), bucket, _samples(geno)), dtype=torch.float32,
+                      device=dev)
+    packed = dtype == torch.uint8
+    LAUNCHES["standardize_runs" if packed else "standardize_runs_i8"] += 1
+    count("block_fetch_kernel")
+    entry = "gp_standardize_runs_packed" if packed else "gp_standardize_runs_dense"
+    _launch(dev, entry, geno, mean, inv_std, runs, out, _samples(geno) // 4,
+            len(lens), bucket)
+    return out
+
+
 # The dense 2-D products are the same functions of A as the packed ones.
 fused_right_apply_2d_plain = fused_right_apply_packed_plain
 fused_left_apply_2d_plain = fused_left_apply_2d_packed_plain
@@ -1244,4 +1314,6 @@ PLAIN = {
     "fused_left_apply_2d": fused_left_apply_2d_plain,
     "right_apply_2d_q8_i8": right_apply_2d_q8_plain,
     "left_apply_2d_q8_i8": left_apply_2d_q8_plain,
+    "standardize_runs": standardize_runs_plain,
+    "standardize_runs_i8": standardize_runs_plain,
 }

@@ -51,7 +51,9 @@ roofline files name the passes (`q8_pass`, `exact_pass`, `rr_gram`,
 `eigh`) are `gp.pca.orth`, the loadings' gather and download
 `gp.pca.to_host`.  `COUNTS["passes_2d"]` counts the passes that run in
 the 2-D mode: each exact pass, q8 pass, Rayleigh-Ritz Gram and right
-product (the loadings, `right_apply`) once.
+product (the loadings, `right_apply`) once; `COUNTS["block_fetch_kernel"]`
+(counted by `kernels.standardize_runs`) each `fetch_blocks_device` call
+that the card's kernel serves.
 
 Not ported here: the TPU tile choosers.
 """
@@ -836,24 +838,18 @@ class ShardedMatrix:
         difference of layout: where a bucket would pass the last row the
         reference reads a window moved back to end there, so the run sits
         lower in its bucket; here every run starts at row 0 of its
-        bucket, so a block's local basis rows are its SNPs in order."""
+        bucket, so a block's local basis rows are its SNPs in order.  The
+        batch is one `kernels.standardize_runs` call (on the card its
+        kernel, which counts itself in `COUNTS["block_fetch_kernel"]`)."""
         bucket = min(bucket, self.d_pad)
         lens = np.asarray(lens, dtype=np.int64)
-        if int(lens.max()) > bucket:
-            raise ValueError(f"block longer than bucket: {int(lens.max())} > {bucket}")
         owner = self.rank_of_runs(np.stack([np.asarray(starts), lens], axis=1))
         if bool(((owner != self.rank) & (lens > 0)).any()):
             raise ValueError(f"fetch_blocks_device: a run is not on rank {self.rank}")
         local = self.translate_row_runs(starts, lens) - self.row_offset
-        starts_t = torch.as_tensor(np.where(lens > 0, local, 0), device=self.device)
-        lens_t = torch.as_tensor(lens, device=self.device)
-        offs = torch.arange(bucket, device=self.device)
-        rows = torch.clamp(starts_t[:, None] + offs, max=self.d_pad - 1).reshape(-1)
-        x = self._standardized(rows).reshape(len(starts_t), bucket, self.n_pad)
-        if col_idx is not None:
-            x = x[:, :, col_idx]
-        in_run = offs[None, :] < lens_t[:, None]
-        return torch.where(in_run[:, :, None], x, torch.zeros((), device=self.device))
+        x = kernels.standardize_runs(self.geno, self.mean, self.inv_std, local, lens,
+                                     bucket)
+        return x if col_idx is None else x[:, :, col_idx]
 
     def count_missing(self) -> int:
         """Missing genotypes among real rows and samples (for the strict

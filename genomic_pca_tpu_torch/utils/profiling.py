@@ -36,9 +36,12 @@ made through `to_host`; `COUNTS["table_rows_native"]` and
 pass and the Python line loop parsed (io/bed.py).  `COUNTS["passes_2d"]`
 counts the matrix passes the resident container runs in its 2-D mode
 (parallel/sharded.py); it is there only once such a pass has run, so a
-run in the 1-D mode has the three counts alone.  `reset_counts()` zeroes
-the three and takes the others out, as `kernels.reset_launch_counts()`
-zeroes the launch counts.
+run in the 1-D mode has the three counts alone.
+`COUNTS["block_fetch_kernel"]` counts the EigenSNP stage 1-2 block
+batches that the card's kernel built (`kernels.standardize_runs`, called
+by `fetch_blocks_device`), there only once one has.  `reset_counts()`
+zeroes the three and takes the others out, as
+`kernels.reset_launch_counts()` zeroes the launch counts.
 """
 
 from __future__ import annotations

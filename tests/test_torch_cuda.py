@@ -1118,3 +1118,94 @@ def test_right_narrow_launch_follows_its_plan(cuda_device, layout, ell):
             assert torch.equal(out, getattr(tk, name)(geno, mu, inv, b_full))
         ref = tk.PLAIN[name](geno, mu, inv, b_full, "bf16")
         assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The stage 1-2 block batch: standardize_runs, bit for bit its plain version.
+
+# (rows, samples, starts, lens, bucket): an interior run, a run ending on
+# the last row, batch padding (length 0) and a bucket longer than the runs
+# at an odd sample count (packed rows of 251 bytes: the group-a-pass loads)
+# and at 4,096 (rows of whole 32-bit words: the shuffled loads); the UK
+# Biobank chunk (1, 512, 407,552); kgp3's (4, 25,600, 2,560).
+RUN_CASES = {
+    "odd": (300, 1_001, [5, 240, 0], [50, 60, 0], 64),
+    "words": (300, 4_096, [5, 240, 0], [50, 60, 0], 64),
+    "ukb_chunk": (600, 407_552, [40], [56], 512),
+    "kgp3_chunk": (102_500, 2_560, [0, 25_600, 51_200, 76_900],
+                   [25_600, 25_000, 24_000, 25_600], 25_600),
+}
+
+
+# The launch count of each layout's kernel.
+RUNS_LAUNCH = {"packed": "standardize_runs", "dense": "standardize_runs_i8"}
+
+
+def _runs_case(device, layout: str, d: int, n: int):
+    """Genotypes with 10% missing calls (dense rows padded to whole words
+    with -127, as the container pads them) and moments with inv_std 0 on
+    row 7, on the card."""
+    rng = np.random.default_rng(24)
+    g = rng.integers(0, 3, size=(d, n), dtype=np.int8)
+    g[rng.random((d, n), dtype=np.float32) < 0.1] = -127
+    if layout == "packed":
+        geno = pack_int8_rows(g)
+    else:
+        geno = np.full((d, -(-n // 4) * 4), -127, np.int8)
+        geno[:, :n] = g
+    mean = rng.uniform(0.2, 1.8, (d, 1)).astype(np.float32)
+    inv = rng.uniform(0.5, 3.0, (d, 1)).astype(np.float32)
+    inv[7] = 0.0
+    return _on(device, geno, mean, inv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RUN_CASES))
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_standardize_runs_kernel_is_plain_bit_for_bit(cuda_device, layout, case):
+    d, n, starts, lens, bucket = RUN_CASES[case]
+    geno, mu, inv = _runs_case(cuda_device, layout, d, n)
+    starts, lens = np.array(starts), np.array(lens)
+    name = RUNS_LAUNCH[layout]
+    tk.reset_launch_counts()
+    got = tk.standardize_runs(geno, mu, inv, starts, lens, bucket)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES == dict(ZERO, **{name: 1})
+    ref = tk.standardize_runs_plain(geno, mu, inv, torch.as_tensor(starts, device=cuda_device),
+                                    torch.as_tensor(lens, device=cuda_device), bucket)
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    del ref
+    again = tk.standardize_runs(geno, mu, inv, starts, lens, bucket)
+    assert tk.LAUNCHES == dict(ZERO, **{name: 2})
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["packed", "dense"])
+def test_fetch_blocks_device_on_the_card_counts_the_kernel(cuda_device, layout):
+    """The container's block batch on the card is the CPU container's,
+    bit for bit, through one launch and one count."""
+    from genomic_pca_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(25)
+    g = balding_nichols(rng, 700, 301, missing_rate=0.1, n_pops=3, fst=0.1)
+    valid = g != -127
+    mean = (np.where(valid, g, 0).sum(1) / valid.sum(1)).astype(np.float32)
+    std = np.where(valid, g, 0).std(1).astype(np.float32)
+    std[3] = 0.0
+    starts, lens = np.array([0, 300, 500, 0]), np.array([120, 200, 200, 0])
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        if layout == "packed":
+            sm = ShardedMatrix.from_packed_rows(pack_int8_rows(g), mean, std, 301,
+                                                device=dev)
+        else:
+            sm = ShardedMatrix.from_arrays(iter([g]), means=[mean], stds=[std],
+                                           device=dev)
+        tk.reset_launch_counts()
+        profiling.reset_counts()
+        outs[str(dev)] = sm.fetch_blocks_device(starts, lens, 256).cpu().numpy()
+        want = 1 if dev != "cpu" else None
+        assert profiling.COUNTS.get("block_fetch_kernel") == want
+        assert tk.LAUNCHES == dict(ZERO, **{RUNS_LAUNCH[layout]: want or 0})
+    np.testing.assert_array_equal(outs["cuda"], outs["cpu"])
