@@ -8,7 +8,7 @@ Counterpart of the JAX package's root `bench.py`, which stays that
 package's bench.  Measures the hot loop of the randomized-PCA core, the
 q8 power-iteration pass A^T A B, through the production container layout:
 PLINK 2-bit packed genotypes resident on the card (`ShardedMatrix(...,
-kernel_precision="q8")`, `power_iterate`: kernel 1 `fused_gram_q8_packed`
+kernel_precision="q8")`, `models.pca.power_iterate`: kernel 1 `fused_gram_q8_packed`
 for the steering passes, kernel 2 for the one exact polish pass), at
 262,144 SNPs x 2,048 samples and L = 128.  Genotypes are made on the card
 from a seeded `torch.Generator` (two Bernoulli draws against a per-SNP
@@ -52,6 +52,8 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+
+from genomic_pca_tpu_torch.models.pca import power_iterate
 
 log = logging.getLogger("genomic_pca_tpu_torch.bench")
 
@@ -138,7 +140,7 @@ def measure(sm, b, it_lo: int, it_hi: int, device: torch.device):
     rate of the longer loop when the slope is not in (0, 1.2 x direct]."""
 
     def loop(n_iter: int) -> None:
-        sm.power_iterate(b, n_iter)
+        power_iterate(sm, b, n_iter)
         _sync(device)
 
     loop(it_lo)
@@ -169,11 +171,11 @@ def trace_ms_per_iter(sm, b, n_iter: int, row: str, device: torch.device) -> flo
 
     from genomic_pca_tpu_torch.ops import kernels
 
-    sm.power_iterate(b, n_iter)  # warm
+    power_iterate(sm, b, n_iter)  # warm
     _sync(device)
     kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sm.power_iterate(b, n_iter)
+        power_iterate(sm, b, n_iter)
         _sync(device)
     _log_launches(row, _nonzero_launches())
     rows = [(ev.key, ev.count, ev.self_device_time_total / 1e3)

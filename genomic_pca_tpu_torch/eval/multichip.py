@@ -11,8 +11,8 @@ data made from `--seed`:
 1. every pass of the container (`gram_apply`, `tsq_accumulate`,
    `right_apply`, `left_apply`, `count_missing`) in both modes, packed,
    built by `from_local_rows`, against the one-rank container;
-   `pca_core` in q8 and f32, with and without a tolerance (the early exit
-   must be the same on every rank);
+   `streamed_pca` in q8 and f32, and `power_iterate` with a tolerance
+   (the early exit must be the same on every rank);
 2. the EigenSNP workflow (distributed QC, per-rank matrix units, stages
    1-2 on the blocks each rank holds) with a sample subset and with the
    stop-after split legs, against one rank: QC bit for bit;
@@ -20,7 +20,7 @@ data made from `--seed`:
    files, one rank parses none);
 4. the host-streamed container over the ranks (strip i on rank i mod R,
    an odd strip count): every pass (`gram_apply`, the q8 pass,
-   `tsq_accumulate`, `right_apply`, `tsq_and_project`, `tsq_and_capture`)
+   `tsq_accumulate`, `right_apply`, `tsq_and_project`, `_tsq_and_capture`)
    and `streamed_pca` in q8 and f32 with the tolerance exit, against the
    same container on one rank; then the EigenSNP workflow with
    `force_streaming=True` against one rank (QC bit for bit).
@@ -203,7 +203,7 @@ def min_abs_r(a, b, cols: int) -> float:
 def passes_worker(spec: dict) -> dict:
     """Every pass of a container built by `from_local_rows` over the
     packed rows of `spec` (or over one rank: no process group)."""
-    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.models.pca import power_iterate, streamed_pca
     from genomic_pca_tpu_torch.ops import kernels
     from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix, pack_int8_rows
 
@@ -235,7 +235,7 @@ def passes_worker(spec: dict) -> dict:
             out[f"scores_{tag}"] = res.scores
             out[f"sigma_{tag}"] = res.singular_values
             out[f"loadings_{tag}"] = res.loadings
-            _, n_done = sm.power_iterate(bt, 6, tolerance=spec["tolerance"])
+            _, n_done = power_iterate(sm, bt, 6, tolerance=spec["tolerance"])
             out[f"n_done_{tag}"] = n_done
     out["count_missing"] = sm.count_missing()
     return out
@@ -245,7 +245,7 @@ def streamed_worker(spec: dict) -> dict:
     """Every pass of a host-streamed container over the packed rows of
     `spec` in strips of `spec["strip"]` rows (strip i on rank i mod R),
     in f32 and q8, then `streamed_pca` and the tolerance exit."""
-    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.models.pca import power_iterate, streamed_pca
     from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
     from genomic_pca_tpu_torch.parallel.sharded import pack_int8_rows
 
@@ -274,16 +274,16 @@ def streamed_worker(spec: dict) -> dict:
             out["right"] = sm.right_apply(b)
             acc, project = sm.tsq_and_project(b)
             out["tsq_project"], out["project"] = acc.cpu().numpy(), project(w)
-            acc, ab = sm.tsq_and_capture(b)
+            acc, ab = sm._tsq_and_capture(b)
             out["tsq_capture"], out["capture"] = acc.cpu().numpy(), ab
         else:
-            out["q8"] = sm._gram_apply_q8(b).cpu().numpy()
+            out["q8"] = sm.q8_pass(b).cpu().numpy()
         res = streamed_pca(sm, k=spec["k"], n_power_iter=spec["n_iter"],
                            seed=spec["seed"], compute_loadings=True)
         out[f"scores_{precision}"] = res.scores
         out[f"sigma_{precision}"] = res.singular_values
         out[f"loadings_{precision}"] = res.loadings
-        out[f"n_done_{precision}"] = sm.power_iterate(b, 6, tolerance=spec["tolerance"])[1]
+        out[f"n_done_{precision}"] = power_iterate(sm, b, 6, tolerance=spec["tolerance"])[1]
         out["own_strips"] = sm.own_strips
     return out
 

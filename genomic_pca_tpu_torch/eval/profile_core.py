@@ -9,7 +9,8 @@ on the host clock, around work that ends in `torch.cuda.synchronize()`:
 
 - `from_packed_rows` + `streamed_pca(compute_loadings=True)`, split into
   construction and PCA, over 10 warm runs after one cold run;
-- `pca_core` alone on a resident matrix, over 10 runs;
+- the core alone (`models.pca.pca_core`) on a resident matrix, over 10
+  runs;
 
 then traces one `pca_core` with torch.profiler and prints the device time
 by kernel and the busy share (device time / traced wall).  With `--2d`
@@ -70,7 +71,7 @@ def core(d, n, k, device, runs, tag):
     (d, n), then one traced pca_core: (summary, profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from genomic_pca_tpu_torch.models.pca import streamed_pca
+    from genomic_pca_tpu_torch.models.pca import pca_core, streamed_pca
     from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix
     from genomic_pca_tpu_torch.utils.rng import normal
 
@@ -109,7 +110,7 @@ def core(d, n, k, device, runs, tag):
     for _ in range(runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sm.pca_core(b, 4, k)
+        pca_core(sm, b, 4, k)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     summary["pca_core_s"] = _stats(times)
@@ -118,7 +119,7 @@ def core(d, n, k, device, runs, tag):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sm.pca_core(b, 4, k)
+        pca_core(sm, b, 4, k)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
     rows = []

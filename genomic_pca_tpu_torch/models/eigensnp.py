@@ -24,13 +24,13 @@ host-streamed one (ops/streaming.py):
   a k-wide score basis, widened with random columns to the refinement
   width.
 
-  Refinement - `refine_passes` exact passes of subspace iteration over
-  the full matrix, the Rayleigh-Ritz eigensolve and the loadings, all in
-  one `pca_core` of a resident container; runs with checkpoints or
-  diagnostics, and streamed containers, take the per-pass path, so that
-  each pass is saved and its convergence observable.  A streamed
-  container ends with `tsq_and_project` (the A B products kept on the
-  device), else `tsq_and_capture`, so the loadings need no extra pass.
+  Refinement - `refine_passes` passes of subspace iteration over the
+  full matrix, the Rayleigh-Ritz eigensolve and the loadings: on a
+  resident container the randomized-PCA core (`models.pca.pca_core`);
+  runs with checkpoints or diagnostics, and streamed containers, take
+  the per-pass path of exact `gram_apply` passes, so that each pass is
+  saved and its convergence observable, and end in the core's finish
+  (`models.pca.rayleigh_ritz`).
 
 Several ranks (parallel/mesh.py): stages 1-2 run on each rank over the
 blocks it owns - on the resident path the blocks whose rows it holds
@@ -69,7 +69,7 @@ import torch
 
 from genomic_pca_tpu_torch.config import EigenSnpConfig
 from genomic_pca_tpu_torch.errors import ComputeError
-from genomic_pca_tpu_torch.models.pca import lane_fill_width
+from genomic_pca_tpu_torch.models.pca import lane_fill_width, pca_core, rayleigh_ritz
 from genomic_pca_tpu_torch.models.prepare import PreparedData
 from genomic_pca_tpu_torch.ops import kernels
 from genomic_pca_tpu_torch.ops.rsvd import centre_samples, rsvd, sketch_width
@@ -531,9 +531,9 @@ def compute_eigensnp_pca(
             a = prep.load_streaming_matrix(device, strip_size=cfg.snp_strip_size)
         else:
             a = prep.load_matrix(device, strip_size=cfg.snp_strip_size)
-        container = "device-resident" if hasattr(a, "pca_core") else "host-streamed"
+        container = "device-resident" if a.resident else "host-streamed"
         runs = _blocks_as_runs(prep.blocks)
-        use_device = runs is not None and hasattr(a, "fetch_blocks_device")
+        use_device = runs is not None and a.resident
         if use_device and not a.runs_device_sliceable(runs):
             # Blocks across a row segment or a rank (a degenerate block file
             # under several ranks) are read through the host accessor.
@@ -552,7 +552,7 @@ def compute_eigensnp_pca(
         # tuned for (models/pca.lane_fill_width); `refine_width` overrides.
         ell_ref = (lane_fill_width(k, n, d) if cfg.refine_width is None
                    else max(k, min(cfg.refine_width, n, d)))
-        use_pca_core = (hasattr(a, "pca_core") and not ckpt.enabled and diag is None
+        use_pca_core = (a.resident and not ckpt.enabled and diag is None
                         and cfg.refine_passes >= 1)
 
         # ---- Stages 1+2 ---------------------------------------------------
@@ -655,11 +655,8 @@ def compute_eigensnp_pca(
         # ---- Refinement + final eigensolve + loadings ---------------------
         refine_residuals: List[float] = []
         if use_pca_core:
-            v_k, sigma_k, evals_k, loadings = a.pca_core(s_basis, cfg.refine_passes, k)
-            sigma = to_host(sigma_k).numpy()
-            scores = (to_host(v_k).numpy() * sigma[None, :]).astype(np.float32)
-            loadings = loadings.astype(np.float32)
-            eigenvalues = to_host(evals_k).numpy().astype(np.float64) / max(n - 1, 1)
+            v_k, sigma_k, evals_k, loadings, _ = pca_core(a, s_basis,
+                                                          cfg.refine_passes, k)
         else:
             start_pass = 0
             for p in reversed(range(cfg.refine_passes)):
@@ -668,7 +665,7 @@ def compute_eigensnp_pca(
                     s_basis = torch.as_tensor(saved["s_basis"], device=a.device)
                     start_pass = p + 1
                     break
-            # Held orthogonal to the ones vector, as pca_core holds its
+            # Held orthogonal to the ones vector, as the core holds its
             # basis (ops/rsvd.centre_samples).
             s_basis = centre_samples(s_basis, n)
             for p in range(start_pass, cfg.refine_passes):
@@ -685,37 +682,11 @@ def compute_eigensnp_pca(
                          cfg.refine_passes)
                 if _ckpt_stop(f"refine_pass_{p}", stop_after_checkpoint):
                     return None
-            # A streamed container fuses the Rayleigh-Ritz Gram with the A B
-            # products: loadings = (A B) W / sigma without another pass over
-            # the matrix, the products kept on the device within its budget
-            # (tsq_and_project), else brought to the host (tsq_and_capture).
-            project = ab = None
-            got = (a.tsq_and_project(s_basis) if hasattr(a, "tsq_and_project")
-                   else None)
-            if got is not None:
-                g, project = got
-            elif hasattr(a, "tsq_and_capture"):
-                g, ab = a.tsq_and_capture(s_basis)
-            else:
-                g = a.tsq_accumulate(s_basis)
-            evals, w = torch.linalg.eigh(g)
-            order = torch.argsort(evals, descending=True)
-            evals = torch.clamp(evals[order][:k], min=0.0)
-            w = w[:, order][:, :k]
-            sigma_t = torch.sqrt(evals)
-            v = s_basis @ w
-            inv_sigma = torch.where(sigma_t > 0, 1.0 / torch.where(
-                sigma_t > 0, sigma_t, torch.ones_like(sigma_t)), torch.zeros_like(sigma_t))
-            scores = to_host(v * sigma_t[None, :]).numpy().astype(np.float32)
-            if project is not None:
-                c = project(to_host(w).numpy())
-            elif ab is not None:
-                c = ab @ to_host(w).numpy()
-            else:
-                c = a.right_apply(v)
-            loadings = (c * to_host(inv_sigma).numpy()[None, :]).astype(np.float32)
-            sigma = to_host(sigma_t).numpy()
-            eigenvalues = to_host(evals).numpy().astype(np.float64) / max(n - 1, 1)
+            v_k, sigma_k, evals_k, loadings = rayleigh_ritz(a, a.basis(s_basis), k)
+        sigma = to_host(sigma_k).numpy()
+        scores = (to_host(v_k).numpy() * sigma[None, :]).astype(np.float32)
+        loadings = loadings.astype(np.float32)
+        eigenvalues = to_host(evals_k).numpy().astype(np.float64) / max(n - 1, 1)
 
     stage_seconds["refinement_finalize"] = stage.seconds
     log.info("EigenSNP refinement + finalization done in %.1fs.",

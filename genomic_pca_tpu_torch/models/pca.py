@@ -1,16 +1,19 @@
-"""Streamed randomized PCA (the `rfit` equivalent) and projection of new
-samples, on the port.
+"""The port's randomized PCA (the `rfit` equivalent), and projection of
+new samples.
 
-Counterpart of `genomic_pca_tpu/models/pca.py`: validate k, widen the
-sketch to the 128-lane width the reference kernels pad to, draw the
-Gaussian sketch from a seeded generator (utils/rng.py), and run the PCA
-through the resident container's `pca_core`, the host-streamed
-container's `power_iterate` and `tsq_and_capture`, or the plain power
-loop over any operator's `gram_apply` (the test oracle
-`ops.stream.StripedMatrix`).  `transform` (float64
-on the host), `transform_device` (a dense container over the new
-samples, then `left_apply`) and `StripProjector` (one projector reused
-across strips) project new samples through fitted loadings.
+Counterpart of `genomic_pca_tpu/models/pca.py`.  The core is written
+once, here, over the passes of a production container
+(`ops.operator.StandardizedOperator`): `power_iterate`, then
+`rayleigh_ritz` (the Gram, `eigh` and the loadings); `pca_core` runs
+both.  Each of its passes with its all-reduce is a `gp.pass.<pass>`
+span, named as the benchmark's roofline files name the passes; the
+orthonormalisations (CholQR2, the Householder QR, `eigh`) are
+`gp.pca.orth`, the loadings' gather and download `gp.pca.to_host`.
+`streamed_pca` draws the seeded sketch (utils/rng.py), 128 lanes wide
+as the reference kernels pad it, and runs the core.  `transform`
+(float64 on the host), `transform_device` (a dense container over the
+new samples, then `left_apply`) and `StripProjector` (one projector
+reused across strips) project new samples through fitted loadings.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ import numpy as np
 import torch
 
 from genomic_pca_tpu_torch.errors import ComputeError
-from genomic_pca_tpu_torch.ops.rsvd import subspace_residual
+from genomic_pca_tpu_torch.ops.operator import StandardizedOperator, StandardizedProducts
+from genomic_pca_tpu_torch.ops.rsvd import centre_samples, cholqr2_q, subspace_residual
 from genomic_pca_tpu_torch.ops.standardize import MISSING, standardize_rows
+from genomic_pca_tpu_torch.ops.stream import plain_pca
 from genomic_pca_tpu_torch.utils.profiling import span, to_host
 from genomic_pca_tpu_torch.utils.rng import normal
 
@@ -71,6 +76,90 @@ def validate_k(k: int, n_samples: int, n_features: int) -> int:
     return k
 
 
+# ---- the randomized-PCA core ---------------------------------------------
+def _iterate(op: StandardizedOperator, b0, n_iter: int, tolerance: Optional[float]):
+    """`power_iterate` with the basis left in the container's layout."""
+    n = op.n_samples
+
+    def step(name, b):  # the container's pass `name`, and its span
+        with span(f"gp.pass.{name}"):
+            t = getattr(op, name)(b)
+        return centre_samples(t, n)
+
+    def orth(t):
+        with span("gp.pca.orth"):
+            return cholqr2_q(t) if op.resident else torch.linalg.qr(t)[0]
+
+    q8 = op.kernel_precision == "q8"
+    n_steer = max(n_iter - op.q8_polish, 0) if q8 else n_iter
+    b = centre_samples(op.basis(b0), n)
+    done, res = 0, float("inf")
+    while done < n_steer and (tolerance is None or res >= tolerance):
+        t = step("q8_pass" if q8 else "exact_pass", b)
+        if tolerance is not None and done > 0:
+            # From merged data, identical on every rank: every rank exits
+            # at the same step.
+            res = float(to_host(subspace_residual(b, t)))
+        b = orth(t)
+        done += 1
+    for _ in range(n_iter - n_steer):
+        b = orth(step("exact_pass", b))
+    if op.resident:
+        with span("gp.pca.orth"):
+            b = torch.linalg.qr(b)[0]
+    return b, done + n_iter - n_steer
+
+
+def power_iterate(op: StandardizedOperator, b0, n_iter: int,
+                  tolerance: Optional[float] = None):
+    """Subspace iteration from the (n_samples, l) sketch `b0`: ((n_samples,
+    l) orthonormal basis, passes run).  `tolerance` ends the steering
+    passes (int8 under kernel_precision "q8", else exact) on the subspace
+    residual, after two at least; under "q8" the `q8_polish` exact passes
+    then run in full.  The basis and every pass are held orthogonal to
+    the samples' ones vector."""
+    q, done = _iterate(op, b0, n_iter, tolerance)
+    return q[: op.n_samples], done
+
+
+def rayleigh_ritz(op: StandardizedOperator, q: torch.Tensor, k: int):
+    """The Rayleigh-Ritz finish of the orthonormal basis `q` (container
+    layout): (v (n_samples, k), sigma (k,), evals (k,) on the device,
+    loadings (n_rows, k) numpy).  `eigh` of (A Q)^T (A Q), descending and
+    clipped at 0; V = Q W; loadings A V / sigma, sigma = 0 giving 0."""
+    with span("gp.pass.rr_gram"):
+        g, right = op.ritz_gram(q)
+    with span("gp.pca.orth"):
+        evals, w = torch.linalg.eigh(g)
+        order = torch.argsort(evals, descending=True)
+        evals = torch.clamp(evals[order], min=0.0)
+        w = w[:, order]
+        sigma = torch.sqrt(evals)
+        v_full = q @ w  # right singular vectors, in the layout of q
+        v_k = v_full[:, :k].contiguous()
+    s_k = sigma[:k]
+    # The loadings run even when the caller did not ask for them: the
+    # rfit traffic (benchmark/traffic/rfit_centered.json) times this pass
+    # and its download.  Skipping them unasked is a change of that cell's
+    # work, to be made here, once, for every container.
+    with span("gp.pass.loadings"):
+        c = right(v_k, w[:, :k])
+        inv_sigma = torch.where(s_k > 0, 1.0 / torch.where(s_k > 0, s_k, 1.0),
+                                torch.zeros_like(s_k))
+        c = c * inv_sigma.to(c.device)[None, :]  # streamed rows: on the host
+    with span("gp.pca.to_host"):
+        loadings = op.rows_to_host(c)
+    return v_full[: op.n_samples, :k], s_k, evals[:k], loadings
+
+
+def pca_core(op: StandardizedOperator, b0, n_iter: int, k: int,
+             tolerance: Optional[float] = None):
+    """`power_iterate` then `rayleigh_ritz` from the sketch `b0`: (v,
+    sigma, evals, loadings, passes run)."""
+    q, done = _iterate(op, b0, n_iter, tolerance)
+    return rayleigh_ritz(op, q, k) + (done,)
+
+
 def streamed_pca(
     matrix,
     k: int,
@@ -83,30 +172,23 @@ def streamed_pca(
 ) -> PcaResult:
     """Randomized PCA of the implicit standardized matrix A (D x N).
 
-    A resident container (parallel.sharded.ShardedMatrix) runs the whole
-    PCA in its `pca_core`.  A host-streamed one (ops.streaming
-    .StreamingMatrix) runs `power_iterate`, one streaming pass per
-    iteration, then the Rayleigh-Ritz Gram; with `compute_loadings` that
-    pass also captures A B (`tsq_and_capture`), so the loadings (A B) W /
-    sigma need no further pass over the matrix.  Any other operator (the
-    test oracle ops.stream.StripedMatrix) runs the plain power loop of
-    the JAX package: `gram_apply`, the subspace residual from the second
-    pass when `tolerance` is set, a Householder QR, then the same
-    Rayleigh-Ritz finalization with loadings from `right_apply`.  With a
+    A production container (`ops.operator.StandardizedOperator`) runs
+    `pca_core`, which computes the loadings whether or not they are
+    asked for; the test oracle ops.stream.StripedMatrix runs the plain
+    power loop of the JAX package (`ops.stream.plain_pca`).  With a
     container over several ranks every rank makes this call: each draws
     the same sketch from the seed, and the scores and the gathered
     loadings are the same on every rank.
 
     The call is the span `gp.pca`; inside it `gp.pca.sketch` (the host
-    draw and its upload), the passes' and orthonormalisations' spans of
-    the container, and `gp.pca.to_host` (the results' downloads)."""
+    draw and its upload), the core's spans, and `gp.pca.to_host` (the
+    results' downloads)."""
     with span("gp.pca"):
-        if not (hasattr(matrix, "pca_core") or hasattr(matrix, "power_iterate")
-                or hasattr(matrix, "gram_apply")):
+        if not isinstance(matrix, StandardizedProducts):
             raise TypeError(
-                "streamed_pca needs an operator with pca_core (resident), "
-                "power_iterate (host-streamed) or gram_apply (the plain loop)."
-            )
+                "streamed_pca needs the passes of pca_core (ops.operator"
+                ".StandardizedOperator) or the products of the plain loop "
+                "(gram_apply, tsq_accumulate, right_apply).")
         n = matrix.n_samples
         d = matrix.n_rows
         k = validate_k(k, n, d)
@@ -118,46 +200,12 @@ def streamed_pca(
             b = normal((n, ell), seed if seed is not None else 0, "rfit_sketch",
                        matrix.device)
         n_iter = max(n_power_iter, 1)
-        n_done = n_iter
-        if hasattr(matrix, "pca_core"):
-            out = matrix.pca_core(b, n_iter, k, tolerance=tolerance)
-            if tolerance is None:
-                v_k, sigma_k, evals_k, loadings = out
-            else:
-                v_k, sigma_k, evals_k, loadings, n_done = out
+        if isinstance(matrix, StandardizedOperator):
+            v_k, sigma_k, evals_k, loadings, n_done = pca_core(
+                matrix, b, n_iter, k, tolerance)
         else:
-            if hasattr(matrix, "power_iterate"):
-                out = matrix.power_iterate(b, n_iter, tolerance=tolerance)
-                b, n_done = (out, n_iter) if tolerance is None else out
-            else:
-                for it in range(n_iter):
-                    t = matrix.gram_apply(b)  # A^T A B, one pass
-                    res = None
-                    if tolerance is not None and it > 0:
-                        res = float(to_host(subspace_residual(b, t)))
-                    b, _ = torch.linalg.qr(t)
-                    if res is not None and res < tolerance:
-                        n_done = it + 1
-                        break
-            fused = compute_loadings and hasattr(matrix, "tsq_and_capture")
-            if fused:
-                g, ab = matrix.tsq_and_capture(b)  # (l, l), (D, l) host
-            else:
-                g = matrix.tsq_accumulate(b)
-            evals, w = torch.linalg.eigh(g)
-            order = torch.argsort(evals, descending=True)
-            evals = torch.clamp(evals[order], min=0.0)
-            w = w[:, order]
-            sigma = torch.sqrt(evals)
-            v_k = (b @ w)[:, :k]
-            sigma_k, evals_k = sigma[:k], evals[:k]
-            loadings = None
-            if compute_loadings:
-                s_np = to_host(sigma_k).numpy()
-                inv_sigma = np.where(s_np > 0, 1.0 / np.where(s_np > 0, s_np, 1.0), 0.0)
-                c = (ab @ to_host(w[:, :k]).numpy() if fused
-                     else matrix.right_apply(v_k))
-                loadings = (c * inv_sigma[None, :]).astype(np.float32)
+            v_k, sigma_k, evals_k, loadings, n_done = plain_pca(
+                matrix, b, n_iter, k, tolerance, compute_loadings)
         if n_done < n_iter:
             log.info("rfit tolerance %.3g reached after %d / %d power iterations.",
                      tolerance, n_done, n_iter)

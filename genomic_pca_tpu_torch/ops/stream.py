@@ -1,7 +1,7 @@
 """The test-oracle operator container of the port.
 
 Counterpart of `genomic_pca_tpu/ops/stream.py`: `StripedMatrix` is the
-SIMPLEST implementation of the `ops.operator.StandardizedOperator`
+SIMPLEST implementation of the `ops.operator.StandardizedProducts`
 contract, a Python list of device strips multiplied by plain f32
 `torch.matmul`: no hand-written kernel, no prefetch, no process group.
 It is the independent, obviously-correct implementation the production
@@ -17,6 +17,11 @@ multiplies it, and the strips' partial results are summed in order.
   right_apply(B)     ->  A B on the host  (D, l)  padding removed
   tsq_accumulate(B)  ->  (A B)^T (A B)    (l, l)  condensed Gram
 
+`plain_pca` is the JAX package's power loop over those products alone
+(a Householder QR each pass, no q8 steering, no centring), which
+`models.pca.streamed_pca` runs on a StripedMatrix: the tests hold the
+production core (`models.pca.pca_core`) against it.
+
 The JAX oracle pins `Precision.HIGHEST` on its products; here that is
 TF32 being off (`genomic_pca_tpu_torch/__init__.py`), which every pass on
 a card asserts rather than inherit a changed setting.
@@ -30,10 +35,12 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from genomic_pca_tpu_torch.ops.rsvd import subspace_residual
 from genomic_pca_tpu_torch.ops.standardize import MISSING, standardize_rows
 from genomic_pca_tpu_torch.parallel.sharded import host_moments, inv_std_of
+from genomic_pca_tpu_torch.utils.profiling import to_host
 
-__all__ = ["MISSING", "Strip", "StripedMatrix"]
+__all__ = ["MISSING", "Strip", "StripedMatrix", "plain_pca"]
 
 
 def _check_full_f32(device: torch.device) -> None:
@@ -190,3 +197,34 @@ def _make_strip(
         inv_std=torch.from_numpy(inv_std).to(dev),
         n_rows=n_rows,
     )
+
+
+def plain_pca(matrix, b, n_iter: int, k: int, tolerance: Optional[float],
+              compute_loadings: bool):
+    """The oracle's randomized PCA from the sketch `b` over `gram_apply`,
+    `tsq_accumulate` and `right_apply`: (v (n_samples, k), sigma (k,),
+    evals (k,), loadings (n_rows, k) numpy or None, passes run)."""
+    n_done = n_iter
+    for it in range(n_iter):
+        t = matrix.gram_apply(b)  # A^T A B, one pass
+        res = None
+        if tolerance is not None and it > 0:
+            res = float(to_host(subspace_residual(b, t)))
+        b, _ = torch.linalg.qr(t)
+        if res is not None and res < tolerance:
+            n_done = it + 1
+            break
+    g = matrix.tsq_accumulate(b)
+    evals, w = torch.linalg.eigh(g)
+    order = torch.argsort(evals, descending=True)
+    evals = torch.clamp(evals[order], min=0.0)
+    w = w[:, order]
+    sigma = torch.sqrt(evals)
+    v_k = (b @ w)[:, :k]
+    sigma_k, evals_k = sigma[:k], evals[:k]
+    loadings = None
+    if compute_loadings:
+        s_np = to_host(sigma_k).numpy()
+        inv_sigma = np.where(s_np > 0, 1.0 / np.where(s_np > 0, s_np, 1.0), 0.0)
+        loadings = (matrix.right_apply(v_k) * inv_sigma[None, :]).astype(np.float32)
+    return v_k, sigma_k, evals_k, loadings, n_done

@@ -37,7 +37,7 @@ its ranks.  A rank adds its strips' partial sums in strip order and one
 strips, or none, joins every all-reduce with exact zeros.  Everything
 after a merge (`qr`, the tolerance test) runs on identical data on every
 rank, so every rank leaves the power loop at the same pass.  Rows out
-(`right_apply`, `tsq_and_project`, `tsq_and_capture`) are gathered
+(`right_apply`, `tsq_and_project`, `_tsq_and_capture`) are gathered
 (`mesh.all_gather_rows`) and put back in global row order, the same on
 every rank.
 
@@ -65,9 +65,7 @@ import torch
 
 from genomic_pca_tpu_torch.io.prefetch import StripPrefetcher
 from genomic_pca_tpu_torch.ops import kernels
-from genomic_pca_tpu_torch.ops.rsvd import (
-    centre_samples, quantize_basis, subspace_residual,
-)
+from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
 from genomic_pca_tpu_torch.ops.standardize import MISSING
 from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.parallel.sharded import (
@@ -109,11 +107,13 @@ class StreamingMatrix:
                trailing fields sanitized (`sanitize_partial_byte`);
     with S <= `strip_size` rows (strip i holds matrix rows
     [i * strip_size, ...)).  Rows and columns pad here with inert values
-    (missing genotypes, inv_std 0).
+    (missing genotypes, inv_std 0).  Implements
+    ops.operator.StandardizedOperator on (n_samples, l) bases: every pass
+    of the core (models/pca.py) streams the strips once.
     """
 
     # Device bytes that `tsq_and_project` may keep of per-strip A B
-    # products; past it callers take `tsq_and_capture`.
+    # products; past it `ritz_gram` brings them to the host.
     _CAPTURE_DEVICE_BUDGET = 6 << 30
 
     def __init__(
@@ -344,49 +344,6 @@ class StreamingMatrix:
             acc = part if acc is None else acc + part
         return self._merge(acc, bp.shape)[: self.n_samples]
 
-    def _gram_apply_q8(self, b) -> torch.Tensor:
-        """Quantized steering pass, used only inside `power_iterate`."""
-        bp = self._pad_b(b)
-        bq, sb, csum = quantize_basis(bp)
-        acc = None
-        for _, g, m, iv in self._strips("q8"):
-            part = self._strip_gram_q8(g, m, iv, bq, sb, csum)
-            acc = part if acc is None else acc + part
-        return self._merge(acc, bp.shape)[: self.n_samples]
-
-    def power_iterate(self, b0, n_iter: int, tolerance: Optional[float] = None):
-        """n_iter x (B <- qr(A^T A B)), one streaming pass each: the
-        (n_samples, l) orthonormal basis.  With kernel_precision "q8" the
-        first n_iter - q8_polish passes steer through the q8 kernels and
-        the last q8_polish run exact; with `tolerance` the steering passes
-        exit early on the subspace residual of the merged pass, the same
-        on every rank (the exact polish always runs), and the return is
-        (basis, passes run).  The basis and every pass's result are held
-        orthogonal to the ones vector of the samples (`centre_samples`)."""
-        n = self.n_samples
-        b = torch.as_tensor(b0, dtype=torch.float32, device=self.device)
-        b = centre_samples(b, n)
-        use_q8 = self.kernel_precision == "q8"
-        n_q8 = max(n_iter - self.q8_polish, 0) if use_q8 else 0
-        n_done = 0
-        converged = False
-        for t in range(n_iter):
-            is_polish = use_q8 and t >= n_q8
-            if converged and not is_polish:
-                continue
-            tmat = centre_samples(self._gram_apply_q8(b) if t < n_q8
-                                  else self.gram_apply(b), n)
-            res = None
-            if tolerance is not None and t > 0 and not converged:
-                res = float(subspace_residual(b, tmat))
-            b = torch.linalg.qr(tmat)[0]
-            n_done += 1
-            if res is not None and res < tolerance:
-                if not use_q8:
-                    break
-                converged = True  # skip the remaining steering; polish runs
-        return b if tolerance is None else (b, n_done)
-
     def tsq_accumulate(self, b) -> torch.Tensor:
         """(A B)^T (A B): (l, l) on the device, W^T W of the f32 W."""
         bp = self._pad_b(b)
@@ -408,37 +365,66 @@ class StreamingMatrix:
         k)` host closure over the per-strip A B products, which stay on the
         device of their rank, so that the loadings (A B) W download as
         (n_rows, k).  None when the products of all strips would pass
-        `_CAPTURE_DEVICE_BUDGET` (callers then take `tsq_and_capture`)."""
+        `_CAPTURE_DEVICE_BUDGET`."""
         if self.n_strips * self.strip_size * b.shape[1] * 4 > self._CAPTURE_DEVICE_BUDGET:
             return None
-        bp = self._pad_b(b)
-        acc = None
-        ws = {}
-        for i, g, m, iv in self._strips("tsq_capture"):
-            w = self._strip_right(g, m, iv, bp)
-            acc = w.T @ w if acc is None else acc + w.T @ w
-            ws[i] = w[: self._real_rows(i)]
-        acc = self._merge(acc, (bp.shape[1], bp.shape[1]))
+        acc, ws = self._tsq_keep(b, to_host=False)
 
         def project(w_small) -> np.ndarray:
-            w_dev = torch.as_tensor(np.asarray(w_small, dtype=np.float32),
-                                    device=self.device)
+            w_dev = torch.as_tensor(w_small, dtype=torch.float32, device=self.device)
             rows = {i: (w @ w_dev).cpu().numpy() for i, w in ws.items()}
             ws.clear()  # release the captured products
             return self._gather_rows(rows, w_dev.shape[1])
 
         return acc, project
 
-    def tsq_and_capture(self, b):
+    def _tsq_and_capture(self, b):
         """One pass giving `tsq_accumulate(b)` ((l, l), device) and A B
-        ((n_rows, l), host): the loadings are (A B) W / sigma without a
-        further pass over the matrix."""
+        ((n_rows, l), host)."""
+        acc, rows = self._tsq_keep(b, to_host=True)
+        return acc, self._gather_rows(rows, acc.shape[0])
+
+    def _tsq_keep(self, b, to_host: bool):
+        """One pass: `tsq_accumulate(b)` and {strip: its real rows of A B},
+        kept on the device or brought to the host."""
         bp = self._pad_b(b)
-        acc = None
-        rows = {}
+        acc, rows = None, {}
         for i, g, m, iv in self._strips("tsq_capture"):
             w = self._strip_right(g, m, iv, bp)
             acc = w.T @ w if acc is None else acc + w.T @ w
-            rows[i] = w[: self._real_rows(i)].cpu().numpy()
-        acc = self._merge(acc, (bp.shape[1], bp.shape[1]))
-        return acc, self._gather_rows(rows, bp.shape[1])
+            w = w[: self._real_rows(i)]
+            rows[i] = w.cpu().numpy() if to_host else w
+        return self._merge(acc, (bp.shape[1], bp.shape[1])), rows
+
+    # ---- the passes of the core (models/pca.py), on (n_samples, l) bases --
+    resident = False
+
+    def basis(self, b) -> torch.Tensor:
+        return torch.as_tensor(b, dtype=torch.float32, device=self.device)
+
+    def q8_pass(self, b) -> torch.Tensor:
+        """A^T A B through the q8 steering kernels: (n_samples, l)."""
+        bp = self._pad_b(b)
+        bq, sb, csum = quantize_basis(bp)
+        acc = None
+        for _, g, m, iv in self._strips("q8"):
+            part = self._strip_gram_q8(g, m, iv, bq, sb, csum)
+            acc = part if acc is None else acc + part
+        return self._merge(acc, bp.shape)[: self.n_samples]
+
+    def exact_pass(self, b) -> torch.Tensor:
+        return self.gram_apply(b)
+
+    def ritz_gram(self, q):
+        """(A Q)^T (A Q), and `right(v, w)` = (A Q) W on the host, from one
+        pass: A Q kept on the device within `_CAPTURE_DEVICE_BUDGET`
+        (`tsq_and_project`), else brought to the host."""
+        got = self.tsq_and_project(q)
+        if got is not None:
+            g, project = got
+            return g, lambda v, w: torch.from_numpy(project(w))
+        g, aq = self._tsq_and_capture(q)
+        return g, lambda v, w: torch.from_numpy(aq @ w.cpu().numpy())
+
+    def rows_to_host(self, rows: torch.Tensor) -> np.ndarray:
+        return rows.numpy()

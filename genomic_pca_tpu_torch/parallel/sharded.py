@@ -1,4 +1,4 @@
-"""Genotype container on one device: the randomized-PCA core.
+"""Genotype container on one device: the passes of the PCA core.
 
 Counterpart of `genomic_pca_tpu/parallel/sharded.py` on a single device.
 The class keeps the name `ShardedMatrix` so that multi-GPU support can
@@ -35,7 +35,7 @@ or (L x L) result where the JAX container calls `psum`
 tolerance test, `qr`, `eigh`) runs replicated on identical data (an
 all-reduce hands every rank the same bits), so every rank takes the same
 exit.  Outputs over rows (A B, the loadings)
-are gathered on every rank (`_rows_to_host`).  `from_local_rows` splits
+are gathered on every rank (`rows_to_host`).  `from_local_rows` splits
 the rows into per-rank ranges aligned to `tile_d`, so the q8 row tiles
 fall where the one-rank container puts them; `from_owned_units` places
 each unit (a VCF file, a rank's QC range) inside its owner's rows and
@@ -44,16 +44,14 @@ PCA row, count), as the JAX container does.  A rank that owns no rows
 holds one tile of inert rows and joins every collective with an exact
 zero contribution, so every rank launches the same kernels.
 
-Spans (utils/profiling.py): each matrix pass of `pca_core` and its
-all-reduce is one `gp.pass.<pass>` range, named as the benchmark's
-roofline files name the passes (`q8_pass`, `exact_pass`, `rr_gram`,
-`loadings`); the orthonormalisations (CholQR2, the Householder QR,
-`eigh`) are `gp.pca.orth`, the loadings' gather and download
-`gp.pca.to_host`.  `COUNTS["passes_2d"]` counts the passes that run in
-the 2-D mode: each exact pass, q8 pass, Rayleigh-Ritz Gram and right
-product (the loadings, `right_apply`) once; `COUNTS["block_fetch_kernel"]`
-(counted by `kernels.standardize_runs`) each `fetch_blocks_device` call
-that the card's kernel serves.
+The core takes the basis padded to `n_pad` samples (`basis`) and runs
+`exact_pass`, `q8_pass` and `ritz_gram` on it, each pass with its
+all-reduce; its spans are the core's (models/pca.py).
+`COUNTS["passes_2d"]` counts the passes that run in the 2-D mode: each
+exact pass, q8 pass, Rayleigh-Ritz Gram and right product (the loadings,
+`right_apply`) once; `COUNTS["block_fetch_kernel"]` (counted by
+`kernels.standardize_runs`) each `fetch_blocks_device` call that the
+card's kernel serves.
 
 Not ported here: the TPU tile choosers.
 """
@@ -66,12 +64,10 @@ import numpy as np
 import torch
 
 from genomic_pca_tpu_torch.ops import kernels
-from genomic_pca_tpu_torch.ops.rsvd import (
-    centre_samples, cholqr2_q, quantize_basis, subspace_residual,
-)
+from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
 from genomic_pca_tpu_torch.ops.standardize import MISSING
 from genomic_pca_tpu_torch.parallel import mesh
-from genomic_pca_tpu_torch.utils.profiling import count, span, to_host
+from genomic_pca_tpu_torch.utils.profiling import count, to_host
 
 PACKED_MISSING_BYTE = 0x55  # four 01 (missing) fields
 
@@ -211,8 +207,8 @@ class ShardedMatrix:
     """Standardized genotype operator, packed or dense int8, over the
     rows of this rank (all rows on one device without a process group).
 
-    Implements ops.operator.StandardizedOperator plus the fast paths
-    `power_iterate` and `pca_core`.  `kernel_precision` "q8" (default)
+    Implements ops.operator.StandardizedOperator: the products and the
+    passes of the core in models/pca.py.  `kernel_precision` "q8" (default)
     steers with the int8 kernel and runs every exact pass in bf16; "bf16"
     and "f32" run only exact passes at that precision.  `tile_d` is the
     q8 quantization tile (rows sharing one z scale).  `mode` is "1d",
@@ -551,7 +547,9 @@ class ShardedMatrix:
         return ShardedMatrix(geno, m, iv, n_rows, n_samples, dev, **kw)
 
     # ------------------------------------------------------------------
-    def _pad_b(self, b) -> torch.Tensor:
+    def basis(self, b) -> torch.Tensor:
+        """An (n_samples, l) basis padded to (n_pad, l) with zero rows:
+        the layout every pass below takes."""
         b = _as_tensor(b, self.device)
         out = torch.zeros((self.n_pad, b.shape[1]), dtype=torch.float32,
                           device=self.device)
@@ -606,16 +604,34 @@ class ShardedMatrix:
     # ---- public passes ------------------------------------------------
     def gram_apply(self, b) -> torch.Tensor:
         """A^T (A B): (n_samples, l)."""
-        return self._gram(self._pad_b(b))[: self.n_samples]
+        return self._gram(self.basis(b))[: self.n_samples]
 
     def tsq_accumulate(self, b) -> torch.Tensor:
         """(A B)^T (A B): (l, l)."""
-        return self._tsq(self._pad_b(b))
+        return self._tsq(self.basis(b))
 
     def right_apply(self, b) -> np.ndarray:
         """A B on host with padding removed: (n_rows, l) in PCA row
         order, on every rank."""
-        return self._trim_rows(self._rows_to_host(self._right(self._pad_b(b))))
+        return self.rows_to_host(self._right(self.basis(b)))
+
+    # ---- the passes of the core (models/pca.py), on padded bases --------
+    resident = True
+
+    def exact_pass(self, bp: torch.Tensor) -> torch.Tensor:
+        return self._gram(bp)
+
+    def q8_pass(self, bp: torch.Tensor) -> torch.Tensor:
+        return self._gram_q8(bp)
+
+    def ritz_gram(self, q: torch.Tensor):
+        """(A Q)^T (A Q), and `right(v, w)`: this rank's rows A V."""
+        return self._tsq(q), lambda v, w: self._right(v)
+
+    def rows_to_host(self, local: torch.Tensor) -> np.ndarray:
+        """This rank's (d_pad, k) rows -> (n_rows, k) in PCA row order on
+        the host of every rank: a tiled all-gather in rank order."""
+        return self._trim_rows(to_host(mesh.all_gather_rows(local)).numpy())
 
     def _strip_rows(self) -> int:
         """Rows per strip of the torch-side scans: 64 Mi elements."""
@@ -650,96 +666,6 @@ class ShardedMatrix:
                 out += (self._standardized(slice(l0 + off, l0 + off + c)).T
                         @ w_t[p0 + off:p0 + off + c])
         return to_host(mesh.all_reduce_sum(out)[: self.n_samples]).numpy()
-
-    def _power_loop(self, bp: torch.Tensor, n_iter: int, tol: Optional[float]):
-        """Subspace iteration on the padded basis; returns (basis,
-        iterations run).  With q8, `n_iter - q8_polish` quantized
-        steering passes come first and the exact polish passes always
-        run in full; `tol` early-exits the steering loop on the subspace
-        residual (never before one orthonormalised pass: the i > 0
-        guard).  The basis and every pass's result are held orthogonal to
-        the ones vector over the real samples, the rows of padded samples
-        zero (`centre_samples`: the q8 rank-1 term makes them nonzero)."""
-
-        def t_exact(cur):
-            with span("gp.pass.exact_pass"):
-                t = self._gram(cur)
-            return centre_samples(t, self.n_samples)
-
-        def t_q8(cur):
-            with span("gp.pass.q8_pass"):
-                t = self._gram_q8(cur)
-            return centre_samples(t, self.n_samples)
-
-        def orth(t):
-            with span("gp.pca.orth"):
-                return cholqr2_q(t)
-
-        def run(tfn, max_n, cur):
-            if tol is None:
-                for _ in range(max_n):
-                    cur = orth(tfn(cur))
-                return cur, max_n
-            i, res = 0, float("inf")
-            while i < max_n and res >= tol:
-                t = tfn(cur)
-                # From merged data, identical on every rank: every rank
-                # exits at the same step.
-                res = (float(to_host(subspace_residual(cur, t))) if i > 0
-                       else float("inf"))
-                cur = orth(t)
-                i += 1
-            return cur, i
-
-        bp = centre_samples(bp, self.n_samples)
-        if self.kernel_precision != "q8":
-            return run(t_exact, n_iter, bp)
-        n_q8 = max(n_iter - self.q8_polish, 0)
-        out, i1 = run(t_q8, n_q8, bp)
-        n_polish = n_iter - n_q8
-        for _ in range(n_polish):
-            out = orth(t_exact(out))
-        return out, i1 + n_polish
-
-    def power_iterate(self, b0, n_iter: int, tolerance: Optional[float] = None):
-        """n_iter x (B <- orth(A^T A B)) then one Householder QR:
-        (n_samples, l) orthonormal basis, plus the iteration count when
-        `tolerance` is given."""
-        out, n_done = self._power_loop(self._pad_b(b0), n_iter, tolerance)
-        with span("gp.pca.orth"):
-            q, _ = torch.linalg.qr(out)
-        q = q[: self.n_samples]
-        return q if tolerance is None else (q, n_done)
-
-    def pca_core(self, b0, n_iter: int, k: int, tolerance: Optional[float] = None):
-        """Full randomized PCA: (v (n_samples, k), sigma (k,), evals (k,),
-        loadings (n_rows, k) numpy), plus the iteration count when
-        `tolerance` is given.  Power loop, one Householder QR, the
-        Rayleigh-Ritz Gram + eigh (descending, clipped at 0), and
-        loadings A V / sigma with sigma = 0 giving 0."""
-        out, n_done = self._power_loop(self._pad_b(b0), n_iter, tolerance)
-        with span("gp.pca.orth"):
-            q, _ = torch.linalg.qr(out)  # (n_pad, ell) orthonormal
-        with span("gp.pass.rr_gram"):
-            g = self._tsq(q)
-        with span("gp.pca.orth"):
-            evals, w = torch.linalg.eigh(g)
-            order = torch.argsort(evals, descending=True)
-            evals = torch.clamp(evals[order], min=0.0)
-            w = w[:, order]
-            sigma = torch.sqrt(evals)
-            v_full = q @ w  # (n_pad, ell) right singular vectors
-            v_k = v_full[:, :k].contiguous()
-        s_k = sigma[:k]
-        with span("gp.pass.loadings"):
-            c = self._right(v_k)  # (d_pad, k) = A V
-            inv_sigma = torch.where(s_k > 0, 1.0 / torch.where(s_k > 0, s_k, 1.0),
-                                    torch.zeros_like(s_k))
-            c = c * inv_sigma[None, :]
-        with span("gp.pca.to_host"):
-            loadings = self._trim_rows(self._rows_to_host(c))
-        res = (v_full[: self.n_samples, :k], s_k, evals[:k], loadings)
-        return res if tolerance is None else res + (n_done,)
 
     # ---- row layout: segments and ranks ---------------------------------
     @property
@@ -812,11 +738,6 @@ class ShardedMatrix:
         for m0, p0, cnt in self.row_segments:
             out[p0:p0 + cnt] = arr[m0:m0 + cnt]
         return out
-
-    def _rows_to_host(self, local: torch.Tensor) -> np.ndarray:
-        """This rank's (d_pad, k) rows -> the (world d_pad, k) global rows on
-        the host of every rank (a tiled all-gather in rank order)."""
-        return to_host(mesh.all_gather_rows(local)).numpy()
 
     # ---- device-resident block access ---------------------------------
     def fetch_blocks_device(

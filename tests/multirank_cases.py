@@ -9,6 +9,7 @@ module, never tests/conftest.py.
 import numpy as np
 import torch
 
+from genomic_pca_tpu_torch.models.pca import pca_core, power_iterate
 from genomic_pca_tpu_torch.parallel import mesh
 from genomic_pca_tpu_torch.parallel.sharded import ShardedMatrix
 
@@ -34,10 +35,10 @@ def passes(sm: ShardedMatrix, spec) -> dict:
     out["layout"] = (sm.rank, sm.world, sm.row_offset, sm.d_pad)
     if "b0" in spec:
         b0 = torch.from_numpy(spec["b0"])
-        out["q"] = sm.power_iterate(b0, 4).numpy()
-        v, s, e, load = sm.pca_core(b0, 4, 3)
+        out["q"] = power_iterate(sm, b0, 4)[0].numpy()
+        v, s, e, load, _ = pca_core(sm, b0, 4, 3)
         out["pca_core"] = (v.numpy(), s.numpy(), e.numpy(), load)
-        out["n_done"] = {tol: sm.power_iterate(b0, 6, tolerance=tol)[1]
+        out["n_done"] = {tol: power_iterate(sm, b0, 6, tolerance=tol)[1]
                          for tol in spec.get("tolerances", ())}
     return out
 
@@ -170,7 +171,7 @@ def streamed_passes(sm, spec) -> dict:
     out["right"] = sm.right_apply(b)
     acc, project = sm.tsq_and_project(b)
     out["tsq_project"], out["project"] = acc.numpy(), project(spec["w"])
-    acc, ab = sm.tsq_and_capture(b)
+    acc, ab = sm._tsq_and_capture(b)
     out["tsq_capture"], out["capture"] = acc.numpy(), ab
     out["own_strips"] = sm.own_strips
     out["strips_seen"] = [t["strips"] for t in sm.pass_log]
@@ -214,9 +215,9 @@ def strips_worker(specs) -> list:
         out = streamed_passes(container("f32"), spec)
         q8 = container("q8")
         b0 = torch.from_numpy(spec["b0"])
-        out["q8"] = q8._gram_apply_q8(torch.from_numpy(spec["b"])).numpy()
-        out["q"] = q8.power_iterate(b0, 4).numpy()
-        out["n_done"] = {tol: q8.power_iterate(b0, 6, tolerance=tol)[1]
+        out["q8"] = q8.q8_pass(torch.from_numpy(spec["b"])).numpy()
+        out["q"] = power_iterate(q8, b0, 4)[0].numpy()
+        out["n_done"] = {tol: power_iterate(q8, b0, 6, tolerance=tol)[1]
                          for tol in (10.0, 0.0)}
         outs.append(out)
     return outs
@@ -254,7 +255,7 @@ def empty_rank_worker(spec) -> dict:
     sm = ShardedMatrix.from_owned_units([len(spec["unit"][0])], [0], local,
                                         spec["n_samples"], "cpu", tile_d=64,
                                         packed=True, mode="1d")
-    bp = sm._pad_b(torch.from_numpy(spec["b"]))
+    bp = sm.basis(torch.from_numpy(spec["b"]))
     args = (sm.geno, sm.mean, sm.inv_std)
     gram = sm._k1d[0](*args, bp, "bf16")
     bq, sb, csum = quantize_basis(bp)

@@ -412,11 +412,11 @@ def test_dense_power_iterate_and_pca_core_match_reference(rng, mode, precision,
     # from the sketch so centred.
     b0 -= b0.mean(axis=0)
     q_j = np.asarray(sm_j.power_iterate(jnp.asarray(b0), 4))
-    q_t = sm_t.power_iterate(torch.from_numpy(b0), 4).numpy()
+    q_t = tpca.power_iterate(sm_t, torch.from_numpy(b0), 4)[0].numpy()
     for j in range(3):  # the separated prefix (3 = n_pops - 1)
         assert abs_corr(q_j[:, j], q_t[:, j]) > 0.9999, j
     v_j, s_j, e_j, l_j = sm_j.pca_core(jnp.asarray(b0), 4, 3)
-    v_t, s_t, e_t, l_t = sm_t.pca_core(torch.from_numpy(b0), 4, 3)
+    v_t, s_t, e_t, l_t, _ = tpca.pca_core(sm_t, torch.from_numpy(b0), 4, 3)
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=s_rtol)
     np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=2 * s_rtol)
     assert l_t.shape == l_j.shape == (500, 3)
@@ -491,14 +491,14 @@ def test_dense_2d_container_refuses_passes_but_projects(rng):
     geno_j = np.asarray(sm_j.geno)
     iv_j = np.asarray(sm_j.inv_std)
     u_j = np.asarray(sm_j.mean) * iv_j
-    bq, sb, csum = (x.numpy() for x in quantize_basis(sm._pad_b(b)))
+    bq, sb, csum = (x.numpy() for x in quantize_basis(sm.basis(b)))
     out_j, ru_j = pk.q8_power_pass_2d(
         jnp.asarray(geno_j), jnp.asarray(iv_j), jnp.asarray(u_j), jnp.asarray(bq),
         jnp.asarray(sb), jnp.asarray(csum), tile_d=64, tile_n=sm_j.tile_n,
         interpret=True)
     ref = (np.asarray(out_j) - np.asarray(ru_j))[:11_100]
     tk.reset_launch_counts()
-    got = sm._gram_q8(sm._pad_b(b))[:11_100].numpy()
+    got = sm._gram_q8(sm.basis(b))[:11_100].numpy()
     assert all(v == 0 for v in tk.LAUNCHES.values())
     np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-2)
     w = rng.standard_normal((24, 3)).astype(np.float32)

@@ -182,7 +182,7 @@ def test_will_stream_drops_the_capture(tmp_path, rng, monkeypatch):
     assert prep.qc_capture is not None
     monkeypatch.setattr(tprep, "device_memory_budget", lambda device: 1024)
     sm = prep.load_matrix("cpu", strip_size=64)
-    assert not hasattr(sm, "pca_core") and prep.qc_capture is None
+    assert not sm.resident and prep.qc_capture is None
 
 
 def test_device_scan_missing_policy_error(tmp_path, rng):

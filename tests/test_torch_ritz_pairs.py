@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from genomic_pca_tpu_torch.models.pca import pca_core
 from genomic_pca_tpu_torch.ops.rsvd import centre_samples
 from genomic_pca_tpu_torch.parallel import sharded as ts
 from genomic_pca_tpu_torch.utils import profiling
@@ -79,7 +80,7 @@ def test_pca_core_reports_ritz_pairs_of_the_data(cohort, mode, precision, n_iter
     assert sm.mode == mode
     b0 = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
         (N, ELL)).astype(np.float32))
-    v, _, evals, _ = sm.pca_core(b0, n_iter, K)
+    v, _, evals, _, _ = pca_core(sm, b0, n_iter, K)
     v = v.numpy().astype(np.float64)
     got = evals.numpy().astype(np.float64) / (N - 1)
     xv = x @ v
@@ -124,7 +125,7 @@ def test_passes_2d_counts_each_pass_of_the_2d_mode(n_iter, precision, passes):
     b0 = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (300, 16)).astype(np.float32))
     profiling.reset_counts()
-    sm.pca_core(b0, n_iter, 4)
+    pca_core(sm, b0, n_iter, 4)
     assert profiling.COUNTS["passes_2d"] == passes
     # The public passes count one each; the Gram's right product is part
     # of it.
@@ -141,7 +142,7 @@ def test_passes_2d_stays_out_in_the_1d_mode():
     profiling.reset_counts()
     b0 = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (300, 16)).astype(np.float32))
-    sm.pca_core(b0, 4, 4)
+    pca_core(sm, b0, 4, 4)
     sm.gram_apply(b0)
     assert profiling.COUNTS.get("passes_2d", 0) == 0
     assert set(profiling.COUNTS) == {"d2h_bytes", "table_rows_native",

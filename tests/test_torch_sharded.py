@@ -197,11 +197,11 @@ def test_power_iterate_and_pca_core_match_reference(rng, mode, precision,
     _, sm_j, sm_t = _pair(rng, mode, precision, n_pops=4)
     b0 = np.random.default_rng(6).standard_normal((70, 8)).astype(np.float32)
     q_j = np.asarray(sm_j.power_iterate(jnp.asarray(b0), 4))
-    q_t = sm_t.power_iterate(torch.from_numpy(b0), 4).numpy()
+    q_t = tpca.power_iterate(sm_t, torch.from_numpy(b0), 4)[0].numpy()
     for j in range(3):  # the separated prefix (3 = n_pops - 1)
         assert abs_corr(q_j[:, j], q_t[:, j]) > 0.9999, j
     v_j, s_j, e_j, l_j = sm_j.pca_core(jnp.asarray(b0), 4, 3)
-    v_t, s_t, e_t, l_t = sm_t.pca_core(torch.from_numpy(b0), 4, 3)
+    v_t, s_t, e_t, l_t, _ = tpca.pca_core(sm_t, torch.from_numpy(b0), 4, 3)
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=s_rtol)
     np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=2 * s_rtol)
     assert l_t.shape == l_j.shape == (500, 3)
@@ -218,8 +218,8 @@ def test_tolerance_early_exit_matches_reference(rng, tol, expect):
     _, sm_j, sm_t = _pair(rng, "pallas_interpret", "q8")
     b0 = np.random.default_rng(7).standard_normal((70, 8)).astype(np.float32)
     _, n_j = sm_j.power_iterate(jnp.asarray(b0), 6, tolerance=tol)
-    _, n_t = sm_t.power_iterate(torch.from_numpy(b0), 6, tolerance=tol)
-    *_, n_core = sm_t.pca_core(torch.from_numpy(b0), 6, 3, tolerance=tol)
+    _, n_t = tpca.power_iterate(sm_t, torch.from_numpy(b0), 6, tolerance=tol)
+    *_, n_core = tpca.pca_core(sm_t, torch.from_numpy(b0), 6, 3, tolerance=tol)
     assert n_t == n_j == n_core == expect
 
 

@@ -18,6 +18,7 @@ import torch
 from genomic_pca_tpu.ops.stream import StripedMatrix as JStripedMatrix
 from genomic_pca_tpu_torch.models import pca as tpca
 from genomic_pca_tpu_torch.models.exact import exact_pca_from_strips
+from genomic_pca_tpu_torch.ops.operator import StandardizedOperator, StandardizedProducts
 from genomic_pca_tpu_torch.ops.stream import StripedMatrix
 from genomic_pca_tpu_torch.ops.streaming import StreamingMatrix
 from genomic_pca_tpu_torch.parallel import sharded as ts
@@ -166,6 +167,41 @@ def _container(kind, g, packed, mode, precision):
                                                  "cpu", **kw)
     return ts.ShardedMatrix.from_arrays(iter([g]), means=[mean], stds=[std],
                                         device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kind,packed,mode", CONTAINERS)
+def test_containers_give_the_core_its_passes(kind, packed, mode, monkeypatch):
+    """Each production container is a `StandardizedOperator` (the oracle
+    has the products alone), and the core runs the same pass sequence on
+    each: under a tolerance the q8 steering exits after its second pass
+    (the first cannot), the `q8_polish` exact passes run in full, and the
+    pass count says so; without one every pass runs."""
+    g = make_genotypes(np.random.default_rng(3), 300, 200, missing_rate=0.05)
+    mean, std = ts.host_moments(g)
+    oracle = StripedMatrix.from_arrays(iter([g]), means=[mean], stds=[std],
+                                       strip_size=128, device="cpu")
+    assert isinstance(oracle, StandardizedProducts)
+    assert not isinstance(oracle, StandardizedOperator)
+    sm = _container(kind, g, packed, mode, "q8")
+    assert isinstance(sm, StandardizedOperator)
+    assert sm.resident == (kind == "resident")
+    seen = []
+    for name in ("q8_pass", "exact_pass"):
+        def spy(b, name=name, run=getattr(sm, name)):
+            seen.append(name)
+            return run(b)
+        monkeypatch.setattr(sm, name, spy)
+    b0 = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (200, 8)).astype(np.float32))
+    polish = ["exact_pass"] * sm.q8_polish
+    q, done = tpca.power_iterate(sm, b0, 6, tolerance=10.0)
+    assert seen == ["q8_pass"] * 2 + polish and done == 2 + sm.q8_polish
+    assert q.shape == (200, 8)
+    np.testing.assert_allclose(q.T @ q, np.eye(8), atol=1e-5)
+    seen.clear()
+    *_, loadings, done = tpca.pca_core(sm, b0, 6, 3, tolerance=0.0)
+    assert seen == ["q8_pass"] * (6 - sm.q8_polish) + polish and done == 6
+    assert loadings.shape == (300, 3)
 
 
 @pytest.mark.parametrize("name", PASSES)

@@ -94,7 +94,7 @@ def test_streaming_passes_match_reference(rng, packed, mode, name):
 
 @pytest.mark.parametrize("packed,mode", CASES)
 def test_streaming_q8_pca_matches_reference(packed, mode):
-    """q8 steering then the exact polish, then tsq_and_capture loadings:
+    """q8 steering then the exact polish, then the fused Gram and loadings:
     per-PC |r| > 0.999 against the JAX streaming run and the float64
     oracle over the separated prefix, eigenvalues within 5e-3 (the
     reference's q8 bar, tests/test_q8.py:112-114)."""
@@ -153,7 +153,7 @@ def test_tsq_and_project_matches_capture_and_tsq(rng):
     b = torch.from_numpy(rng.standard_normal((90, 6)).astype(np.float32))
     w = rng.standard_normal((6, 3)).astype(np.float32)
     g_p, project = sm.tsq_and_project(b)
-    g_c, ab = sm.tsq_and_capture(b)
+    g_c, ab = sm._tsq_and_capture(b)
     np.testing.assert_allclose(g_p.numpy(), g_c.numpy(), rtol=1e-6)
     np.testing.assert_allclose(g_p.numpy(), sm.tsq_accumulate(b).numpy(), rtol=1e-6)
     np.testing.assert_allclose(project(w), ab @ w, rtol=1e-5, atol=1e-5)

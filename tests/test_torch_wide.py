@@ -17,6 +17,7 @@ import torch
 from genomic_pca_tpu.ops import pallas_kernels as pk
 from genomic_pca_tpu.parallel import sharded as js
 from genomic_pca_tpu.parallel.mesh import make_mesh
+from genomic_pca_tpu_torch.models import pca as tpca
 from genomic_pca_tpu_torch.ops import kernels as tk
 from genomic_pca_tpu_torch.ops.rsvd import quantize_basis
 from genomic_pca_tpu_torch.parallel import sharded as ts
@@ -249,11 +250,11 @@ def test_2d_power_iterate_and_pca_core_match_reference(rng, precision, s_rtol):
     _, sm_j, sm_t = _pair2d(rng, precision)
     b0 = np.random.default_rng(6).standard_normal((2100, 8)).astype(np.float32)
     q_j = np.asarray(sm_j.power_iterate(jnp.asarray(b0), 4))
-    q_t = sm_t.power_iterate(torch.from_numpy(b0), 4).numpy()
+    q_t = tpca.power_iterate(sm_t, torch.from_numpy(b0), 4)[0].numpy()
     for j in range(3):  # the separated prefix (n_pops - 1)
         assert abs_corr(q_j[:, j], q_t[:, j]) > 0.9999, j
     v_j, s_j, e_j, l_j = sm_j.pca_core(jnp.asarray(b0), 4, 3)
-    v_t, s_t, e_t, l_t = sm_t.pca_core(torch.from_numpy(b0), 4, 3)
+    v_t, s_t, e_t, l_t, _ = tpca.pca_core(sm_t, torch.from_numpy(b0), 4, 3)
     np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=s_rtol)
     np.testing.assert_allclose(e_t.numpy(), np.asarray(e_j), rtol=2 * s_rtol)
     for j in range(3):
@@ -267,7 +268,7 @@ def test_2d_tsq_takes_w_in_f32_and_1d_in_bf16(rng):
     _, sm_j, sm_t = _pair2d(rng, "bf16")
     b = torch.from_numpy(
         np.random.default_rng(9).standard_normal((2100, 4)).astype(np.float32))
-    w = sm_t._right(sm_t._pad_b(b))
+    w = sm_t._right(sm_t.basis(b))
     np.testing.assert_array_equal(sm_t.tsq_accumulate(b).numpy(), (w.T @ w).numpy())
     sm_1d = ts.ShardedMatrix(sm_t.geno, sm_t.mean, sm_t.inv_std, sm_t.n_rows,
                              sm_t.n_samples, "cpu", kernel_precision="bf16",
